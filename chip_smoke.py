@@ -13,17 +13,35 @@ the CPU path):
 2. build: every kernel under ``sparktorch_tpu_torch/ops/csrc`` built with
    ``nvcc`` from the checkout's sources, all sources at once;
 3. kernels: each kernel against its plain PyTorch version on the same
-   seeded inputs, at the serving path's shapes and a few more, with
-   its time beside the plain version's, the library call's (SDPA) and
-   the bound (the least time the card could take);
-4. slice: full-width BERT-base (``bert_base(attn_impl="flash")``, seeded
+   seeded inputs, at the shapes its paths give it and a few more, with
+   its time beside the plain version's, the library call's and the
+   bound (the least time the card could take): the flash forward
+   (library: SDPA), the flash backward's dq and dk/dv kernels (library:
+   SDPA's backward alone) and the fused cross-entropy forward and
+   backward (library: ``F.cross_entropy`` and its backward);
+4. serve: full-width BERT-base (``bert_base(attn_impl="flash")``, seeded
    random weights) packaged with ``serialize_torch_obj`` and served by
    ``create_spark_torch_model(...).transform`` over 2,000 rows of 128
    token ids (one full 1024-row chunk and one padded chunk). The
-   kernel must be launched 12 layers × 2 chunks = 24 times, and the
-   logits must agree with the dense-attention path on the same weights;
-   then 256 rows at the model's max_len of 512. One more served pass
-   runs under torch.profiler for the device time by kernel family.
+   forward kernel must be launched 12 layers × 2 chunks = 24 times, and
+   the logits must agree with the dense-attention path on the same
+   weights; then 256 rows at the model's max_len of 512. One more served
+   pass runs under torch.profiler for the device time by kernel family;
+5. train LM: the JAX package's long-context LM training config
+   (``bench_long_context_lm``: CausalLM, vocab 32768, d_model 512, 8
+   heads, 4 layers, d_ff 2048, s = 8192, flash attention, remat, AdamW
+   lr 3e-4) at full width and depth, fitted by ``SparkTorch(...).fit``
+   for 6 steps on 2 rows of 8,192 seeded ids with next-token labels. Per
+   step: 2·4 forward launches (remat recomputes each layer), 4 dq, 4
+   dk/dv, 1 CE forward and 1 CE backward; every loss finite and the last
+   below the first. One step runs under torch.profiler;
+6. train parity: one step of that LM at s = 2048 with flash attention and
+   the fused CE against the same weights with dense attention and the
+   dense CE: loss within 1e-2 (relative), grad norm within 1e-2, and a
+   gradient cosine above 0.99 for every parameter;
+7. train BERT: ``bert_base(attn_impl="flash")``, Adam lr 2e-5, 128 rows of
+   128 ids with 2 classes, 4 steps: 12 forward, 12 dq and 12 dk/dv
+   launches per step and no CE kernel (2-D logits take the dense loss).
 
 The second-to-last line is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -44,12 +62,72 @@ PEAK_BYTES_PER_S = 3.35e12
 # another order; f32 differs only by summation order.
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
 LSE_TOL = {"bfloat16": (1e-3, 1e-3), "float32": (1e-4, 1e-4)}
+# Backward kernels vs plain: relative L2 error of every 64-row tile (one
+# block's work) of each (batch, head), each against its own reference.
+# bf16 outputs round at 2^-9 of their size, so 1e-2 is a few ulps; f32
+# differs by summation order only.
+TILE_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# CE backward vs plain on the same lse, every entry relative to itself:
+# a bf16 entry may round one ulp (2^-8) the other way; f32 differs by
+# expf's few ulps.
+CE_GRAD_RTOL = {"bfloat16": 1e-2, "float32": 1e-5}
 
 SLICE_ROWS, SLICE_SEQ, CHUNK = 2000, 128, 1024
+
+# The JAX package's bench_long_context_lm (sparktorch_tpu/bench.py).
+LM = dict(vocab_size=32768, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
+          remat=True)
+LM_BATCH, LM_SEQ, LM_ITERS, PARITY_SEQ = 2, 8192, 6, 2048
+BERT_ROWS, BERT_SEQ, BERT_ITERS = 128, 128, 4
+
+KERNELS = {
+    "flash_fwd": ("sparktorch_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "sparktorch_tpu/ops/flash_attention.py:155"),
+    "flash_bwd_dq": ("sparktorch_tpu_torch/ops/csrc/flash_bwd.cu",
+                     "sparktorch_tpu/ops/flash_attention.py:375"),
+    "flash_bwd_dkv": ("sparktorch_tpu_torch/ops/csrc/flash_bwd.cu",
+                      "sparktorch_tpu/ops/flash_attention.py:394"),
+    "ce_fwd": ("sparktorch_tpu_torch/ops/csrc/fused_ce.cu",
+               "sparktorch_tpu/ops/fused_ce.py:99"),
+    "ce_bwd": ("sparktorch_tpu_torch/ops/csrc/fused_ce.cu",
+               "sparktorch_tpu/ops/fused_ce.py:159"),
+}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def counters():
+    """Each kernel's wrapper, which carries its launch count."""
+    from sparktorch_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+    from sparktorch_tpu_torch.ops.fused_ce import (
+        fused_ce_backward,
+        fused_ce_forward,
+    )
+
+    return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv, "ce_fwd": fused_ce_forward,
+            "ce_bwd": fused_ce_backward}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def expect_counts(path, got, want):
+    if got != want:
+        raise AssertionError(f"{path}: kernel launches {got}, expected {want}")
+    log(f"{path}: kernel launches {got}")
 
 
 def time_ms(torch, fn, iters):
@@ -80,6 +158,31 @@ def attention_bound(b, s, h, d, causal, dtype, with_lse, itemsize):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
+def flash_bwd_bound(kind, b, s, h, d, causal, dtype, itemsize):
+    """Least time (ms) for one backward kernel: 6·d FLOPs per kept
+    query-key pair for dq (S, dP, dS·K), 8·d for dk/dv (S, dP, Pᵀ·dO,
+    dSᵀ·Q); q, k, v, dO read once, dq (or dk and dv) written once, lse
+    and D read once."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = (6 if kind == "dq" else 8) * d * b * h * pairs
+    tensors = 5 if kind == "dq" else 6
+    nbytes = tensors * b * s * h * d * itemsize + 8 * b * h * s
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def ce_bound(kind, t, v, itemsize):
+    """Least time (ms) for one CE kernel: the logits read once (and, in
+    the backward, the gradient written once) plus the per-token labels,
+    lse, g and loss; ~4 f32 operations per logit (max, subtract, exp,
+    add — the backward's subtract, exp, subtract, multiply)."""
+    nbytes = t * v * itemsize * (1 if kind == "fwd" else 2) + 16 * t
+    t_ops = 4 * t * v / PEAK_FLOPS["float32"]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
 def check_close(name, got, want, atol, rtol):
     err = (got.float() - want.float()).abs()
     bad = err > atol + rtol * want.float().abs()
@@ -88,6 +191,41 @@ def check_close(name, got, want, atol, rtol):
             f"{name}: {int(bad.sum())} elements out of tolerance "
             f"(atol {atol}, rtol {rtol}); max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def check_tiles(torch, name, got, want, tol, tile=64):
+    """Hold each ``tile``-row tile of every (batch, head) of a (batch,
+    seq, heads, head_dim) result to its own reference's size: late rows
+    of a causal sequence, whose gradients are small, are checked as
+    closely as the first. Returns (max abs error, worst tile's relative
+    L2 error)."""
+    import torch.nn.functional as F
+
+    b, s, h, d = want.shape
+    pad = (0, 0, 0, 0, 0, -s % tile)
+    diff = F.pad(got.float() - want.float(), pad).view(b, -1, tile, h, d)
+    ref = F.pad(want.float(), pad).view(b, -1, tile, h, d)
+    rel = (diff.square().sum((2, 4))
+           / ref.square().sum((2, 4)).clamp_min(1e-30)).sqrt()
+    worst = float(rel.max())
+    if not worst <= tol:  # a NaN fails too
+        raise AssertionError(
+            f"{name}: worst {tile}-row tile has relative L2 error "
+            f"{worst:.3e} > {tol}")
+    return float(diff.abs().max()), worst
+
+
+def check_rel(torch, name, got, want, rtol):
+    """Every entry within ``rtol`` of its own reference value. Returns
+    (max abs error, worst relative error)."""
+    err = (got.float() - want.float()).abs()
+    rel = err / want.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    worst = float(rel.max())
+    if not worst <= rtol:
+        raise AssertionError(f"{name}: {int((rel > rtol).sum())} entries "
+                             f"off by more than {rtol} of themselves; worst "
+                             f"{worst:.3e}")
+    return float(err.max()), worst
 
 
 def kernel_phase(torch):
@@ -102,6 +240,8 @@ def kernel_phase(torch):
     # (label, b, s, h, d, causal, dtype, return_lse, q/k/v as views of one qkv)
     cases = [
         ("serving chunk", CHUNK, SLICE_SEQ, 12, 64, False, bf16, False, True),
+        ("LM training forward", LM_BATCH, LM_SEQ, 8, 64, True, bf16, True,
+         True),
         ("slice b=8", 8, 128, 12, 64, False, bf16, False, False),
         ("max_len pass", 256, 512, 12, 64, False, bf16, False, True),
         ("long causal lse", 2, 2048, 16, 128, True, bf16, True, False),
@@ -159,8 +299,185 @@ def kernel_phase(torch):
     return results
 
 
-def profile_pass(torch, stm, frame):
-    """Device time by kernel family over one served pass, from a
+def bwd_kernel_phase(torch):
+    """dq and dk/dv kernels against their plain versions, on the same
+    (q, k, v, dO) and the forward kernel's o and lse."""
+    import torch.nn.functional as F
+
+    from sparktorch_tpu_torch.ops.flash_attention import (
+        _delta,
+        flash_attention,
+        flash_bwd_dkv,
+        flash_bwd_dkv_reference,
+        flash_bwd_dq,
+        flash_bwd_dq_reference,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, b, s, h, d, causal, dtype, q/k/v as views of one qkv)
+    cases = [
+        ("LM path", LM_BATCH, LM_SEQ, 8, 64, True, bf16, True),
+        ("BERT path", BERT_ROWS, BERT_SEQ, 12, 64, False, bf16, True),
+        ("ragged causal", 4, 1000, 12, 64, True, bf16, False),
+        ("head_dim 32 causal", 4, 256, 8, 32, True, bf16, False),
+        ("head_dim 128 causal", 2, 2048, 16, 128, True, bf16, False),
+        ("f32", 4, 512, 8, 64, False, f32, False),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = {"dq": [], "dkv": []}
+    for label, b, s, h, d, causal, dtype, fused in cases:
+        if fused:
+            qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda",
+                              dtype=dtype)
+            q, k, v = qkv.unbind(2)
+        else:
+            q, k, v = (torch.randn((b, s, h, d), generator=gen,
+                                   device="cuda", dtype=dtype)
+                       for _ in range(3))
+        do = torch.randn((b, s, h, d), generator=gen, device="cuda",
+                         dtype=dtype)
+        dname = str(dtype).split(".")[-1]
+        with torch.no_grad():
+            o, lse = flash_attention(q, k, v, causal, return_lse=True)
+            delta = _delta(o, do)
+            args = (q, k, v, do, lse, delta, causal)
+            got = {"dq": (flash_bwd_dq(*args),), "dkv": flash_bwd_dkv(*args)}
+            torch.cuda.synchronize()
+            errs, rels = {}, {}
+            for kind, ref in (("dq", flash_bwd_dq_reference),
+                              ("dkv", flash_bwd_dkv_reference)):
+                want = ref(*args)
+                want = want if isinstance(want, tuple) else (want,)
+                pairs = [check_tiles(torch, f"{label} {kind}", g_, w_,
+                                     TILE_TOL[dname])
+                         for g_, w_ in zip(got[kind], want)]
+                errs[kind] = max(a for a, _ in pairs)
+                rels[kind] = max(r for _, r in pairs)
+                del want
+            del got
+            big = b * s * s * h > 2 ** 30
+            ms = {"dq": time_ms(torch, lambda: flash_bwd_dq(*args), 10),
+                  "dkv": time_ms(torch, lambda: flash_bwd_dkv(*args), 10)}
+            plain = {"dq": time_ms(torch, lambda: flash_bwd_dq_reference(
+                         *args), 2 if big else 5),
+                     "dkv": time_ms(torch, lambda: flash_bwd_dkv_reference(
+                         *args), 2 if big else 5)}
+            torch.cuda.empty_cache()
+        # Library yardstick: the backward alone of SDPA (it computes dq,
+        # dk and dv together, so it stands beside both kernels' sum).
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        gt = do.transpose(1, 2)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), gt, retain_graph=True), 10)
+        del out, qt, kt, vt
+        for kind in ("dq", "dkv"):
+            bound_ms, bound_by = flash_bwd_bound(kind, b, s, h, d, causal,
+                                                 dname, q.element_size())
+            results[kind].append(dict(
+                label=label, b=b, s=s, h=h, d=d, causal=causal, dtype=dname,
+                max_abs_err=errs[kind], max_rel_err=rels[kind], ms=ms[kind],
+                plain_ms=plain[kind], library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by))
+            log(f"kernel flash_bwd_{kind} [{label}] b={b} s={s} h={h} d={d} "
+                f"{dname} causal={causal}: max_abs_err={errs[kind]:.3e} "
+                f"worst_tile_rel_err={rels[kind]:.3e} "
+                f"ms={ms[kind]:.4f} plain_ms={plain[kind]:.4f} "
+                f"sdpa_bwd_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+                f"({bound_by}; roofline share {100 * bound_ms / ms[kind]:.1f}%)")
+        del q, k, v, do, o, lse, delta, args
+        torch.cuda.empty_cache()
+    return results
+
+
+def ce_kernel_phase(torch):
+    """CE forward and backward kernels against their plain versions."""
+    import torch.nn.functional as F
+
+    from sparktorch_tpu_torch.ops.fused_ce import (
+        fused_ce_backward,
+        fused_ce_backward_reference,
+        fused_ce_forward,
+        fused_ce_reference,
+    )
+
+    cases = [
+        ("LM path", LM_BATCH * LM_SEQ, LM["vocab_size"], torch.float32),
+        ("ragged vocab 30522", LM_BATCH * LM_SEQ, 30522, torch.float32),
+        ("bf16", 4096, LM["vocab_size"], torch.bfloat16),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = {"fwd": [], "bwd": []}
+    for label, t, v, dtype in cases:
+        logits = (4 * torch.randn((t, v), generator=gen, device="cuda")
+                  ).to(dtype)
+        labels = torch.randint(0, v, (t,), generator=gen, device="cuda")
+        g = torch.rand((t,), generator=gen, device="cuda")
+        dname = str(dtype).split(".")[-1]
+        loss, lse = fused_ce_forward(logits, labels)
+        want_loss, want_lse = fused_ce_reference(logits, labels)
+        # f32 loss/lse differ by summation order (running vs one-shot
+        # logsumexp); the gradient is in the logits' dtype.
+        err_fwd = max(check_close(f"CE {label} loss", loss, want_loss,
+                                  1e-4, 1e-5),
+                      check_close(f"CE {label} lse", lse, want_lse,
+                                  1e-4, 1e-5))
+        # The backward on the same lse, so the check is the kernel's alone.
+        grad = fused_ce_backward(logits, labels, lse, g)
+        want_grad = fused_ce_backward_reference(logits, labels, lse, g)
+        err_bwd, rel_bwd = check_rel(torch, f"CE {label} grad", grad,
+                                     want_grad, CE_GRAD_RTOL[dname])
+        del grad, want_grad, loss, want_loss
+        ms = {"fwd": time_ms(torch, lambda: fused_ce_forward(logits, labels),
+                             20),
+              "bwd": time_ms(torch, lambda: fused_ce_backward(
+                  logits, labels, lse, g), 20)}
+        plain = {"fwd": time_ms(torch, lambda: fused_ce_reference(
+                     logits, labels), 5),
+                 "bwd": time_ms(torch, lambda: fused_ce_backward_reference(
+                     logits, labels, lse, g), 5)}
+        library = {"fwd": time_ms(torch, lambda: F.cross_entropy(
+            logits, labels, reduction="none"), 20)}
+        x = logits.detach().requires_grad_()
+        out = F.cross_entropy(x, labels, reduction="none")
+        library["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+            out, x, g, retain_graph=True), 20)
+        del out, x
+        for kind, err, rel in (("fwd", err_fwd, None),
+                               ("bwd", err_bwd, rel_bwd)):
+            bound_ms, bound_by = ce_bound(kind, t, v, logits.element_size())
+            results[kind].append(dict(
+                label=label, t=t, v=v, dtype=dname, max_abs_err=err,
+                ms=ms[kind], plain_ms=plain[kind], library_ms=library[kind],
+                bound_ms=bound_ms, bound_by=bound_by,
+                **({} if rel is None else {"max_rel_err": rel})))
+            log(f"kernel ce_{kind} [{label}] t={t} v={v} {dname}: "
+                f"max_abs_err={err:.3e} "
+                + ("" if rel is None else f"max_rel_err={rel:.3e} ")
+                + f"ms={ms[kind]:.4f} "
+                f"plain_ms={plain[kind]:.4f} library_ms={library[kind]:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by}; roofline share "
+                f"{100 * bound_ms / ms[kind]:.1f}%)")
+        del logits, labels, g, lse
+        torch.cuda.empty_cache()
+    return results
+
+
+def kernel_family(name):
+    name = name.lower()
+    for family in ("flash_fwd", "flash_bwd", "ce_fwd_kernel", "ce_bwd_kernel"):
+        if family in name:
+            return family.replace("_kernel", "")
+    if "memcpy" in name:
+        return "memcpy"
+    if any(k in name for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+        return "gemm"
+    return "other"
+
+
+def profile_pass(torch, label, fn):
+    """Device time by kernel family over one call of ``fn``, from a
     torch.profiler trace (its wall is inflated by the profiler, so it
     is not the throughput). Prints "not measured" if the trace holds
     no device events."""
@@ -169,7 +486,8 @@ def profile_pass(torch, stm, frame):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stm.transform(frame)
+        fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_family, other = [], {}, {}
     for evt in prof.events():
@@ -177,17 +495,12 @@ def profile_pass(torch, stm, frame):
             continue
         start, end = evt.time_range.start, evt.time_range.end
         spans.append((start, end))
-        name = evt.name.lower()
-        family = ("flash_fwd" if "flash_fwd" in name else
-                  "memcpy" if "memcpy" in name else
-                  "gemm" if any(k in name for k in ("gemm", "cutlass", "xmma",
-                                                    "nvjet", "cublas"))
-                  else "other")
+        family = kernel_family(evt.name)
         by_family[family] = by_family.get(family, 0.0) + (end - start)
         if family == "other":
             other[evt.name] = other.get(evt.name, 0.0) + (end - start)
     if not spans:
-        log("profile: no device events in the trace; not measured")
+        log(f"profile [{label}]: no device events in the trace; not measured")
         return
     spans.sort()
     busy, cur_start, cur_end = 0.0, *spans[0]
@@ -202,7 +515,7 @@ def profile_pass(torch, stm, frame):
     shares = ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / total:.1f}%)"
                        for k, v in sorted(by_family.items(),
                                           key=lambda kv: -kv[1]))
-    log(f"profile [one served pass, {len(spans)} device events]: {shares}; "
+    log(f"profile [{label}, {len(spans)} device events]: {shares}; "
         f"device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
         f"({100 * (1 - busy / wall_us):.1f}% idle, profiler on)")
     for name, us in sorted(other.items(), key=lambda kv: -kv[1])[:6]:
@@ -217,7 +530,6 @@ def slice_phase(torch):
         serialize_torch_obj,
     )
     from sparktorch_tpu_torch.models import bert_base
-    from sparktorch_tpu_torch.ops.flash_attention import flash_attention
 
     torch.manual_seed(0)
     t0 = time.perf_counter()
@@ -241,19 +553,17 @@ def slice_phase(torch):
     stm.transform({"features": ids[:CHUNK]})  # weights to the card, warm-up
     torch.cuda.synchronize()
 
-    flash_attention.launches = 0
+    none = dict.fromkeys(KERNELS, 0)
+    reset_counts()
     t0 = time.perf_counter()
     preds = stm.transform(frame)["predicted"]
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
-    expected = cfg.n_layers * -(-SLICE_ROWS // CHUNK)
-    if launches != expected:
-        raise AssertionError(f"flash kernel launched {launches} times in "
-                             f"the served pass, expected {expected}")
+    counts = read_counts()
+    expect_counts("serve", counts, dict(
+        none, flash_fwd=cfg.n_layers * -(-SLICE_ROWS // CHUNK)))
     log(f"slice: transform {SLICE_ROWS} rows x {SLICE_SEQ} ids in "
-        f"{wall:.3f} s = {SLICE_ROWS / wall:.1f} rows/s; flash launches "
-        f"{launches}")
-    profile_pass(torch, stm, frame)
+        f"{wall:.3f} s = {SLICE_ROWS / wall:.1f} rows/s")
+    profile_pass(torch, "one served pass", lambda: stm.transform(frame))
 
     dense = bert_base(attn_impl="dense")
     dense.load_state_dict(stm.getModel().module.state_dict())
@@ -284,17 +594,193 @@ def slice_phase(torch):
 
     ids512 = rng.integers(0, cfg.vocab_size,
                           size=(256, cfg.max_len)).astype(np.float32)
-    flash_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     preds512 = stm.transform({"features": ids512})["predicted"]
     wall512 = time.perf_counter() - t0
-    if flash_attention.launches != cfg.n_layers or preds512.shape != (256,):
-        raise AssertionError(f"max_len pass: {flash_attention.launches} "
-                             f"launches, predictions {preds512.shape}")
+    expect_counts(f"serve 256 x {cfg.max_len}", read_counts(),
+                  dict(none, flash_fwd=cfg.n_layers))
+    if preds512.shape != (256,):
+        raise AssertionError(f"max_len pass: predictions {preds512.shape}")
     log(f"slice: transform 256 rows x {cfg.max_len} ids in {wall512:.3f} s "
-        f"= {256 / wall512:.1f} rows/s; flash launches {cfg.n_layers}")
+        f"= {256 / wall512:.1f} rows/s")
     compare(f"256 x {cfg.max_len}", ids512, preds512)
-    return launches, SLICE_ROWS / wall
+    return counts, SLICE_ROWS / wall
+
+
+def fit(torch, payload, frame, iters, path, expected):
+    """``SparkTorch(...).fit`` on the card: one 1-step fit to warm up
+    (cuBLAS handles, allocator), then the measured fit with every
+    launch count set to 0 just before it. Returns the fitted model, the
+    step records, the counts and the fit's wall time."""
+    from sparktorch_tpu_torch import SparkTorch
+
+    def estimator(n):
+        return SparkTorch(inputCol="features", labelCol="label",
+                          torchObj=payload, iters=n, device="cuda")
+
+    estimator(1).fit(frame)
+    torch.cuda.synchronize()
+    est = estimator(iters)
+    reset_counts()
+    t0 = time.perf_counter()
+    model = est.fit(frame)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts(path, counts, expected)
+    records = est._last_metrics
+    losses = [r["loss"] for r in records]
+    if len(records) != iters or not np.isfinite(losses).all():
+        raise AssertionError(f"{path}: {len(records)} steps, losses {losses}")
+    return model, records, counts, wall
+
+
+def lm_config(seq, attn_impl):
+    from sparktorch_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(max_len=seq, attn_impl=attn_impl, **LM)
+
+
+def train_lm_phase(torch):
+    from sparktorch_tpu_torch import deserialize_model, serialize_torch_obj
+    from sparktorch_tpu_torch.models import CausalLM
+    from sparktorch_tpu_torch.train.step import train_step
+    from sparktorch_tpu_torch.utils.data import DataBatch
+
+    cfg = lm_config(LM_SEQ, "flash")
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    payload = serialize_torch_obj(CausalLM(cfg), criterion="cross_entropy",
+                                  optimizer="adamw",
+                                  optimizer_params={"lr": 3e-4})
+    n_params = sum(p.numel() for p in
+                   deserialize_model(payload).abstract_module().parameters())
+    log(f"train LM: CausalLM vocab={cfg.vocab_size} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads} layers={cfg.n_layers} d_ff={cfg.d_ff} "
+        f"s={LM_SEQ} {cfg.dtype} flash remat={cfg.remat}, {n_params:,} "
+        f"params; packaged in {time.perf_counter() - t0:.1f} s")
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (LM_BATCH, LM_SEQ + 1))
+    frame = {"features": list(ids[:, :-1].astype(np.float32)),
+             "label": list(ids[:, 1:])}
+    n = LM_ITERS
+    _, records, counts, wall = fit(
+        torch, payload, frame, n, "train LM",
+        dict(flash_fwd=2 * cfg.n_layers * n, flash_bwd_dq=cfg.n_layers * n,
+             flash_bwd_dkv=cfg.n_layers * n, ce_fwd=n, ce_bwd=n))
+    losses = [r["loss"] for r in records]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train LM: loss did not fall: {losses}")
+    step_s = records[0]["step_time_s"]  # one read-back per chunk: its mean
+    tokens_per_s = LM_BATCH * LM_SEQ / step_s
+    log(f"train LM: {n} steps, losses {[round(x, 4) for x in losses]}; "
+        f"step {step_s * 1e3:.1f} ms = {tokens_per_s:,.0f} tokens/s "
+        f"(fit wall {wall:.2f} s incl. unpacking and H2D)")
+
+    # One more step under the profiler, on the module as the fit built it.
+    spec = deserialize_model(payload)
+    module = spec.make_module().cuda().train()
+    opt = spec.make_optimizer(module.parameters())
+    batch = DataBatch(torch.from_numpy(ids[:, :-1].astype(np.float32)),
+                      torch.from_numpy(ids[:, 1:]),
+                      torch.ones(LM_BATCH)).to("cuda")
+    loss_fn = spec.loss_fn()
+    train_step(module, loss_fn, opt, batch)
+    profile_pass(torch, "one LM training step",
+                 lambda: train_step(module, loss_fn, opt, batch))
+    del module, opt, batch
+    torch.cuda.empty_cache()
+    return counts, dict(step_ms=step_s * 1e3, tokens_per_s=tokens_per_s,
+                        losses=losses)
+
+
+def train_parity_phase(torch):
+    """One step of the LM with flash attention and the fused CE against
+    dense attention and the dense CE, on the same weights."""
+    import torch.nn.functional as F
+
+    from sparktorch_tpu_torch.models import CausalLM
+    from sparktorch_tpu_torch.train.step import train_step
+    from sparktorch_tpu_torch.utils.data import DataBatch
+    from sparktorch_tpu_torch.utils.losses import resolve_loss
+    from sparktorch_tpu_torch.utils.serde import resolve_optimizer
+
+    torch.manual_seed(1)
+    flash = CausalLM(lm_config(PARITY_SEQ, "flash")).cuda()
+    dense = CausalLM(lm_config(PARITY_SEQ, "dense")).cuda()
+    dense.load_state_dict(flash.state_dict())
+    ids = np.random.default_rng(1).integers(0, LM["vocab_size"],
+                                            (LM_BATCH, PARITY_SEQ + 1))
+    batch = DataBatch(torch.from_numpy(ids[:, :-1].astype(np.float32)),
+                      torch.from_numpy(ids[:, 1:]),
+                      torch.ones(LM_BATCH)).to("cuda")
+    out = {}
+    for name, module, loss in (("flash", flash, "cross_entropy"),
+                               ("dense", dense, "cross_entropy_dense")):
+        opt = resolve_optimizer("sgd", {"lr": 0.0})(module.parameters())
+        reset_counts()
+        m = train_step(module, resolve_loss(loss), opt, batch)
+        out[name] = (float(m.loss), float(m.grad_norm), read_counts())
+    n_layers = LM["n_layers"]
+    expect_counts("train parity (flash step)", out["flash"][2], dict(
+        flash_fwd=2 * n_layers, flash_bwd_dq=n_layers,
+        flash_bwd_dkv=n_layers, ce_fwd=1, ce_bwd=1))
+    expect_counts("train parity (dense step)", out["dense"][2],
+                  dict.fromkeys(KERNELS, 0))
+    (loss_f, norm_f, _), (loss_d, norm_d, _) = out["flash"], out["dense"]
+    worst, worst_name = 1.0, None
+    for (name, pf), pd in zip(flash.named_parameters(), dense.parameters()):
+        gf, gd = pf.grad.float().flatten(), pd.grad.float().flatten()
+        if name.endswith("attn.qkv.bias"):
+            # The key third's gradient is zero in exact arithmetic
+            # (softmax ignores a per-query constant): rounding noise only.
+            gf, gd = (g.view(3, -1)[[0, 2]].flatten() for g in (gf, gd))
+        cos = float(F.cosine_similarity(gf, gd, dim=0))
+        if cos < worst:
+            worst, worst_name = cos, name
+    rel_loss = abs(loss_f - loss_d) / abs(loss_d)
+    rel_norm = abs(norm_f - norm_d) / abs(norm_d)
+    log(f"train parity s={PARITY_SEQ}: loss flash {loss_f:.6f} dense "
+        f"{loss_d:.6f} (rel {rel_loss:.2e}); grad norm flash {norm_f:.6f} "
+        f"dense {norm_d:.6f} (rel {rel_norm:.2e}); lowest per-parameter "
+        f"grad cosine {worst:.6f} ({worst_name})")
+    if rel_loss > 1e-2 or rel_norm > 1e-2 or worst < 0.99:
+        raise AssertionError("train parity: flash + fused CE disagrees "
+                             "with dense attention + dense CE")
+    del flash, dense, batch
+    torch.cuda.empty_cache()
+    return dict(rel_loss=rel_loss, rel_grad_norm=rel_norm, min_cosine=worst)
+
+
+def train_bert_phase(torch):
+    from sparktorch_tpu_torch import serialize_torch_obj
+    from sparktorch_tpu_torch.models import bert_base
+
+    torch.manual_seed(2)
+    model = bert_base(attn_impl="flash")
+    layers = model.config.n_layers
+    payload = serialize_torch_obj(model, criterion="cross_entropy",
+                                  optimizer="adam",
+                                  optimizer_params={"lr": 2e-5})
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, model.config.vocab_size, (BERT_ROWS, BERT_SEQ))
+    frame = {"features": list(ids.astype(np.float32)),
+             "label": rng.integers(0, 2, BERT_ROWS).astype(np.float32)}
+    n = BERT_ITERS
+    fitted, records, counts, wall = fit(
+        torch, payload, frame, n, "train BERT",
+        dict(flash_fwd=layers * n, flash_bwd_dq=layers * n,
+             flash_bwd_dkv=layers * n, ce_fwd=0, ce_bwd=0))
+    step_s = records[0]["step_time_s"]
+    preds = fitted.setDevice("cuda").transform(frame)["predictions"]
+    if preds.shape != (BERT_ROWS,) or not np.isin(preds, (0.0, 1.0)).all():
+        raise AssertionError(f"train BERT: predictions {preds[:8]}")
+    log(f"train BERT: {n} steps, losses "
+        f"{[round(r['loss'], 4) for r in records]}; step "
+        f"{step_s * 1e3:.1f} ms = {BERT_ROWS / step_s:,.1f} examples/s "
+        f"(fit wall {wall:.2f} s); the fitted model serves {BERT_ROWS} rows")
+    return counts, dict(step_ms=step_s * 1e3,
+                        examples_per_s=BERT_ROWS / step_s)
 
 
 def main() -> int:
@@ -323,20 +809,39 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    cases = kernel_phase(torch)
-    launches, rows_per_s = slice_phase(torch)
-    main_case = cases[0]
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "sparktorch_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "sparktorch_tpu/ops/flash_attention.py:155",
-        "launches": launches,
-        **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")},
-        "cases": cases,
-    }]
-    log(json.dumps({"kernels": kernels, "slice_rows_per_s": rows_per_s}))
+    fwd_cases = kernel_phase(torch)
+    bwd_cases = bwd_kernel_phase(torch)
+    ce_cases = ce_kernel_phase(torch)
+    serve_counts, rows_per_s = slice_phase(torch)
+    lm_counts, lm = train_lm_phase(torch)
+    parity = train_parity_phase(torch)
+    bert_counts, bert = train_bert_phase(torch)
+
+    # Each kernel's numbers at its main path's shape: the serving chunk
+    # for the forward, the LM training step for the other four.
+    main_cases = {"flash_fwd": fwd_cases, "flash_bwd_dq": bwd_cases["dq"],
+                  "flash_bwd_dkv": bwd_cases["dkv"], "ce_fwd": ce_cases["fwd"],
+                  "ce_bwd": ce_cases["bwd"]}
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        by_path = {"serve": serve_counts[name], "train_lm": lm_counts[name],
+                   "train_bert": bert_counts[name]}
+        cases = main_cases[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": by_path["serve" if name == "flash_fwd"
+                                else "train_lm"],
+            **{k: cases[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+            "max_rel_err": cases[0].get("max_rel_err"),
+            "launches_by_path": by_path,
+            "cases": cases,
+        })
+    log(json.dumps({"kernels": kernels, "serve_rows_per_s": rows_per_s,
+                    "train_lm": lm, "train_parity": parity,
+                    "train_bert": bert}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,10 +5,12 @@ sits beside it, mirrors its layout and names, and runs on an NVIDIA
 Hopper card. Each Pallas kernel of the JAX package becomes a kernel
 written by hand for Hopper (``ops/csrc``).
 
-Ported so far: batch inference (``SparkTorchModel.transform`` and
-``BatchPredictor``) of the transformer family, with flash attention as
-a CUDA kernel, plus model packaging and pipeline persistence. It
-imports neither jax nor anything of ``sparktorch_tpu``.
+Ported so far: synchronous training on one GPU (``SparkTorch.fit``) and
+batch inference (``SparkTorchModel.transform`` and ``BatchPredictor``)
+of the transformer family, with flash attention (forward and backward)
+and the fused cross-entropy as CUDA kernels, plus model packaging and
+pipeline persistence. It imports neither jax nor anything of
+``sparktorch_tpu``.
 """
 
 from sparktorch_tpu_torch.utils.serde import (
@@ -19,7 +21,7 @@ from sparktorch_tpu_torch.utils.serde import (
     serialize_torch_obj,
     serialize_torch_obj_lazy,
 )
-from sparktorch_tpu_torch.ml.estimator import SparkTorchModel
+from sparktorch_tpu_torch.ml.estimator import SparkTorch, SparkTorchModel
 from sparktorch_tpu_torch.ml.pipeline import Pipeline, PipelineModel, PysparkPipelineWrapper
 from sparktorch_tpu_torch.inference import (
     BatchPredictor,
@@ -38,6 +40,7 @@ __all__ = [
     "deserialize_model",
     "serialize_torch_obj",
     "serialize_torch_obj_lazy",
+    "SparkTorch",
     "SparkTorchModel",
     "Pipeline",
     "PipelineModel",

@@ -23,14 +23,14 @@ from sparktorch_tpu_torch.utils.serde import ModelSpec, meta_copy
 
 
 def _resolve_device(device=None) -> torch.device:
-    """``device`` as given, else CUDA; raises when neither is possible.
-    The port never falls back to the CPU on its own."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``device`` as given, else CUDA; raises when CUDA is asked for (or
+    left to the default) and there is no card. The port never falls
+    back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    return dev
 
 
 class BatchPredictor:

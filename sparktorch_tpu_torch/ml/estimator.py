@@ -1,4 +1,10 @@
-"""``SparkTorchModel`` Transformer — the port of ``sparktorch_tpu/ml/estimator.py``.
+"""``SparkTorch`` Estimator and ``SparkTorchModel`` Transformer — the port of ``sparktorch_tpu/ml/estimator.py``.
+
+``SparkTorch.fit`` trains the packaged model with the synchronous
+trainer (:func:`sparktorch_tpu_torch.train.sync.train_distributed`) on
+one device and returns a ``SparkTorchModel`` holding the trained
+``state_dict``. The Param surface is the JAX package's, name for name;
+``device`` defaults to ``"cuda"`` and raises when there is no card.
 
 ``transform`` runs the batched forward over the whole column in fixed
 1024-row chunks (the last one padded) through
@@ -7,8 +13,7 @@ argmax (multi-output), the scalar (single output) or, with
 ``useVectorOut``, the raw output vector per row.
 
 The model runs on CUDA unless ``setDevice("cpu")`` says otherwise; with
-no device set and no CUDA device present, ``transform`` raises. The
-``SparkTorch`` estimator (training) is not ported yet.
+no device set and no CUDA device present, ``transform`` raises.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from sparktorch_tpu_torch.ml.dataset import LocalDataFrame
 from sparktorch_tpu_torch.ml.params import (
+    Estimator,
     Model,
     Param,
     Params,
@@ -159,3 +165,209 @@ class SparkTorchModel(Model):
         else:
             values = flat[:, 0].astype(np.float64)
         return df.with_column(out_col, values)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP, Queue 1: "
+                               f"{item})")
+
+
+class SparkTorch(Estimator):
+    """The training Estimator (reference ``torch_distributed.py:130-349``)."""
+
+    torchObj = Param(Params._dummy(), "torchObj",
+                     "serialized model spec envelope", TypeConverters.toString)
+    mode = Param(Params._dummy(), "mode",
+                 "training mode: synchronous | hogwild",
+                 TypeConverters.toString)
+    device = Param(Params._dummy(), "device",
+                   "device to train on: cuda (default) or cpu",
+                   TypeConverters.toString)
+    iters = Param(Params._dummy(), "iters",
+                  "training iterations per shuffle round", TypeConverters.toInt)
+    partitions = Param(Params._dummy(), "partitions", "data partition hint",
+                       TypeConverters.toInt)
+    verbose = Param(Params._dummy(), "verbose", "loss logging verbosity",
+                    TypeConverters.toInt)
+    acquireLock = Param(Params._dummy(), "acquireLock",
+                        "serialize async server applies",
+                        TypeConverters.toBoolean)
+    partitionShuffles = Param(Params._dummy(), "partitionShuffles",
+                              "global reshuffle rounds", TypeConverters.toInt)
+    port = Param(Params._dummy(), "port", "param-server port (async mode)",
+                 TypeConverters.toInt)
+    useBarrier = Param(Params._dummy(), "useBarrier",
+                       "gang scheduling (always true here)",
+                       TypeConverters.toBoolean)
+    useVectorOut = Param(Params._dummy(), "useVectorOut",
+                         "fitted model emits raw output vectors",
+                         TypeConverters.toBoolean)
+    earlyStopPatience = Param(Params._dummy(), "earlyStopPatience",
+                              "early-stop patience (-1 disables)",
+                              TypeConverters.toInt)
+    miniBatch = Param(Params._dummy(), "miniBatch",
+                      "minibatch size per step (-1 = full batch)",
+                      TypeConverters.toInt)
+    validationPct = Param(Params._dummy(), "validationPct",
+                          "validation split fraction", TypeConverters.toFloat)
+    pushEvery = Param(Params._dummy(), "pushEvery",
+                      "async mode: push mean of every k grads",
+                      TypeConverters.toInt)
+    checkpointDir = Param(Params._dummy(), "checkpointDir",
+                          "step-indexed checkpoint directory (sync mode)",
+                          TypeConverters.toString)
+    checkpointEvery = Param(Params._dummy(), "checkpointEvery",
+                            "save a snapshot every N steps (0 disables)",
+                            TypeConverters.toInt)
+    resume = Param(Params._dummy(), "resume",
+                   "resume from the latest snapshot in checkpointDir",
+                   TypeConverters.toBoolean)
+
+    @keyword_only
+    def __init__(self, inputCol=None, labelCol=None, predictionCol=None,
+                 torchObj=None, iters=None, partitions=None, verbose=None,
+                 mode=None, device=None, acquireLock=None,
+                 partitionShuffles=None, port=None, useBarrier=None,
+                 useVectorOut=None, earlyStopPatience=None, miniBatch=None,
+                 validationPct=None, pushEvery=None, checkpointDir=None,
+                 checkpointEvery=None, resume=None, mesh=None, seed=None,
+                 n_micro=None):
+        super().__init__()
+        self._setDefault(
+            predictionCol="predictions",
+            mode="synchronous",
+            device="cuda",
+            iters=10,
+            verbose=0,
+            acquireLock=True,
+            partitionShuffles=1,
+            port=3000,
+            useBarrier=True,
+            useVectorOut=False,
+            earlyStopPatience=-1,
+            miniBatch=-1,
+            validationPct=0.0,
+            pushEvery=1,
+            checkpointEvery=0,
+            resume=False,
+        )
+        self._mesh, self._seed, self._n_micro = None, 0, 4
+        self._set_args(self._input_kwargs)
+
+    def _set_args(self, kwargs: dict):
+        """mesh, seed and n_micro are plain attributes, not ML Params;
+        the rest are Params."""
+        kwargs = dict(kwargs)
+        if "mesh" in kwargs:
+            self._mesh = kwargs.pop("mesh")
+        for key, attr in (("seed", "_seed"), ("n_micro", "_n_micro")):
+            value = kwargs.pop(key, None)
+            if value is not None:
+                setattr(self, attr, int(value))
+        return self._set(**kwargs)
+
+    @keyword_only
+    def setParams(self, **kwargs):
+        return self._set_args(self._input_kwargs)
+
+    def getTorchObj(self):
+        return self.getOrDefault(self.torchObj)
+
+    def getMode(self):
+        return self.getOrDefault(self.mode)
+
+    def getDevice(self):
+        return self.getOrDefault(self.device)
+
+    def getIters(self):
+        return self.getOrDefault(self.iters)
+
+    def getPartitions(self):
+        return (self.getOrDefault(self.partitions)
+                if self.isDefined(self.partitions) else -1)
+
+    def getVerbose(self):
+        return self.getOrDefault(self.verbose)
+
+    def getAcquireLock(self):
+        return self.getOrDefault(self.acquireLock)
+
+    def getPartitionShuffles(self):
+        return self.getOrDefault(self.partitionShuffles)
+
+    def getPort(self):
+        return self.getOrDefault(self.port)
+
+    def getUseBarrier(self):
+        return self.getOrDefault(self.useBarrier)
+
+    def getUseVectorOut(self):
+        return self.getOrDefault(self.useVectorOut)
+
+    def getEarlyStopPatience(self):
+        return self.getOrDefault(self.earlyStopPatience)
+
+    def getMiniBatch(self):
+        return self.getOrDefault(self.miniBatch)
+
+    def getValidationPct(self):
+        return self.getOrDefault(self.validationPct)
+
+    def getCheckpointDir(self):
+        return (self.getOrDefault(self.checkpointDir)
+                if self.isDefined(self.checkpointDir) else None)
+
+    def getCheckpointEvery(self):
+        return self.getOrDefault(self.checkpointEvery)
+
+    def getResume(self):
+        return self.getOrDefault(self.resume)
+
+    def _extract_xy(self, df: LocalDataFrame):
+        x = df.column_matrix(self.getInputCol())
+        label_col = self.getLabelCol()
+        y = None
+        if label_col is not None and label_col in df.columns:
+            col = df[label_col]
+            y = (np.stack([np.asarray(v) for v in col]) if col.dtype == object
+                 else np.asarray(col))
+        return x, y
+
+    def _fit(self, dataset) -> SparkTorchModel:
+        mode = self.getMode()
+        if mode in ("hogwild", "async"):
+            raise _not_ported("mode 'hogwild'", "hogwild")
+        if mode not in ("synchronous", "sync", "barrier"):
+            raise ValueError(
+                f"unknown mode {mode!r}; use 'synchronous' or 'hogwild'")
+        if self.getCheckpointDir():
+            raise _not_ported("checkpointDir", "utils/checkpoint.py")
+        if self._mesh is not None or self._n_micro != 4:
+            raise _not_ported("a mesh or n_micro setting",
+                              "multi-GPU training and train/pipeline.py")
+
+        from sparktorch_tpu_torch.train.sync import train_distributed
+
+        df = LocalDataFrame.from_any(dataset)
+        x, y = self._extract_xy(df)
+        mini_batch = self.getMiniBatch()
+        result = train_distributed(
+            self.getTorchObj(),
+            x,
+            labels=y,
+            iters=self.getIters(),
+            partition_shuffles=self.getPartitionShuffles(),
+            verbose=self.getVerbose(),
+            mini_batch=mini_batch if mini_batch and mini_batch > 0 else None,
+            validation_pct=self.getValidationPct(),
+            early_stop_patience=self.getEarlyStopPatience(),
+            seed=self._seed,
+            device=self.getDevice(),
+        )
+        self._last_metrics = result.metrics
+        return SparkTorchModel(
+            inputCol=self.getInputCol(),
+            predictionCol=self.getPredictionCol(),
+            modStr=_encode_bundle(result.spec, result.params),
+            useVectorOut=self.getUseVectorOut(),
+        )

@@ -1,8 +1,9 @@
 """Transformer encoder / LM family — the port of ``sparktorch_tpu/models/transformer.py``.
 
-Forward only. The numerics follow the Flax modules so that weights
-carried over by :mod:`sparktorch_tpu_torch.convert` give the same
-outputs:
+Forward and backward (training goes through autograd; flash attention
+and the fused cross-entropy have their own backward kernels). The
+numerics follow the Flax modules so that weights carried over by
+:mod:`sparktorch_tpu_torch.convert` give the same outputs:
 
 - parameters are stored in float32 and cast to the compute dtype at
   use; Dense outputs are in the compute dtype;
@@ -12,7 +13,10 @@ outputs:
 - GELU is the tanh approximation;
 - ``pos_embed`` is cast to the compute dtype and sliced to the length;
 - float ids are cast to int;
-- the classifier head and the CausalLM head compute in float32.
+- the classifier head and the CausalLM head compute in float32;
+- ``remat=True`` recomputes each encoder layer in the backward
+  (``torch.utils.checkpoint``, the counterpart of ``nn.remat``), so
+  only the layer inputs are kept between forward and backward.
 
 ``attn_impl``: ``"dense"`` (:func:`~sparktorch_tpu_torch.ops.attention.
 dense_attention`), ``"flash"`` (the Hopper kernel in
@@ -31,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sparktorch_tpu_torch.ops.attention import dense_attention
 from sparktorch_tpu_torch.ops.flash_attention import flash_attention
@@ -137,7 +142,8 @@ class MultiHeadAttention(nn.Module):
         cfg = self.config
         b, s, _ = x.shape
         qkv = self.qkv(x).view(b, s, 3, cfg.n_heads, cfg.head_dim)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (b, s, h, hd)
+        # Strided (b, s, h, hd) views; their backward stacks dq, dk, dv.
+        q, k, v = qkv.unbind(2)
         if cfg.attn_impl == "flash":
             out = flash_attention(q, k, v, cfg.causal)
         else:
@@ -191,8 +197,9 @@ class Transformer(nn.Module):
         s = ids.shape[1]
         embed = self.tok_embed if embed is None else embed
         x = embed(ids) + self.pos_embed[None, :s].to(cfg.compute_dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x)
+            x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
         return self.ln_final(x)
 
 

@@ -1,0 +1,540 @@
+// Flash-attention backward for Hopper (sm_90a), with a plain C interface.
+//
+// Replaces the two TPU kernels of sparktorch_tpu/ops/flash_attention.py that
+// `_flash_bwd_impl` launches: `_bwd_dq_kernel` and `_bwd_dkv_kernel`. Both
+// recompute the probabilities block by block from the forward's per-row
+// logsumexp, p = exp(Q·Kᵀ·scale − lse), so the (s × s) matrix never reaches
+// device memory, and take D = rowsum(dO ∘ O) (computed by the wrapper, as the
+// TPU wrapper does outside Pallas):
+//   dq kernel:  dp = dO·Vᵀ, ds = p·(dp − D), dQ = scale·Σ_keys ds·K
+//   dkv kernel: dV = Σ_queries pᵀ·dO, dK = scale·Σ_queries dsᵀ·Q
+// The roundings follow the TPU kernels: ds is rounded to the input dtype
+// before ds·K and dsᵀ·Q, p before pᵀ·dO; every product accumulates in f32.
+//
+// What bounds it on the card. Per (batch, head) the two kernels read Q, K, V
+// and dO and write dQ, dK and dV (7·s·d elements) against 6·d (dq) and 8·d
+// (dkv) FLOPs per query-key pair the mask keeps: at the training shape
+// (s = 8192, d = 64, causal) that is ~1,100 FLOPs per byte, so the tensor
+// cores are the bound; at BERT's s = 128 it is ~50 and memory is.
+//
+// Design (a simple, correct first version; TMA, wgmma and pipelining later):
+//   * The TPU split is kept. The dq kernel runs one block per (64-row Q tile,
+//     batch·head) and loops over the K/V tiles up to the diagonal when causal;
+//     the dkv kernel runs one block per (64-row K tile, batch·head) and loops
+//     over the Q tiles from the diagonal on. Each output is owned by one
+//     block, so no atomics and no second pass.
+//   * bf16: four warps, each owning 16 rows of the block's tile, run
+//     mma.sync m16n8k16. The dq kernel computes S = Q·Kᵀ and dP = dO·Vᵀ with
+//     Q and dO as A operands; the dkv kernel computes the transposes
+//     Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with K and V as A operands, so every warp
+//     holds the rows it accumulates (dQ, or dK and dV) in registers. The
+//     accumulator of two neighbouring 8-column tiles is the A operand of the
+//     next product (ds·K, pᵀ·dO, dsᵀ·Q) after rounding to bf16. Every tile
+//     sits in shared memory with 8 padding elements a row.
+//   * f32: one thread per row of the block's tile, scalar f32 FMA (never
+//     TF32), a correctness path that matches the plain version to ~1e-6.
+//   * Ragged lengths are masked in the kernel (keys past s_k, queries past
+//     s_q), and q/k/v/dO are read through their (batch, seq, head) strides,
+//     so views of the fused qkv product need no copy.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace flash;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // (b, h, s_q)
+  const float* delta;  // (b, h, s_q): rowsum(dO ∘ O)
+  void* dq;
+  void* dk;
+  void* dv;
+  int h, s_q, s_k;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long do_sb, do_ss, do_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  float scale;
+  int causal;
+};
+
+__device__ __forceinline__ bool masked(const Params& p, int key, int qpos) {
+  return key >= p.s_k || qpos >= p.s_q || (p.causal && key > qpos);
+}
+
+// K tiles a Q tile visits (dq): causal stops at the diagonal tile.
+__device__ __forceinline__ int k_tile_end(const Params& p, int q_tile) {
+  int n = (p.s_k + kBlockK - 1) / kBlockK;
+  if (p.causal) n = min(n, (q_tile * kBlockQ + kBlockQ - 1) / kBlockK + 1);
+  return n;
+}
+
+// First Q tile a K tile visits (dkv): causal starts at the diagonal tile.
+__device__ __forceinline__ int q_tile_begin(const Params& p, int k_tile) {
+  return p.causal ? (k_tile * kBlockK) / kBlockQ : 0;
+}
+
+template <typename T>
+__device__ __forceinline__ const T* slice(const void* base, int bi, int hi,
+                                          long long sb, long long sh) {
+  return static_cast<const T*>(base) + bi * sb + hi * sh;
+}
+
+template <typename T>
+__device__ __forceinline__ T* slice_out(void* base, int bi, int hi,
+                                        long long sb, long long sh) {
+  return static_cast<T*>(base) + bi * sb + hi * sh;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores through mma.sync
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr int bf16_smem_bytes() {
+  // Four 64-row tiles (pitch D + 8) and the 64 lse and D values of a Q tile.
+  return 4 * 64 * (D + 8) * 2 + 2 * 64 * 4;
+}
+
+// S (or Sᵀ) and dP (or dPᵀ) for a warp's 16 rows against the 64 rows of two
+// other tiles: acc_s = A1·B1ᵀ, acc_p = A2·B2ᵀ, the A rows taken from a1/a2
+// (rows r0..r0+15) and the B rows from b1/b2 (all 64 rows), over D columns.
+template <int D, int LD>
+__device__ __forceinline__ void two_products(float acc_s[8][4],
+                                             float acc_p[8][4],
+                                             const __nv_bfloat16* a1,
+                                             const __nv_bfloat16* a2,
+                                             const __nv_bfloat16* b1,
+                                             const __nv_bfloat16* b2, int r0,
+                                             int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_s[j][e] = acc_p[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t fa1[4], fa2[4];
+    load_a_frag<LD>(fa1, a1, r0, kk, g, t);
+    load_a_frag<LD>(fa2, a2, r0, kk, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int off = (j * 8 + g) * LD + kk * 16 + 2 * t;
+      mma_16816(acc_s[j], fa1, ld32(b1 + off), ld32(b1 + off + 8));
+      mma_16816(acc_p[j], fa2, ld32(b2 + off), ld32(b2 + off + 8));
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(const Params p) {
+  constexpr int LD = D + 8;
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + 64 * LD;
+  __nv_bfloat16* ks = dos + 64 * LD;
+  __nv_bfloat16* vs = ks + 64 * LD;
+
+  const int q_tile = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int bi = bh / p.h, hi = bh % p.h;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = q_tile * kBlockQ;
+  const int r0 = warp * 16;
+
+  const __nv_bfloat16* kp = slice<__nv_bfloat16>(p.k, bi, hi, p.k_sb, p.k_sh);
+  const __nv_bfloat16* vp = slice<__nv_bfloat16>(p.v, bi, hi, p.v_sb, p.v_sh);
+  load_tile_bf16<D, LD>(qs, slice<__nv_bfloat16>(p.q, bi, hi, p.q_sb, p.q_sh),
+                        p.q_ss, q0, p.s_q);
+  load_tile_bf16<D, LD>(dos,
+                        slice<__nv_bfloat16>(p.dout, bi, hi, p.do_sb, p.do_sh),
+                        p.do_ss, q0, p.s_q);
+
+  // This thread's two rows (g and g + 8 of the warp's 16): lse and D.
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + r0 + g + 8 * r;
+    const bool ok = qpos < p.s_q;
+    lse_r[r] = ok ? p.lse[(long long)bh * p.s_q + qpos] : 0.f;
+    d_r[r] = ok ? p.delta[(long long)bh * p.s_q + qpos] : 0.f;
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  const int n_tiles = k_tile_end(p, q_tile);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBlockK;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_tile_bf16<D, LD>(ks, kp, p.k_ss, k0, p.s_k);
+    load_tile_bf16<D, LD>(vs, vp, p.v_ss, k0, p.s_k);
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+    two_products<D, LD>(s, dp, qs, dos, ks, vs, r0, g, t);
+
+    // p = exp(s·scale − lse), ds = p·(dp − D); masked pairs give 0.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        const int key = k0 + j * 8 + 2 * t + (e % 2);
+        const int qpos = q0 + r0 + g + 8 * r;
+        const float pe =
+            masked(p, key, qpos) ? 0.f : expf(s[j][e] * p.scale - lse_r[r]);
+        s[j][e] = pe * (dp[j][e] - d_r[r]);
+      }
+    }
+
+    // dQ += ds·K, ds rounded to bf16.
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a_frag(a, s[2 * kk], s[2 * kk + 1]);
+      mma_rows<D, LD>(acc, a, ks, kk, g, t);
+    }
+  }
+
+  __nv_bfloat16* dqp =
+      slice_out<__nv_bfloat16>(p.dq, bi, hi, p.dq_sb, p.dq_sh);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + r0 + g + 8 * r;
+    if (qpos >= p.s_q) continue;
+    __nv_bfloat16* row = dqp + qpos * p.dq_ss + 2 * t;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(row + j * 8) =
+          pack_f32(acc[j][2 * r] * p.scale, acc[j][2 * r + 1] * p.scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(const Params p) {
+  constexpr int LD = D + 8;
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + 64 * LD;
+  __nv_bfloat16* qs = vs + 64 * LD;
+  __nv_bfloat16* dos = qs + 64 * LD;
+  float* lse_s = reinterpret_cast<float*>(dos + 64 * LD);
+  float* d_s = lse_s + 64;
+
+  const int k_tile = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int bi = bh / p.h, hi = bh % p.h;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k0 = k_tile * kBlockK;
+  const int r0 = warp * 16;
+
+  const __nv_bfloat16* qp = slice<__nv_bfloat16>(p.q, bi, hi, p.q_sb, p.q_sh);
+  const __nv_bfloat16* dop =
+      slice<__nv_bfloat16>(p.dout, bi, hi, p.do_sb, p.do_sh);
+  load_tile_bf16<D, LD>(ks, slice<__nv_bfloat16>(p.k, bi, hi, p.k_sb, p.k_sh),
+                        p.k_ss, k0, p.s_k);
+  load_tile_bf16<D, LD>(vs, slice<__nv_bfloat16>(p.v, bi, hi, p.v_sb, p.v_sh),
+                        p.v_ss, k0, p.s_k);
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  const int n_q = (p.s_q + kBlockQ - 1) / kBlockQ;
+  for (int qt = q_tile_begin(p, k_tile); qt < n_q; ++qt) {
+    const int q0 = qt * kBlockQ;
+    __syncthreads();  // every warp is done with the previous Q/dO tile
+    load_tile_bf16<D, LD>(qs, qp, p.q_ss, q0, p.s_q);
+    load_tile_bf16<D, LD>(dos, dop, p.do_ss, q0, p.s_q);
+    if (threadIdx.x < 64) {
+      const int qpos = q0 + threadIdx.x;
+      const bool ok = qpos < p.s_q;
+      lse_s[threadIdx.x] = ok ? p.lse[(long long)bh * p.s_q + qpos] : 0.f;
+      d_s[threadIdx.x] = ok ? p.delta[(long long)bh * p.s_q + qpos] : 0.f;
+    }
+    __syncthreads();
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: rows are this warp's 16 keys, columns the
+    // 64 queries of the tile.
+    float st[8][4], dpt[8][4];
+    two_products<D, LD>(st, dpt, ks, vs, qs, dos, r0, g, t);
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = j * 8 + 2 * t + (e % 2);
+        const int key = k0 + r0 + g + 8 * (e / 2);
+        const float pe = masked(p, key, q0 + qi)
+                             ? 0.f
+                             : expf(st[j][e] * p.scale - lse_s[qi]);
+        st[j][e] = pe;
+        dpt[j][e] = pe * (dpt[j][e] - d_s[qi]);
+      }
+    }
+
+    // dV += pᵀ·dO and dK += dsᵀ·Q, p and ds rounded to bf16.
+#pragma unroll
+    for (int kk = 0; kk < kBlockQ / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a_frag(a, st[2 * kk], st[2 * kk + 1]);
+      mma_rows<D, LD>(dv, a, dos, kk, g, t);
+      acc_to_a_frag(a, dpt[2 * kk], dpt[2 * kk + 1]);
+      mma_rows<D, LD>(dk, a, qs, kk, g, t);
+    }
+  }
+
+  __nv_bfloat16* dkp =
+      slice_out<__nv_bfloat16>(p.dk, bi, hi, p.dk_sb, p.dk_sh);
+  __nv_bfloat16* dvp =
+      slice_out<__nv_bfloat16>(p.dv, bi, hi, p.dv_sb, p.dv_sh);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + r0 + g + 8 * r;
+    if (key >= p.s_k) continue;
+    __nv_bfloat16* krow = dkp + key * p.dk_ss + 2 * t;
+    __nv_bfloat16* vrow = dvp + key * p.dv_ss + 2 * t;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      *reinterpret_cast<uint32_t*>(krow + j * 8) =
+          pack_f32(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(vrow + j * 8) =
+          pack_f32(dv[j][2 * r], dv[j][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: scalar FMA, one thread per row of the block's tile
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr int f32_smem_bytes() {
+  // Four 64-row tiles with pitch D + 1 (conflict-free row reads) and the 64
+  // lse and D values of a Q tile.
+  return (4 * 64 * (D + 1) + 2 * 64) * int(sizeof(float));
+}
+
+__device__ __forceinline__ float dot_rows(const float* a, const float* b,
+                                          int d) {
+  float acc = 0.f;
+#pragma unroll 16
+  for (int c = 0; c < d; ++c) acc = fmaf(a[c], b[c], acc);
+  return acc;
+}
+
+template <int D>
+__global__ void __launch_bounds__(64) flash_bwd_dq_f32_kernel(const Params p) {
+  constexpr int LD = D + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + 64 * LD;
+  float* ks = dos + 64 * LD;
+  float* vs = ks + 64 * LD;
+
+  const int q_tile = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int bi = bh / p.h, hi = bh % p.h;
+  const int row = threadIdx.x;
+  const int q0 = q_tile * kBlockQ;
+  const int qpos = q0 + row;
+  const bool ok = qpos < p.s_q;
+
+  const float* kp = slice<float>(p.k, bi, hi, p.k_sb, p.k_sh);
+  const float* vp = slice<float>(p.v, bi, hi, p.v_sb, p.v_sh);
+  load_tile_f32<D>(qs, LD, slice<float>(p.q, bi, hi, p.q_sb, p.q_sh), p.q_ss,
+                   q0, p.s_q);
+  load_tile_f32<D>(dos, LD, slice<float>(p.dout, bi, hi, p.do_sb, p.do_sh),
+                   p.do_ss, q0, p.s_q);
+  const float lse = ok ? p.lse[(long long)bh * p.s_q + qpos] : 0.f;
+  const float dd = ok ? p.delta[(long long)bh * p.s_q + qpos] : 0.f;
+  const float* qrow = qs + row * LD;
+  const float* dorow = dos + row * LD;
+
+  float acc[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) acc[c] = 0.f;
+
+  const int n_tiles = k_tile_end(p, q_tile);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBlockK;
+    __syncthreads();
+    load_tile_f32<D>(ks, LD, kp, p.k_ss, k0, p.s_k);
+    load_tile_f32<D>(vs, LD, vp, p.v_ss, k0, p.s_k);
+    __syncthreads();
+    for (int j = 0; j < kBlockK; ++j) {
+      if (masked(p, k0 + j, qpos)) continue;
+      const float* krow = ks + j * LD;
+      const float pj = expf(dot_rows(qrow, krow, D) * p.scale - lse);
+      const float ds = pj * (dot_rows(dorow, vs + j * LD, D) - dd);
+#pragma unroll
+      for (int c = 0; c < D; ++c) acc[c] = fmaf(ds, krow[c], acc[c]);
+    }
+  }
+  if (!ok) return;
+  float* out = slice_out<float>(p.dq, bi, hi, p.dq_sb, p.dq_sh) + qpos * p.dq_ss;
+#pragma unroll
+  for (int c = 0; c < D; ++c) out[c] = acc[c] * p.scale;
+}
+
+template <int D>
+__global__ void __launch_bounds__(64) flash_bwd_dkv_f32_kernel(const Params p) {
+  constexpr int LD = D + 1;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + 64 * LD;
+  float* qs = vs + 64 * LD;
+  float* dos = qs + 64 * LD;
+  float* lse_s = dos + 64 * LD;
+  float* d_s = lse_s + 64;
+
+  const int k_tile = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int bi = bh / p.h, hi = bh % p.h;
+  const int row = threadIdx.x;
+  const int k0 = k_tile * kBlockK;
+  const int key = k0 + row;
+
+  const float* qp = slice<float>(p.q, bi, hi, p.q_sb, p.q_sh);
+  const float* dop = slice<float>(p.dout, bi, hi, p.do_sb, p.do_sh);
+  load_tile_f32<D>(ks, LD, slice<float>(p.k, bi, hi, p.k_sb, p.k_sh), p.k_ss,
+                   k0, p.s_k);
+  load_tile_f32<D>(vs, LD, slice<float>(p.v, bi, hi, p.v_sb, p.v_sh), p.v_ss,
+                   k0, p.s_k);
+  const float* krow = ks + row * LD;
+  const float* vrow = vs + row * LD;
+
+  float dk[D], dv[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) dk[c] = dv[c] = 0.f;
+
+  const int n_q = (p.s_q + kBlockQ - 1) / kBlockQ;
+  for (int qt = q_tile_begin(p, k_tile); qt < n_q; ++qt) {
+    const int q0 = qt * kBlockQ;
+    __syncthreads();
+    load_tile_f32<D>(qs, LD, qp, p.q_ss, q0, p.s_q);
+    load_tile_f32<D>(dos, LD, dop, p.do_ss, q0, p.s_q);
+    {
+      const int qpos = q0 + row;
+      const bool ok = qpos < p.s_q;
+      lse_s[row] = ok ? p.lse[(long long)bh * p.s_q + qpos] : 0.f;
+      d_s[row] = ok ? p.delta[(long long)bh * p.s_q + qpos] : 0.f;
+    }
+    __syncthreads();
+    for (int i = 0; i < kBlockQ; ++i) {
+      if (masked(p, key, q0 + i)) continue;
+      const float* qrow = qs + i * LD;
+      const float* dorow = dos + i * LD;
+      const float pi = expf(dot_rows(qrow, krow, D) * p.scale - lse_s[i]);
+      const float ds = pi * (dot_rows(dorow, vrow, D) - d_s[i]);
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        dv[c] = fmaf(pi, dorow[c], dv[c]);
+        dk[c] = fmaf(ds, qrow[c], dk[c]);
+      }
+    }
+  }
+  if (key >= p.s_k) return;
+  float* dko = slice_out<float>(p.dk, bi, hi, p.dk_sb, p.dk_sh) + key * p.dk_ss;
+  float* dvo = slice_out<float>(p.dv, bi, hi, p.dv_sb, p.dv_sh) + key * p.dv_ss;
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    dko[c] = dk[c] * p.scale;
+    dvo[c] = dv[c];
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
+                   cudaStream_t stream, const Params& p) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const Params& p, int bh, bool bf16, cudaStream_t st) {
+  dim3 grid((p.s_q + kBlockQ - 1) / kBlockQ, bh);
+  if (bf16)
+    return launch(flash_bwd_dq_bf16_kernel<D>, grid, 128, bf16_smem_bytes<D>(),
+                  st, p);
+  return launch(flash_bwd_dq_f32_kernel<D>, grid, 64, f32_smem_bytes<D>(), st,
+                p);
+}
+
+template <int D>
+cudaError_t launch_dkv(const Params& p, int bh, bool bf16, cudaStream_t st) {
+  dim3 grid((p.s_k + kBlockK - 1) / kBlockK, bh);
+  if (bf16)
+    return launch(flash_bwd_dkv_bf16_kernel<D>, grid, 128,
+                  bf16_smem_bytes<D>(), st, p);
+  return launch(flash_bwd_dkv_f32_kernel<D>, grid, 64, f32_smem_bytes<D>(), st,
+                p);
+}
+
+Params make_params(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, void* dk, void* dv, int h, int s_q, int s_k,
+                   const long long* st, float scale, int causal) {
+  return Params{q,      k,      v,      dout,   lse,    delta,  dq,
+                dk,     dv,     h,      s_q,    s_k,    st[0],  st[1],
+                st[2],  st[3],  st[4],  st[5],  st[6],  st[7],  st[8],
+                st[9],  st[10], st[11], st[12], st[13], st[14], st[15],
+                st[16], st[17], st[18], st[19], st[20], scale,  causal};
+}
+
+}  // namespace
+
+// q, k, v, dout: (b, s, h, d) with unit stride over d; strides in elements,
+// `strides` holding (batch, seq, head) for q, k, v, dout, dq, dk, dv in that
+// order (21 values). lse and delta: (b, h, s_q) f32, contiguous. The dq entry
+// writes dq; the dkv entry writes dk and dv (the other pointers may be null).
+// Each returns a cudaError_t.
+extern "C" int sparktorch_flash_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, int b, int h, int s_q,
+    int s_k, int d, const long long* strides, float scale, int causal,
+    int bf16, void* stream) {
+  const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr,
+                               h, s_q, s_k, strides, scale, causal);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return launch_dq<32>(p, b * h, bf16 != 0, st);
+    case 64: return launch_dq<64>(p, b * h, bf16 != 0, st);
+    case 128: return launch_dq<128>(p, b * h, bf16 != 0, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int sparktorch_flash_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, int b, int h,
+    int s_q, int s_k, int d, const long long* strides, float scale,
+    int causal, int bf16, void* stream) {
+  const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, h,
+                               s_q, s_k, strides, scale, causal);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return launch_dkv<32>(p, b * h, bf16 != 0, st);
+    case 64: return launch_dkv<64>(p, b * h, bf16 != 0, st);
+    case 128: return launch_dkv<128>(p, b * h, bf16 != 0, st);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -32,15 +32,13 @@
 //   * l is clamped at 1e-20 before O = acc / l, as on the TPU. O is written in
 //     the input dtype.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
+using namespace flash;
 
 struct Params {
   const void* q;
@@ -72,48 +70,6 @@ __device__ __forceinline__ bool masked(const Params& p, int key, int qpos) {
 // bf16: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) |
-         (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy rows [row0, row0 + 64) of one (batch, head) slice into shared memory
-// (row pitch LD), 16 bytes per thread per step; rows past `rows` are zero.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long stride_s, int row0,
-                                               int rows) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < 64 * kChunks; c += blockDim.x) {
-    int r = c / kChunks;
-    int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride_s + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(128)
     flash_fwd_bf16_kernel(const Params p) {
@@ -143,13 +99,7 @@ __global__ void __launch_bounds__(128)
   __syncthreads();
   uint32_t qf[KD][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const __nv_bfloat16* row = ks + (r0 + g) * LD + kk * 16 + 2 * t;
-    qf[kk][0] = ld32(row);
-    qf[kk][1] = ld32(row + 8 * LD);
-    qf[kk][2] = ld32(row + 8);
-    qf[kk][3] = ld32(row + 8 * LD + 8);
-  }
+  for (int kk = 0; kk < KD; ++kk) load_a_frag<LD>(qf[kk], ks, r0, kk, g, t);
 
   float acc[ND][4];
 #pragma unroll
@@ -229,18 +179,8 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = vs + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        const __nv_bfloat16* vc = v0 + j * 8;
-        const uint32_t b0 = pack_bf16(vc[0], vc[LD]);
-        const uint32_t b1 = pack_bf16(vc[8 * LD], vc[9 * LD]);
-        mma_16816(acc[j], a, b0, b1);
-      }
+      acc_to_a_frag(a, s[2 * kk], s[2 * kk + 1]);
+      mma_rows<D, LD>(acc, a, vs, kk, g, t);
     }
   }
 
@@ -268,17 +208,6 @@ __global__ void __launch_bounds__(128)
 // ---------------------------------------------------------------------------
 // f32: the same tiling, scalar FMA, one thread per query row
 // ---------------------------------------------------------------------------
-
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, int ld,
-                                              const float* src,
-                                              long long stride_s, int row0,
-                                              int rows) {
-  for (int c = threadIdx.x; c < 64 * D; c += blockDim.x) {
-    int r = c / D, col = c % D;
-    dst[r * ld + col] = row0 + r < rows ? src[(row0 + r) * stride_s + col] : 0.f;
-  }
-}
 
 template <int D>
 constexpr int f32_smem_bytes() {

@@ -9,8 +9,12 @@ shapes), ``version`` and ``framework``. Shapes come from the module
 built on the ``meta`` device — no weights allocated — the counterpart
 of ``jax.eval_shape``.
 
-Loss and optimizer travel as names and params only; resolving them
-belongs to the training slice, which is not ported yet.
+Loss and optimizer travel as names (or callables) and params; the
+training step resolves them with :meth:`ModelSpec.loss_fn` and
+:meth:`ModelSpec.make_optimizer`. The optimizer names keep the JAX
+package's meaning: they resolve to the optax update rules and defaults
+(``sparktorch_tpu/utils/serde.py:56-125``), which are not always
+``torch.optim``'s.
 """
 
 from __future__ import annotations
@@ -19,14 +23,125 @@ import codecs
 import copy
 import dataclasses
 import json
-from typing import Any, Callable, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Iterable, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import dill
 import torch
 from torch import nn
 
+from sparktorch_tpu_torch.utils import optim
+from sparktorch_tpu_torch.utils.losses import LossFn, resolve_loss
+
 ENVELOPE_VERSION = 1
 FRAMEWORK = "sparktorch_tpu_torch"
+
+# ---------------------------------------------------------------------------
+# Optimizer registry: name -> factory(params, **optax-named kwargs). The
+# torch spelling ``lr`` is accepted as in the JAX package; every other
+# kwarg takes its optax name (``weight_decay`` is the same in both).
+# ---------------------------------------------------------------------------
+
+# torch.optim constructor default learning rates for the names torch.optim
+# has (the JAX package applies the same table).
+_TORCH_DEFAULT_LR: dict[str, float] = {
+    "adam": 1e-3, "Adam": 1e-3, "adamw": 1e-3, "AdamW": 1e-3,
+    "rmsprop": 1e-2, "RMSprop": 1e-2, "adagrad": 1e-2, "Adagrad": 1e-2,
+}
+
+OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
+
+
+def _map_opt_kwargs(kwargs: Mapping[str, Any]) -> dict:
+    """torch's ``lr`` under optax's name ``learning_rate``."""
+    return {("learning_rate" if k == "lr" else k): v
+            for k, v in kwargs.items()}
+
+
+def _sgd(params, learning_rate=0.01, momentum=0.0, nesterov=False, **kw):
+    # optax sgd: trace t ← g + m·t (Nesterov: g + m·t), then −lr — the
+    # rule torch.optim.SGD applies with dampening 0. Extra kwargs are
+    # ignored, as the JAX package's _sgd ignores them.
+    momentum = momentum or 0.0
+    return torch.optim.SGD(params, lr=learning_rate, momentum=momentum,
+                           nesterov=bool(nesterov and momentum))
+
+
+def _adam(params, learning_rate, b1=0.9, b2=0.999, eps=1e-8):
+    # optax adam = torch.optim.Adam's rule: m̂ / (√v̂ + ε).
+    return torch.optim.Adam(params, lr=learning_rate, betas=(b1, b2), eps=eps)
+
+
+def _adamw(params, learning_rate, b1=0.9, b2=0.999, eps=1e-8,
+           weight_decay=1e-4):
+    # optax adamw decays every parameter by lr·wd·p beside the Adam step,
+    # as torch.optim.AdamW does; optax's default weight_decay is 1e-4
+    # (torch's is 1e-2).
+    return torch.optim.AdamW(params, lr=learning_rate, betas=(b1, b2),
+                             eps=eps, weight_decay=weight_decay)
+
+
+def _rmsprop(params, learning_rate, **kw):
+    return optim.RMSprop(params, lr=learning_rate, **kw)
+
+
+def _adagrad(params, learning_rate, **kw):
+    return optim.Adagrad(params, lr=learning_rate, **kw)
+
+
+def _not_ported(name: str):
+    def build(params, **kw):
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported yet (ROADMAP, Queue 1: the "
+            "optax-only optimizers adafactor, lamb and lion)")
+    return build
+
+
+OPTIMIZER_REGISTRY: dict[str, Callable[..., torch.optim.Optimizer]] = {
+    "sgd": _sgd,
+    "adam": _adam,
+    "adamw": _adamw,
+    "rmsprop": _rmsprop,
+    "adagrad": _adagrad,
+    "adafactor": _not_ported("adafactor"),
+    "lamb": _not_ported("lamb"),
+    "lion": _not_ported("lion"),
+    # torch.optim class-name spellings.
+    "SGD": _sgd,
+    "Adam": _adam,
+    "AdamW": _adamw,
+    "RMSprop": _rmsprop,
+    "Adagrad": _adagrad,
+}
+
+
+def resolve_optimizer(
+    optimizer: Union[str, Callable, None],
+    optimizer_params: Optional[Mapping[str, Any]] = None,
+) -> OptimizerFactory:
+    """Bind an optimizer spec to a factory ``params -> torch.optim.Optimizer``.
+
+    A registry name follows the optax rule and defaults of the same name
+    in the JAX package; ``None`` is plain SGD at lr 0.01; any other
+    callable (a ``torch.optim`` class, say) is called as
+    ``optimizer(params, **optimizer_params)``.
+    """
+    if optimizer is not None and not isinstance(optimizer, str):
+        kwargs = dict(optimizer_params or {})
+        return lambda params: optimizer(params, **kwargs)
+    kwargs = _map_opt_kwargs(optimizer_params or {})
+    if optimizer is None:
+        lr = kwargs.pop("learning_rate", 0.01)
+        return lambda params: torch.optim.SGD(params, lr=lr)
+    try:
+        build = OPTIMIZER_REGISTRY[optimizer]
+    except KeyError:
+        raise ValueError(
+            f"Unknown optimizer {optimizer!r}; known: "
+            f"{sorted(OPTIMIZER_REGISTRY)}") from None
+    if optimizer in _TORCH_DEFAULT_LR:
+        kwargs.setdefault("learning_rate", _TORCH_DEFAULT_LR[optimizer])
+    return lambda params: build(params, **kwargs)
 
 
 def meta_copy(module: nn.Module) -> nn.Module:
@@ -49,7 +164,7 @@ class ModelSpec:
     module: Any = None
     module_cls: Optional[type] = None
     module_kwargs: dict = dataclasses.field(default_factory=dict)
-    loss: Union[str, Callable] = "mse"
+    loss: Union[str, LossFn] = "mse"
     optimizer: Union[str, Callable, None] = "sgd"
     optimizer_params: dict = dataclasses.field(default_factory=dict)
     input_shape: Optional[Tuple[int, ...]] = None  # per-example, no batch dim
@@ -63,6 +178,14 @@ class ModelSpec:
         if self.module_cls is None:
             raise ValueError("ModelSpec has neither module nor module_cls")
         return self.module_cls(**self.module_kwargs)
+
+    def loss_fn(self) -> LossFn:
+        return resolve_loss(self.loss)
+
+    def make_optimizer(self, params: Iterable[torch.Tensor]
+                       ) -> torch.optim.Optimizer:
+        """The spec's optimizer over ``params``."""
+        return resolve_optimizer(self.optimizer, self.optimizer_params)(params)
 
     def abstract_module(self) -> nn.Module:
         """The module on the ``meta`` device: shapes and dtypes, no

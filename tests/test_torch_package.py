@@ -22,7 +22,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparktorch_tpu")
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, sparktorch_tpu_torch, sparktorch_tpu_torch.models, "
-        "sparktorch_tpu_torch.convert\n"
+        "sparktorch_tpu_torch.convert, sparktorch_tpu_torch.train.sync, "
+        "sparktorch_tpu_torch.train.step, sparktorch_tpu_torch.utils.losses, "
+        "sparktorch_tpu_torch.ops.fused_ce\n"
+        "from sparktorch_tpu_torch import SparkTorch\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -63,6 +66,17 @@ def test_entry_points_refuse_cpu_without_being_asked():
     stm = port.create_spark_torch_model(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         stm.transform({"features": [[1.0] * 8]})
+
+
+def test_fit_refuses_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    model = SequenceClassifier(tiny_transformer(dtype="float32", max_len=8))
+    est = port.SparkTorch(inputCol="features", labelCol="label",
+                          torchObj=port.serialize_torch_obj(model), iters=1)
+    assert est.getDevice() == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        est.fit({"features": [[1.0] * 8], "label": [0.0]})
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
