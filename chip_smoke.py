@@ -48,6 +48,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -62,15 +63,32 @@ PEAK_BYTES_PER_S = 3.35e12
 # another order; f32 differs only by summation order.
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
 LSE_TOL = {"bfloat16": (1e-3, 1e-3), "float32": (1e-4, 1e-4)}
-# Backward kernels vs plain: relative L2 error of every 64-row tile (one
-# block's work) of each (batch, head), each against its own reference.
-# bf16 outputs round at 2^-9 of their size, so 1e-2 is a few ulps; f32
-# differs by summation order only.
+# Flash kernels vs plain (forward O beside TOL, and every backward
+# output): relative L2 error of every 64-row tile of each (batch, head),
+# each against its own reference, so the small values of late causal rows
+# are held as closely as the first. bf16 outputs round at 2^-9 of their
+# size, so 1e-2 is a few ulps; f32 differs by summation order only.
 TILE_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # CE backward vs plain on the same lse, every entry relative to itself:
 # a bf16 entry may round one ulp (2^-8) the other way; f32 differs by
 # expf's few ulps.
 CE_GRAD_RTOL = {"bfloat16": 1e-2, "float32": 1e-5}
+
+# Threads and dynamic shared memory (bytes) a block of each bf16 flash
+# kernel, as its source sets them (flash_fwd.cu ``fwd::Config``,
+# flash_bwd.cu ``bf16_smem_bytes`` and ``dkv::Config``); ptxas reports
+# static shared memory only.
+LAUNCH = {
+    "flash_fwd_bf16_kernel<32>": (288, 25664),
+    "flash_fwd_bf16_kernel<64>": (288, 50240),
+    "flash_fwd_bf16_kernel<128>": (384, 99392),
+    "flash_bwd_dq_bf16_kernel<32>": (128, 20992),
+    "flash_bwd_dq_bf16_kernel<64>": (128, 37376),
+    "flash_bwd_dq_bf16_kernel<128>": (128, 70144),
+    "flash_bwd_dkv_bf16_kernel<32>": (384, 35880),
+    "flash_bwd_dkv_bf16_kernel<64>": (384, 68648),
+    "flash_bwd_dkv_bf16_kernel<128>": (384, 134184),
+}
 
 SLICE_ROWS, SLICE_SEQ, CHUNK = 2000, 128, 1024
 
@@ -80,17 +98,22 @@ LM = dict(vocab_size=32768, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
 LM_BATCH, LM_SEQ, LM_ITERS, PARITY_SEQ = 2, 8192, 6, 2048
 BERT_ROWS, BERT_SEQ, BERT_ITERS = 128, 128, 4
 
+# name: (source, the TPU kernel it replaces, design). "wgmma+tma": a
+# warp-specialised Hopper kernel (TMA loads into a ring of mbarrier-guarded
+# stages, wgmma products); "mma.sync": synchronous tile loads and
+# mma.sync; "simt": a streaming kernel with no matrix products.
 KERNELS = {
     "flash_fwd": ("sparktorch_tpu_torch/ops/csrc/flash_fwd.cu",
-                  "sparktorch_tpu/ops/flash_attention.py:155"),
+                  "sparktorch_tpu/ops/flash_attention.py:155", "wgmma+tma"),
     "flash_bwd_dq": ("sparktorch_tpu_torch/ops/csrc/flash_bwd.cu",
-                     "sparktorch_tpu/ops/flash_attention.py:375"),
+                     "sparktorch_tpu/ops/flash_attention.py:375", "mma.sync"),
     "flash_bwd_dkv": ("sparktorch_tpu_torch/ops/csrc/flash_bwd.cu",
-                      "sparktorch_tpu/ops/flash_attention.py:394"),
+                      "sparktorch_tpu/ops/flash_attention.py:394",
+                      "wgmma+tma"),
     "ce_fwd": ("sparktorch_tpu_torch/ops/csrc/fused_ce.cu",
-               "sparktorch_tpu/ops/fused_ce.py:99"),
+               "sparktorch_tpu/ops/fused_ce.py:99", "simt"),
     "ce_bwd": ("sparktorch_tpu_torch/ops/csrc/fused_ce.cu",
-               "sparktorch_tpu/ops/fused_ce.py:159"),
+               "sparktorch_tpu/ops/fused_ce.py:159", "simt"),
 }
 
 
@@ -247,6 +270,9 @@ def kernel_phase(torch):
         ("long causal lse", 2, 2048, 16, 128, True, bf16, True, False),
         ("ragged causal", 4, 1000, 12, 64, True, bf16, False, False),
         ("head_dim 32 causal", 4, 256, 8, 32, True, bf16, True, False),
+        ("tile edge s=129 causal", 4, 129, 8, 64, True, bf16, True, True),
+        ("head_dim 128 s=8192 causal", 1, 8192, 8, 128, True, bf16, True,
+         False),
         ("f32", 4, 512, 8, 64, False, f32, True, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -271,6 +297,8 @@ def kernel_phase(torch):
                 lse_err = check_close(f"{label} lse", lse, want_lse,
                                       *LSE_TOL[dname])
             err = check_close(f"{label} o", got, want, *TOL[dname])
+            _, rel = check_tiles(torch, f"{label} o", got, want,
+                                 TILE_TOL[dname])
             del got, want
             big = b * s * s * h > 2 ** 30
             ms = time_ms(torch, lambda: flash_attention(
@@ -284,14 +312,16 @@ def kernel_phase(torch):
                                              with_lse, q.element_size())
         row = dict(label=label, b=b, s=s, h=h, d=d, causal=causal,
                    dtype=dname, return_lse=with_lse, max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
         if with_lse:
             row["lse_max_abs_err"] = lse_err
         results.append(row)
         log(f"kernel flash_fwd [{label}] b={b} s={s} h={h} d={d} {dname} "
             f"causal={causal} lse={with_lse}: max_abs_err={err:.3e} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+            f"worst_tile_rel_err={rel:.3e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({bound_by}; roofline share "
             f"{100 * bound_ms / ms:.1f}%)")
         del q, k, v
@@ -321,6 +351,8 @@ def bwd_kernel_phase(torch):
         ("ragged causal", 4, 1000, 12, 64, True, bf16, False),
         ("head_dim 32 causal", 4, 256, 8, 32, True, bf16, False),
         ("head_dim 128 causal", 2, 2048, 16, 128, True, bf16, False),
+        ("tile edge s=129 causal", 4, 129, 8, 64, True, bf16, True),
+        ("head_dim 128 s=8192 causal", 1, 8192, 8, 128, True, bf16, False),
         ("f32", 4, 512, 8, 64, False, f32, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -462,6 +494,49 @@ def ce_kernel_phase(torch):
         del logits, labels, g, lse
         torch.cuda.empty_cache()
     return results
+
+
+def kernel_name(mangled):
+    """``flash_fwd_bf16_kernel<64>`` from an Itanium-mangled entry name.
+    Each name in it is its length, then its characters; nvcc nests the
+    kernels of an anonymous namespace in a hashed one
+    (``_ZN44_GLOBAL__N__<hash>_12_flash_fwd_cu_<hash>21flash_fwd_bf16_
+    kernelILi64EEEv...``), so names are read by length, not by pattern."""
+    i = 0
+    while i < len(mangled):
+        n = re.match(r"\d+", mangled[i:])
+        if n is None:
+            i += 1
+            continue
+        start = i + n.end()
+        ident = mangled[start:start + int(n.group())]
+        i = start + len(ident)
+        if ident.endswith("_kernel"):
+            arg = re.match(r"I(?:Li(\d+)|\d*([A-Za-z_]\w*?))E", mangled[i:])
+            return f"{ident}<{arg.group(1) or arg.group(2)}>" if arg else ident
+    return mangled
+
+
+def ptxas_report(log):
+    """(kernel, registers, spill stores, spill loads, static shared
+    bytes) of every entry function in an ``nvcc -Xptxas -v`` log."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m.group(1)), *spills,
+                         int(smem.group(1)) if smem else 0))
+            name, spills = None, (0, 0)
+    return rows
 
 
 def kernel_family(name):
@@ -805,9 +880,12 @@ def main() -> int:
     logs = _build.build(names)
     log(f"build: {names} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for kernel, regs, st, ld, smem in ptxas_report(text):
+            launch = (f"; {LAUNCH[kernel][0]} threads, dynamic smem "
+                      f"{LAUNCH[kernel][1]} B" if kernel in LAUNCH else "")
+            log(f"  ptxas {name}: {kernel}: {regs} registers, spill "
+                f"stores {st} B, spill loads {ld} B, static smem {smem} B"
+                + launch)
 
     fwd_cases = kernel_phase(torch)
     bwd_cases = bwd_kernel_phase(torch)
@@ -823,13 +901,13 @@ def main() -> int:
                   "flash_bwd_dkv": bwd_cases["dkv"], "ce_fwd": ce_cases["fwd"],
                   "ce_bwd": ce_cases["bwd"]}
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, design) in KERNELS.items():
         by_path = {"serve": serve_counts[name], "train_lm": lm_counts[name],
                    "train_bert": bert_counts[name]}
         cases = main_cases[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
+            "replaces": replaces, "design": design,
             "launches": by_path["serve" if name == "flash_fwd"
                                 else "train_lm"],
             **{k: cases[0][k] for k in ("max_abs_err", "ms", "plain_ms",

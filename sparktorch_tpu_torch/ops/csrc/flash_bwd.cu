@@ -15,29 +15,50 @@
 // and dO and write dQ, dK and dV (7·s·d elements) against 6·d (dq) and 8·d
 // (dkv) FLOPs per query-key pair the mask keeps: at the training shape
 // (s = 8192, d = 64, causal) that is ~1,100 FLOPs per byte, so the tensor
-// cores are the bound; at BERT's s = 128 it is ~50 and memory is.
+// cores are the bound, with the exponential of every kept pair on the SFU
+// beside them; at BERT's s = 128 it is ~50 and memory is.
 //
-// Design (a simple, correct first version; TMA, wgmma and pipelining later):
-//   * The TPU split is kept. The dq kernel runs one block per (64-row Q tile,
-//     batch·head) and loops over the K/V tiles up to the diagonal when causal;
-//     the dkv kernel runs one block per (64-row K tile, batch·head) and loops
-//     over the Q tiles from the diagonal on. Each output is owned by one
-//     block, so no atomics and no second pass.
-//   * bf16: four warps, each owning 16 rows of the block's tile, run
-//     mma.sync m16n8k16. The dq kernel computes S = Q·Kᵀ and dP = dO·Vᵀ with
-//     Q and dO as A operands; the dkv kernel computes the transposes
-//     Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with K and V as A operands, so every warp
-//     holds the rows it accumulates (dQ, or dK and dV) in registers. The
-//     accumulator of two neighbouring 8-column tiles is the A operand of the
-//     next product (ds·K, pᵀ·dO, dsᵀ·Q) after rounding to bf16. Every tile
-//     sits in shared memory with 8 padding elements a row.
-//   * f32: one thread per row of the block's tile, scalar f32 FMA (never
-//     TF32), a correctness path that matches the plain version to ~1e-6.
-//   * Ragged lengths are masked in the kernel (keys past s_k, queries past
-//     s_q), and q/k/v/dO are read through their (batch, seq, head) strides,
-//     so views of the fused qkv product need no copy.
+// The TPU split is kept: each output is owned by one block, so no atomics
+// and no second pass. Ragged lengths are masked in the kernels (keys past
+// s_k, queries past s_q, so a zero-filled padding query adds nothing to dK or
+// dV), and q/k/v/dO are read through their (batch, seq, head) strides, so
+// views of the fused qkv product need no copy.
+//
+// dk/dv, bf16 (a Hopper kernel: TMA, wgmma and warp specialisation):
+//   * One block per (128-key tile, batch·head), 384 threads: two consumer
+//     warpgroups, each owning 64 keys, and one producer warpgroup, of which
+//     one warp works. It loads K and V once, then streams Q and dO of each
+//     64-query tile from the diagonal on (causal) through a ring of two
+//     stages with TMA (4-D maps over the operands' real strides), its lanes
+//     copying the tile's lse and D beside them; "full" and "empty"
+//     mbarriers guard each stage, so the next tile's loads overlap this
+//     tile's products.
+//   * Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmma m64n64k16 with both operands in
+//     shared memory (K-major), so each consumer's accumulators hold its own
+//     keys' rows. p = exp(Sᵀ·scale − lse) and ds = p·(dPᵀ − D) are computed
+//     in registers (lse and D of the tile's queries read from the stage);
+//     rounded to bf16 they are the register A operands of dV += pᵀ·dO and
+//     dK += dsᵀ·Q (wgmma m64nDk16), with dO and Q as MN-major shared B
+//     operands — no scalar shared-memory loads in the loop. dV's product
+//     runs on the tensor cores while ds is computed.
+//   * dK, dV, Sᵀ and dPᵀ live in registers together (4 × 32 f32 a thread at
+//     d = 64, ~192 at d = 128): the consumers take 240 registers and the
+//     producer gives its own back (setmaxnreg), one block per SM. The grid
+//     walks the key tiles in ascending order, all heads first, so the
+//     longest causal blocks (k tile 0 walks every Q tile) start first.
+// dq, bf16 (the simple first design; its redesign is next): one block per
+// (64-row Q tile, batch·head), four warps of mma.sync m16n8k16 over padded
+// shared-memory tiles loaded synchronously, looping over the K/V tiles up to
+// the diagonal. S = Q·Kᵀ and dP = dO·Vᵀ take Q and dO as A operands; the
+// accumulator of two neighbouring 8-column tiles, rounded to bf16, is the A
+// operand of ds·K.
+// f32 (both kernels): one thread per row of the block's tile, scalar f32 FMA
+// (never TF32), a correctness path that matches the plain version to ~1e-6.
+
+#include <math_constants.h>
 
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -94,7 +115,7 @@ __device__ __forceinline__ T* slice_out(void* base, int bi, int hi,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// dq, bf16: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -103,9 +124,9 @@ constexpr int bf16_smem_bytes() {
   return 4 * 64 * (D + 8) * 2 + 2 * 64 * 4;
 }
 
-// S (or Sᵀ) and dP (or dPᵀ) for a warp's 16 rows against the 64 rows of two
-// other tiles: acc_s = A1·B1ᵀ, acc_p = A2·B2ᵀ, the A rows taken from a1/a2
-// (rows r0..r0+15) and the B rows from b1/b2 (all 64 rows), over D columns.
+// S and dP for a warp's 16 rows against the 64 rows of two other tiles:
+// acc_s = A1·B1ᵀ, acc_p = A2·B2ᵀ, the A rows taken from a1/a2 (rows
+// r0..r0+15) and the B rows from b1/b2 (all 64 rows), over D columns.
 template <int D, int LD>
 __device__ __forceinline__ void two_products(float acc_s[8][4],
                                              float acc_p[8][4],
@@ -221,100 +242,257 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(const Params p) 
   }
 }
 
+// ---------------------------------------------------------------------------
+// dk/dv, bf16: TMA, wgmma and warp specialisation
+// ---------------------------------------------------------------------------
+
+struct DkvParams {
+  CUtensorMap tm_k;      // boxes of kKeys rows
+  CUtensorMap tm_v;
+  CUtensorMap tm_q;      // boxes of kQueries rows
+  CUtensorMap tm_do;
+  const float* lse;      // (b, h, s_q)
+  const float* delta;    // (b, h, s_q)
+  void* dk;
+  void* dv;
+  int h, s_q, s_k;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  float scale;
+  float scale_log2;  // scale · log2(e)
+  int causal;
+};
+
+namespace dkv {
+
+constexpr int kKeys = 128;     // keys per block, 64 per consumer warpgroup
+constexpr int kQueries = 64;   // queries per stage
+constexpr int kStages = 2;
+// Consumer warpgroups 0 and 1, producer warpgroup 2 (one warp works): 168
+// registers a thread at launch, handed over as 240 to each consumer thread
+// and 24 to each producer thread (see flash_fwd.cu).
+constexpr int kThreads = 384;
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kRegPool = 256 * kConsumerRegs + 128 * kProducerRegs;
+
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + 64 * LD;
-  __nv_bfloat16* qs = vs + 64 * LD;
-  __nv_bfloat16* dos = qs + 64 * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + 64 * LD);
-  float* d_s = lse_s + 64;
+struct Config {
+  static constexpr int kKBytes = kKeys * D * 2;     // K (or V)
+  static constexpr int kQBytes = kQueries * D * 2;  // Q (or dO) of a stage
+  static constexpr int kRowBytes = kQueries * 4;    // lse (or D) of a stage
+  static constexpr int kStageTx = 2 * kQBytes;  // TMA bytes of a stage
+  static constexpr int kStageBytes =
+      (2 * kQBytes + 2 * kRowBytes + 1023) / 1024 * 1024;
+  static constexpr int kK = 0;
+  static constexpr int kV = kKBytes;
+  static constexpr int kStage0 = 2 * kKBytes;  // Q, dO, lse, D
+  static constexpr int kBars = kStage0 + kStages * kStageBytes;
+  // kv_full, full[2], empty[2]; 1024 bytes of slack to align the base.
+  static constexpr int kSmem = kBars + 5 * 8 + 1024;
+};
 
-  const int k_tile = blockIdx.x;
-  const int bh = blockIdx.y;
+}  // namespace dkv
+
+template <int D>
+__global__ void __launch_bounds__(dkv::kThreads, 1)
+    flash_bwd_dkv_bf16_kernel(const __grid_constant__ DkvParams p) {
+  using namespace dkv;
+  using C = Config<D>;
+  using T = hopper::Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBars);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int bh = blockIdx.x;
   const int bi = bh / p.h, hi = bh % p.h;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = k_tile * kBlockK;
-  const int r0 = warp * 16;
+  const int k0 = blockIdx.y * kKeys;
+  const int n_q = (p.s_q + kQueries - 1) / kQueries;
+  // Causal: the first Q tile holding a query at or after the block's first
+  // key.
+  const int qt_begin = p.causal ? k0 / kQueries : 0;
 
-  const __nv_bfloat16* qp = slice<__nv_bfloat16>(p.q, bi, hi, p.q_sb, p.q_sh);
-  const __nv_bfloat16* dop =
-      slice<__nv_bfloat16>(p.dout, bi, hi, p.do_sb, p.do_sh);
-  load_tile_bf16<D, LD>(ks, slice<__nv_bfloat16>(p.k, bi, hi, p.k_sb, p.k_sh),
-                        p.k_ss, k0, p.s_k);
-  load_tile_bf16<D, LD>(vs, slice<__nv_bfloat16>(p.v, bi, hi, p.v_sb, p.v_sh),
-                        p.v_ss, k0, p.s_k);
-
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  const int n_q = (p.s_q + kBlockQ - 1) / kBlockQ;
-  for (int qt = q_tile_begin(p, k_tile); qt < n_q; ++qt) {
-    const int q0 = qt * kBlockQ;
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile_bf16<D, LD>(qs, qp, p.q_ss, q0, p.s_q);
-    load_tile_bf16<D, LD>(dos, dop, p.do_ss, q0, p.s_q);
-    if (threadIdx.x < 64) {
-      const int qpos = q0 + threadIdx.x;
-      const bool ok = qpos < p.s_q;
-      lse_s[threadIdx.x] = ok ? p.lse[(long long)bh * p.s_q + qpos] : 0.f;
-      d_s[threadIdx.x] = ok ? p.delta[(long long)bh * p.s_q + qpos] : 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      // The TMA arrival and one from each producer lane for lse and D.
+      hopper::mbar_init(full + i, 1 + 32);
+      hopper::mbar_init(empty + i, kConsumerWarps);
     }
-    __syncthreads();
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: rows are this warp's 16 keys, columns the
-    // 64 queries of the tile.
-    float st[8][4], dpt[8][4];
-    two_products<D, LD>(st, dpt, ks, vs, qs, dos, r0, g, t);
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + 2 * t + (e % 2);
-        const int key = k0 + r0 + g + 8 * (e / 2);
-        const float pe = masked(p, key, q0 + qi)
-                             ? 0.f
-                             : expf(st[j][e] * p.scale - lse_s[qi]);
-        st[j][e] = pe;
-        dpt[j][e] = pe * (dpt[j][e] - d_s[qi]);
+  if (threadIdx.x >= 256) {
+    // Producer warpgroup, one warp at work: lane 0 issues the TMA loads;
+    // every lane copies two of the tile's 64 lse and D values into the
+    // stage (zero past s_q).
+    hopper::reg_dealloc<kProducerRegs>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x >= 288) return;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * C::kKBytes);
+      for (int j = 0; j < T::kBoxes; ++j) {
+        hopper::tma_load_4d(smem + C::kK + j * kKeys * T::kSwizzle, &p.tm_k,
+                            kv_full, j * 64, hi, k0, bi);
+        hopper::tma_load_4d(smem + C::kV + j * kKeys * T::kSwizzle, &p.tm_v,
+                            kv_full, j * 64, hi, k0, bi);
       }
     }
-
-    // dV += pᵀ·dO and dK += dsᵀ·Q, p and ds rounded to bf16.
-#pragma unroll
-    for (int kk = 0; kk < kBlockQ / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a_frag(a, st[2 * kk], st[2 * kk + 1]);
-      mma_rows<D, LD>(dv, a, dos, kk, g, t);
-      acc_to_a_frag(a, dpt[2 * kk], dpt[2 * kk + 1]);
-      mma_rows<D, LD>(dk, a, qs, kk, g, t);
+    const float* lse = p.lse + (long long)bh * p.s_q;
+    const float* delta = p.delta + (long long)bh * p.s_q;
+    for (int qt = qt_begin, i = 0; qt < n_q; ++qt, ++i) {
+      const int st = i % kStages;
+      hopper::mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);
+      uint8_t* base = smem + C::kStage0 + st * C::kStageBytes;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(full + st, C::kStageTx);
+        for (int j = 0; j < T::kBoxes; ++j) {
+          hopper::tma_load_4d(base + j * kQueries * T::kSwizzle, &p.tm_q,
+                              full + st, j * 64, hi, qt * kQueries, bi);
+          hopper::tma_load_4d(base + C::kQBytes + j * kQueries * T::kSwizzle,
+                              &p.tm_do, full + st, j * 64, hi, qt * kQueries,
+                              bi);
+        }
+      }
+      float* rows = reinterpret_cast<float*>(base + 2 * C::kQBytes);
+      for (int r = lane; r < kQueries; r += 32) {
+        const int qpos = qt * kQueries + r;
+        rows[r] = qpos < p.s_q ? lse[qpos] : 0.f;
+        rows[kQueries + r] = qpos < p.s_q ? delta[qpos] : 0.f;
+      }
+      hopper::mbar_arrive(full + st);  // releases the stores above
     }
-  }
+  } else {
+    // Consumer warpgroup c: keys [kc, kc + 64).
+    hopper::reg_alloc<kConsumerRegs>();
+    const int c = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int kc = k0 + c * 64;
+    const int key0 = kc + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+    // Causal: Q tiles before this one lie wholly before my keys.
+    const int qt_mine = p.causal ? kc / kQueries : 0;
+    const float lse_scale = 1.4426950408889634f;  // lse to base 2
 
-  __nv_bfloat16* dkp =
-      slice_out<__nv_bfloat16>(p.dk, bi, hi, p.dk_sb, p.dk_sh);
-  __nv_bfloat16* dvp =
-      slice_out<__nv_bfloat16>(p.dv, bi, hi, p.dv_sb, p.dv_sh);
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + r0 + g + 8 * r;
-    if (key >= p.s_k) continue;
-    __nv_bfloat16* krow = dkp + key * p.dk_ss + 2 * t;
-    __nv_bfloat16* vrow = dvp + key * p.dv_ss + 2 * t;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int qt = qt_begin, i = 0; qt < n_q; ++qt, ++i) {
+      const int st = i % kStages;
+      // Waited on even when skipped: the empty arrival below must not count
+      // towards the stage's previous use.
+      hopper::mbar_wait(full + st, (i / kStages) & 1);
+      if (qt >= qt_mine) {
+        const uint8_t* qs = smem + C::kStage0 + st * C::kStageBytes;
+        const uint8_t* dos = qs + C::kQBytes;
+        const float* lse_s =
+            reinterpret_cast<const float*>(qs + 2 * C::kQBytes);
+        const float* d_s = lse_s + kQueries;
+        const int q0 = qt * kQueries;
+
+        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: my 64 keys × the tile's 64 queries.
+        float s[32], dp[32];
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      *reinterpret_cast<uint32_t*>(krow + j * 8) =
-          pack_f32(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(vrow + j * 8) =
-          pack_f32(dv[j][2 * r], dv[j][2 * r + 1]);
+        for (int i2 = 0; i2 < 32; ++i2) s[i2] = dp[i2] = 0.f;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)
+          hopper::wgmma_ss_n64(s, T::k_major(smem + C::kK, kKeys, c * 64, k),
+                               T::k_major(qs, kQueries, 0, k), k > 0);
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)
+          hopper::wgmma_ss_n64(dp, T::k_major(smem + C::kV, kKeys, c * 64, k),
+                               T::k_major(dos, kQueries, 0, k), k > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+
+        // p = exp(sᵀ·scale − lse); masked pairs give 0. Element 4j + e
+        // sits at key key0 + 8·(e / 2), query q0 + 8j + 2t + e % 2.
+        const bool edge = q0 + kQueries > p.s_q || kc + 64 > p.s_k ||
+                          (p.causal && kc + 63 > q0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 lse2 =
+              *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lse_q = (e % 2 ? lse2.y : lse2.x) * lse_scale;
+            float pe = hopper::exp2_approx(
+                fmaf(s[4 * j + e], p.scale_log2, -lse_q));
+            if (edge) {
+              const int key = key0 + 8 * (e / 2);
+              const int qpos = q0 + 8 * j + 2 * t + (e % 2);
+              if (key >= p.s_k || qpos >= p.s_q || (p.causal && key > qpos))
+                pe = 0.f;
+            }
+            s[4 * j + e] = pe;
+          }
+        }
+
+        // dV += pᵀ·dO, p rounded to bf16, runs while ds is computed.
+        uint32_t pa[4][4], da[4][4];  // p and ds in bf16, per 16-query step
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          acc_to_a_frag(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_rs(dv, pa[kk], T::mn_major(dos, kQueries, kk));
+        hopper::wgmma_commit();
+
+        // ds = p·(dpᵀ − D), then dK += dsᵀ·Q, ds rounded to bf16.
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(d_s + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] =
+                s[4 * j + e] * (dp[4 * j + e] - (e % 2 ? d2.y : d2.x));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          acc_to_a_frag(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_rs(dk, da[kk], T::mn_major(qs, kQueries, kk));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dv);
+        hopper::fence_regs(dk);
+        hopper::fence_regs(pa);
+        hopper::fence_regs(da);
+      }
+      if (lane == 0) hopper::mbar_arrive(empty + st);
+    }
+
+    __nv_bfloat16* dkp =
+        slice_out<__nv_bfloat16>(p.dk, bi, hi, p.dk_sb, p.dk_sh);
+    __nv_bfloat16* dvp =
+        slice_out<__nv_bfloat16>(p.dv, bi, hi, p.dv_sb, p.dv_sh);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= p.s_k) continue;
+      __nv_bfloat16* krow = dkp + key * p.dk_ss + 2 * t;
+      __nv_bfloat16* vrow = dvp + key * p.dv_ss + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(krow + j * 8) = pack_f32(
+            dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(vrow + j * 8) =
+            pack_f32(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
     }
   }
 }
@@ -480,11 +658,50 @@ cudaError_t launch_dq(const Params& p, int bh, bool bf16, cudaStream_t st) {
 }
 
 template <int D>
-cudaError_t launch_dkv(const Params& p, int bh, bool bf16, cudaStream_t st) {
-  dim3 grid((p.s_k + kBlockK - 1) / kBlockK, bh);
-  if (bf16)
-    return launch(flash_bwd_dkv_bf16_kernel<D>, grid, 128,
-                  bf16_smem_bytes<D>(), st, p);
+cudaError_t launch_dkv_bf16(const Params& a, int b, cudaStream_t st) {
+  using C = dkv::Config<D>;
+  static const cudaError_t setup =
+      hopper::prepare(flash_bwd_dkv_bf16_kernel<D>, C::kSmem, dkv::kThreads,
+                      dkv::kRegPool);
+  if (setup != cudaSuccess) return setup;
+  cudaError_t err;
+  DkvParams p{};
+  if ((err = hopper::encode_bshd(&p.tm_k, a.k, b, a.s_k, a.h, D, a.k_sb,
+                                 a.k_ss, a.k_sh, dkv::kKeys)) != cudaSuccess ||
+      (err = hopper::encode_bshd(&p.tm_v, a.v, b, a.s_k, a.h, D, a.v_sb,
+                                 a.v_ss, a.v_sh, dkv::kKeys)) != cudaSuccess ||
+      (err = hopper::encode_bshd(&p.tm_q, a.q, b, a.s_q, a.h, D, a.q_sb,
+                                 a.q_ss, a.q_sh, dkv::kQueries)) !=
+          cudaSuccess ||
+      (err = hopper::encode_bshd(&p.tm_do, a.dout, b, a.s_q, a.h, D, a.do_sb,
+                                 a.do_ss, a.do_sh, dkv::kQueries)) !=
+          cudaSuccess)
+    return err;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.dk = a.dk;
+  p.dv = a.dv;
+  p.h = a.h;
+  p.s_q = a.s_q;
+  p.s_k = a.s_k;
+  p.dk_sb = a.dk_sb;
+  p.dk_ss = a.dk_ss;
+  p.dk_sh = a.dk_sh;
+  p.dv_sb = a.dv_sb;
+  p.dv_ss = a.dv_ss;
+  p.dv_sh = a.dv_sh;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * 1.4426950408889634f;
+  p.causal = a.causal;
+  const dim3 grid(b * a.h, (a.s_k + dkv::kKeys - 1) / dkv::kKeys);
+  flash_bwd_dkv_bf16_kernel<D><<<grid, dkv::kThreads, C::kSmem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const Params& p, int b, bool bf16, cudaStream_t st) {
+  if (bf16) return launch_dkv_bf16<D>(p, b, st);
+  dim3 grid((p.s_k + kBlockK - 1) / kBlockK, b * p.h);
   return launch(flash_bwd_dkv_f32_kernel<D>, grid, 64, f32_smem_bytes<D>(), st,
                 p);
 }
@@ -532,9 +749,9 @@ extern "C" int sparktorch_flash_bwd_dkv(
                                s_q, s_k, strides, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_dkv<32>(p, b * h, bf16 != 0, st);
-    case 64: return launch_dkv<64>(p, b * h, bf16 != 0, st);
-    case 128: return launch_dkv<128>(p, b * h, bf16 != 0, st);
+    case 32: return launch_dkv<32>(p, b, bf16 != 0, st);
+    case 64: return launch_dkv<64>(p, b, bf16 != 0, st);
+    case 128: return launch_dkv<128>(p, b, bf16 != 0, st);
     default: return cudaErrorInvalidValue;
   }
 }

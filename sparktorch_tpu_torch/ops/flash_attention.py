@@ -121,7 +121,7 @@ def _check(q, k, v):
         raise ValueError("flash_attention needs at least one key")
 
 
-def _check_cuda(q):
+def _check_cuda(q, k):
     """What the kernels take; raises on anything else."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -134,15 +134,26 @@ def _check_cuda(q):
     if b * h > _MAX_GRID_Y:
         raise ValueError(
             f"flash_attention: batch*heads {b * h} > {_MAX_GRID_Y}")
+    # The bf16 kernels put their 128-row tiles on the grid's y axis.
+    s = max(q.shape[1], k.shape[1])
+    if s > 128 * _MAX_GRID_Y:
+        raise ValueError(f"flash_attention: sequence {s} > "
+                         f"{128 * _MAX_GRID_Y}")
 
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """The kernels read 16-byte vectors along head_dim (bf16) and take
-    any (batch, seq, head) strides that keep them aligned; anything else
-    is copied contiguous first."""
+    """The bf16 kernels read their tiles with TMA through a (head_dim,
+    head, seq, batch) tensor map, which needs a 16-byte-aligned base and
+    (batch, seq, head) strides that are multiples of 16 bytes and do not
+    grow inward (the strides of extent-1 dims never enter an address).
+    Views of the fused qkv product pass as they are; anything else is
+    copied into a fresh contiguous tensor (fresh, so its base is aligned
+    even where ``x`` was contiguous already)."""
+    strides = [st for n, st in zip(x.shape[:3], x.stride()[:3]) if n > 1]
     aligned = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-               and all(st % 8 == 0 for st in x.stride()[:3]))
-    return x if aligned else x.contiguous()
+               and all(st > 0 and st % 8 == 0 for st in strides)
+               and strides == sorted(strides, reverse=True))
+    return x if aligned else x.clone(memory_format=torch.contiguous_format)
 
 
 def _forward(q, k, v, causal, return_lse):
@@ -151,7 +162,7 @@ def _forward(q, k, v, causal, return_lse):
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal,
                                          return_lse=return_lse)
-    _check_cuda(q)
+    _check_cuda(q, k)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
@@ -221,7 +232,7 @@ def _bwd_operands(q, k, v, do, lse, delta):
     """Checks what the backward kernels take; returns the operands in
     the layout they read."""
     _check(q, k, v)
-    _check_cuda(q)
+    _check_cuda(q, k)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q "
                          f"{tuple(q.shape)} {q.dtype} on {q.device}")

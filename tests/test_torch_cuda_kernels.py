@@ -34,11 +34,10 @@ def cuda_device():
 
 
 def _close(got, want, tol, tile=64):
-    # Relative L2 error of every 64-row tile (one block's work) of each
-    # (batch, head), each against its own reference, so the small
-    # gradients of late causal rows are held as closely as the first.
-    # bf16 outputs round at 2^-9 of their size; f32 sums run in another
-    # order.
+    # Relative L2 error of every 64-row tile of each (batch, head), each
+    # against its own reference, so the small outputs and gradients of
+    # late causal rows are held as closely as the first. bf16 outputs
+    # round at 2^-9 of their size; f32 sums run in another order.
     b, s, h, d = want.shape
     pad = (0, 0, 0, 0, 0, -s % tile)
     diff = torch.nn.functional.pad(got.float() - want.float(), pad)
@@ -55,6 +54,7 @@ def _close(got, want, tol, tile=64):
     (torch.bfloat16, 128, True, 300),
     (torch.bfloat16, 32, True, 256),
     (torch.float32, 64, True, 200),
+    (torch.bfloat16, 64, True, 2048),
 ])
 def test_cuda_kernel_matches_plain_version(cuda_device, dtype, d, causal, s):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -69,6 +69,7 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, d, causal, s):
     assert flash_attention.launches == before + 1
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    _close(got, want, 1e-2 if dtype == torch.bfloat16 else 1e-4)
     lse_tol = 1e-3 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(lse, want_lse, atol=lse_tol, rtol=lse_tol)
 
@@ -122,6 +123,135 @@ def test_cuda_autograd_through_fused_qkv_views(cuda_device, causal):
     want = torch.stack(flash_attention_backward_reference(
         q, k, v, o, lse, g, causal), dim=2)
     _close(qkv.grad.flatten(2, 3), want.flatten(2, 3), 1e-2)
+
+
+# The bf16 kernels tile 128 query rows (forward) or 128 keys (dk/dv) a
+# block, in stages of 64: sequence lengths on both sides of every tile
+# edge, every head dim, q/k/v as views of one fused qkv product.
+_EDGES = [1, 63, 65, 127, 129, 255, 257]
+
+
+def _fused_qkv(gen, device, b, s, h, d):
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=device,
+                      dtype=torch.bfloat16)
+    return qkv.unbind(2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", _EDGES)
+def test_cuda_forward_at_tile_edges(cuda_device, s, causal, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = _fused_qkv(gen, cuda_device, 2, s, 3, d)
+    with torch.inference_mode():
+        got, lse = flash_attention(q, k, v, causal, return_lse=True)
+        want, want_lse = flash_attention_reference(q, k, v, causal,
+                                                   return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    _close(got, want, 1e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", _EDGES)
+def test_cuda_backward_at_tile_edges(cuda_device, s, causal, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = _fused_qkv(gen, cuda_device, 2, s, 3, d)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device,
+                     dtype=torch.bfloat16)
+    o, lse = flash_attention(q, k, v, causal, return_lse=True)
+    got = flash_attention_backward(q, k, v, o, lse, do, causal)
+    want = flash_attention_backward_reference(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        if s == 1 and name != "dv":
+            # One key: the softmax has no gradient, so dq and dk are zero
+            # in exact arithmetic and both sides hold rounding noise of
+            # dP - D (~1e-6 of dP) only.
+            assert float(g.float().abs().max()) < 1e-3, name
+            continue
+        _close(g, w, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_kernels_with_many_heads(cuda_device, causal):
+    # batch·heads = 1,280 blocks along the grid's x axis.
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = _fused_qkv(gen, cuda_device, 64, 130, 20, 64)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device,
+                     dtype=torch.bfloat16)
+    o, lse = flash_attention(q, k, v, causal, return_lse=True)
+    want_o, want_lse = flash_attention_reference(q, k, v, causal,
+                                                 return_lse=True)
+    torch.testing.assert_close(o.float(), want_o.float(), atol=2e-2,
+                               rtol=2e-2)
+    _close(o, want_o, 1e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-3)
+    got = flash_attention_backward(q, k, v, o, lse, do, causal)
+    want = flash_attention_backward_reference(q, k, v, o, lse, do, causal)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s_q,s_k", [(100, 300), (300, 100)])
+def test_cuda_kernels_with_unequal_lengths(cuda_device, s_q, s_k, causal):
+    # The mask is top-left aligned (key > query is masked), as in the
+    # plain version; keys past every query get no gradient.
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q = torch.randn((2, s_q, 4, 64), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((2, s_k, 4, 64), generator=gen, device=cuda_device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    do = torch.randn(q.shape, generator=gen, device=cuda_device,
+                     dtype=torch.bfloat16)
+    o, lse = flash_attention(q, k, v, causal, return_lse=True)
+    want_o, want_lse = flash_attention_reference(q, k, v, causal,
+                                                 return_lse=True)
+    torch.testing.assert_close(o.float(), want_o.float(), atol=2e-2,
+                               rtol=2e-2)
+    _close(o, want_o, 1e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-3)
+    got = flash_attention_backward(q, k, v, o, lse, do, causal)
+    want = flash_attention_backward_reference(q, k, v, o, lse, do, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if causal and s_k > s_q and name != "dq":
+            # Keys past the last query: exactly zero on both sides.
+            assert torch.equal(g[:, s_q:], w[:, s_q:]), name
+            g, w = g[:, :s_q], w[:, :s_q]
+        _close(g, w, 1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_repeat_bit_for_bit(cuda_device):
+    # Twenty runs at one shape give the same bits: each output element is
+    # owned by one block and summed in a fixed order, so a run that
+    # differs has read a stage before its load landed or after it was
+    # refilled.
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = _fused_qkv(gen, cuda_device, 2, 1000, 8, 64)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device,
+                     dtype=torch.bfloat16)
+    first = None
+    for _ in range(20):
+        o, lse = flash_attention(q, k, v, True, return_lse=True)
+        out = (o, lse, *flash_attention_backward(q, k, v, o, lse, do, True))
+        if first is None:
+            first = out
+            want = flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                      True)
+            for g, w in zip(out[2:], want):
+                _close(g, w, 1e-2)
+        for a, b in zip(out, first):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
