@@ -76,15 +76,15 @@ CE_GRAD_RTOL = {"bfloat16": 1e-2, "float32": 1e-5}
 
 # Threads and dynamic shared memory (bytes) a block of each bf16 flash
 # kernel, as its source sets them (flash_fwd.cu ``fwd::Config``,
-# flash_bwd.cu ``bf16_smem_bytes`` and ``dkv::Config``); ptxas reports
-# static shared memory only.
+# flash_bwd.cu ``dq::Config`` and ``dkv::Config``); ptxas reports static
+# shared memory only.
 LAUNCH = {
     "flash_fwd_bf16_kernel<32>": (288, 25664),
     "flash_fwd_bf16_kernel<64>": (288, 50240),
     "flash_fwd_bf16_kernel<128>": (384, 99392),
-    "flash_bwd_dq_bf16_kernel<32>": (128, 20992),
-    "flash_bwd_dq_bf16_kernel<64>": (128, 37376),
-    "flash_bwd_dq_bf16_kernel<128>": (128, 70144),
+    "flash_bwd_dq_bf16_kernel<32>": (416, 42040),
+    "flash_bwd_dq_bf16_kernel<64>": (416, 83000),
+    "flash_bwd_dq_bf16_kernel<128>": (288, 132152),
     "flash_bwd_dkv_bf16_kernel<32>": (384, 35880),
     "flash_bwd_dkv_bf16_kernel<64>": (384, 68648),
     "flash_bwd_dkv_bf16_kernel<128>": (384, 134184),
@@ -100,13 +100,14 @@ BERT_ROWS, BERT_SEQ, BERT_ITERS = 128, 128, 4
 
 # name: (source, the TPU kernel it replaces, design). "wgmma+tma": a
 # warp-specialised Hopper kernel (TMA loads into a ring of mbarrier-guarded
-# stages, wgmma products); "mma.sync": synchronous tile loads and
-# mma.sync; "simt": a streaming kernel with no matrix products.
+# stages, wgmma products); "simt": a streaming kernel with no matrix
+# products.
 KERNELS = {
     "flash_fwd": ("sparktorch_tpu_torch/ops/csrc/flash_fwd.cu",
                   "sparktorch_tpu/ops/flash_attention.py:155", "wgmma+tma"),
     "flash_bwd_dq": ("sparktorch_tpu_torch/ops/csrc/flash_bwd.cu",
-                     "sparktorch_tpu/ops/flash_attention.py:375", "mma.sync"),
+                     "sparktorch_tpu/ops/flash_attention.py:375",
+                     "wgmma+tma"),
     "flash_bwd_dkv": ("sparktorch_tpu_torch/ops/csrc/flash_bwd.cu",
                       "sparktorch_tpu/ops/flash_attention.py:394",
                       "wgmma+tma"),
@@ -352,6 +353,8 @@ def bwd_kernel_phase(torch):
         ("head_dim 32 causal", 4, 256, 8, 32, True, bf16, False),
         ("head_dim 128 causal", 2, 2048, 16, 128, True, bf16, False),
         ("tile edge s=129 causal", 4, 129, 8, 64, True, bf16, True),
+        # A partial third Q tile (one row of 192), which dq runs first.
+        ("tile edge s=385 causal", 4, 385, 8, 64, True, bf16, True),
         ("head_dim 128 s=8192 causal", 1, 8192, 8, 128, True, bf16, False),
         ("f32", 4, 512, 8, 64, False, f32, False),
     ]

@@ -46,12 +46,29 @@
 //     producer gives its own back (setmaxnreg), one block per SM. The grid
 //     walks the key tiles in ascending order, all heads first, so the
 //     longest causal blocks (k tile 0 walks every Q tile) start first.
-// dq, bf16 (the simple first design; its redesign is next): one block per
-// (64-row Q tile, batch·head), four warps of mma.sync m16n8k16 over padded
-// shared-memory tiles loaded synchronously, looping over the K/V tiles up to
-// the diagonal. S = Q·Kᵀ and dP = dO·Vᵀ take Q and dO as A operands; the
-// accumulator of two neighbouring 8-column tiles, rounded to bf16, is the A
-// operand of ds·K.
+// dq, bf16 (a Hopper kernel: TMA, wgmma and warp specialisation, the
+// forward's shape with one more product):
+//   * One block per (Q tile, batch·head): consumer warpgroups, each owning
+//     64 query rows (three at d ≤ 64, a 192-row tile; two at d = 128), and
+//     a producer warp. One producer thread loads Q and dO once, then
+//     streams the K and V tiles of 64 keys up to the diagonal (causal)
+//     through a ring of two stages, with separate "full" mbarriers for K
+//     and V (S = Q·Kᵀ starts before V lands) and an "empty" mbarrier every
+//     consumer warp arrives on (four stages measured no faster).
+//   * S = Q·Kᵀ and dP = dO·Vᵀ are wgmma m64n64k16 with both operands in
+//     shared memory (K-major); p = exp(S·scale − lse) is computed while dP
+//     runs (lse and D of a thread's two rows held in registers), then
+//     ds = p·(dP − D), rounded to bf16, is the register A operand of
+//     dQ += ds·K (wgmma m64nDk16) with the K stage read again as the
+//     MN-major B operand — no scalar shared-memory loads in the loop.
+//   * S, dP, dQ and the ds fragments live in registers together (ptxas:
+//     110 / 122 / 156 a thread at d = 32 / 64 / 128, no spills): one block
+//     per SM with no hand-over. Each consumer waits for its own products;
+//     the warpgroups' interleaving is the overlap (on the H100 a third
+//     warpgroup made the LM shape faster, while letting dQ run on into
+//     the next tile's S and dP made it slower). The grid walks the Q tiles
+//     longest first, as the forward does; a consumer whose rows are all
+//     past s_q skips its products.
 // f32 (both kernels): one thread per row of the block's tile, scalar f32 FMA
 // (never TF32), a correctness path that matches the plain version to ~1e-6.
 
@@ -115,130 +132,226 @@ __device__ __forceinline__ T* slice_out(void* base, int bi, int hi,
 }
 
 // ---------------------------------------------------------------------------
-// dq, bf16: tensor cores through mma.sync
+// dq, bf16: TMA, wgmma and warp specialisation
 // ---------------------------------------------------------------------------
 
+struct DqParams {
+  CUtensorMap tm_q;      // boxes of kRows rows
+  CUtensorMap tm_do;
+  CUtensorMap tm_k;      // boxes of kKeys rows
+  CUtensorMap tm_v;
+  const float* lse;      // (b, h, s_q)
+  const float* delta;    // (b, h, s_q)
+  void* dq;
+  int h, s_q, s_k;
+  long long dq_sb, dq_ss, dq_sh;
+  float scale;
+  float scale_log2;  // scale · log2(e)
+  int causal;
+};
+
+namespace dq {
+
+constexpr int kKeys = 64;  // keys per K/V stage
+constexpr int kStages = 2;
+
+// One block per SM, with no register hand-over: consumer warpgroups of 64
+// Q rows each and a producer warp. Three consumers at d ≤ 64 (416 threads,
+// up to 152 registers a thread) keep the tensor cores busier than two while
+// one waits on its exponentials; at d = 128 the consumers need ~156
+// registers, so two (288 threads, up to 224).
 template <int D>
-constexpr int bf16_smem_bytes() {
-  // Four 64-row tiles (pitch D + 8) and the 64 lse and D values of a Q tile.
-  return 4 * 64 * (D + 8) * 2 + 2 * 64 * 4;
-}
+struct Config {
+  static constexpr int kConsumers = D <= 64 ? 3 : 2;
+  static constexpr int kRows = 64 * kConsumers;  // Q rows per block
+  static constexpr int kThreads = 128 * kConsumers + 32;
+  static constexpr int kQBytes = kRows * D * 2;   // Q (or dO)
+  static constexpr int kKVBytes = kKeys * D * 2;  // one K or V stage
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBars = kV + kStages * kKVBytes;
+  // qdo_full, k_full[kStages], v_full[kStages], empty[kStages]; 1024 bytes
+  // of slack to align the base.
+  static constexpr int kSmem = kBars + (1 + 3 * kStages) * 8 + 1024;
+};
 
-// S and dP for a warp's 16 rows against the 64 rows of two other tiles:
-// acc_s = A1·B1ᵀ, acc_p = A2·B2ᵀ, the A rows taken from a1/a2 (rows
-// r0..r0+15) and the B rows from b1/b2 (all 64 rows), over D columns.
-template <int D, int LD>
-__device__ __forceinline__ void two_products(float acc_s[8][4],
-                                             float acc_p[8][4],
-                                             const __nv_bfloat16* a1,
-                                             const __nv_bfloat16* a2,
-                                             const __nv_bfloat16* b1,
-                                             const __nv_bfloat16* b2, int r0,
-                                             int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_s[j][e] = acc_p[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa1[4], fa2[4];
-    load_a_frag<LD>(fa1, a1, r0, kk, g, t);
-    load_a_frag<LD>(fa2, a2, r0, kk, g, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int off = (j * 8 + g) * LD + kk * 16 + 2 * t;
-      mma_16816(acc_s[j], fa1, ld32(b1 + off), ld32(b1 + off + 8));
-      mma_16816(acc_p[j], fa2, ld32(b2 + off), ld32(b2 + off + 8));
-    }
-  }
-}
+}  // namespace dq
 
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + 64 * LD;
-  __nv_bfloat16* ks = dos + 64 * LD;
-  __nv_bfloat16* vs = ks + 64 * LD;
+__global__ void __launch_bounds__(dq::Config<D>::kThreads, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ DqParams p) {
+  using namespace dq;
+  using C = Config<D>;
+  using T = hopper::Tile<D>;
+  constexpr int kRows = C::kRows;
+  constexpr int kConsumerThreads = 128 * C::kConsumers;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBars);
+  uint64_t* qdo_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + kStages;
+  uint64_t* empty = bars + 1 + 2 * kStages;
 
-  const int q_tile = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int bi = bh / p.h, hi = bh % p.h;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = q_tile * kBlockQ;
-  const int r0 = warp * 16;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest rows first
+  int n_tiles = (p.s_k + kKeys - 1) / kKeys;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kKeys + 1);
 
-  const __nv_bfloat16* kp = slice<__nv_bfloat16>(p.k, bi, hi, p.k_sb, p.k_sh);
-  const __nv_bfloat16* vp = slice<__nv_bfloat16>(p.v, bi, hi, p.v_sb, p.v_sh);
-  load_tile_bf16<D, LD>(qs, slice<__nv_bfloat16>(p.q, bi, hi, p.q_sb, p.q_sh),
-                        p.q_ss, q0, p.s_q);
-  load_tile_bf16<D, LD>(dos,
-                        slice<__nv_bfloat16>(p.dout, bi, hi, p.do_sb, p.do_sh),
-                        p.do_ss, q0, p.s_q);
-
-  // This thread's two rows (g and g + 8 of the warp's 16): lse and D.
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qpos = q0 + r0 + g + 8 * r;
-    const bool ok = qpos < p.s_q;
-    lse_r[r] = ok ? p.lse[(long long)bh * p.s_q + qpos] : 0.f;
-    d_r[r] = ok ? p.delta[(long long)bh * p.s_q + qpos] : 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qdo_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(k_full + i, 1);
+      hopper::mbar_init(v_full + i, 1);
+      hopper::mbar_init(empty + i, kConsumerThreads / 32);
+    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int n_tiles = k_tile_end(p, q_tile);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D, LD>(ks, kp, p.k_ss, k0, p.s_k);
-    load_tile_bf16<D, LD>(vs, vp, p.v_ss, k0, p.s_k);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    two_products<D, LD>(s, dp, qs, dos, ks, vs, r0, g, t);
-
-    // p = exp(s·scale − lse), ds = p·(dp − D); masked pairs give 0.
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2;
-        const int key = k0 + j * 8 + 2 * t + (e % 2);
-        const int qpos = q0 + r0 + g + 8 * r;
-        const float pe =
-            masked(p, key, qpos) ? 0.f : expf(s[j][e] * p.scale - lse_r[r]);
-        s[j][e] = pe * (dp[j][e] - d_r[r]);
+  if (threadIdx.x >= kConsumerThreads) {
+    // Producer: one thread loads Q and dO once, then keeps the K/V ring
+    // full.
+    if (threadIdx.x == kConsumerThreads) {
+      hopper::mbar_expect_tx(qdo_full, 2 * C::kQBytes);
+      for (int j = 0; j < T::kBoxes; ++j) {
+        hopper::tma_load_4d(smem + C::kQ + j * kRows * T::kSwizzle, &p.tm_q,
+                            qdo_full, j * 64, hi, q0, bi);
+        hopper::tma_load_4d(smem + C::kDO + j * kRows * T::kSwizzle,
+                            &p.tm_do, qdo_full, j * 64, hi, q0, bi);
+      }
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int st = kt % kStages;
+        hopper::mbar_wait(empty + st, ((kt / kStages) & 1) ^ 1);
+        uint8_t* ks = smem + C::kK + st * C::kKVBytes;
+        uint8_t* vs = smem + C::kV + st * C::kKVBytes;
+        hopper::mbar_expect_tx(k_full + st, C::kKVBytes);
+        for (int j = 0; j < T::kBoxes; ++j)
+          hopper::tma_load_4d(ks + j * kKeys * T::kSwizzle, &p.tm_k,
+                              k_full + st, j * 64, hi, kt * kKeys, bi);
+        hopper::mbar_expect_tx(v_full + st, C::kKVBytes);
+        for (int j = 0; j < T::kBoxes; ++j)
+          hopper::tma_load_4d(vs + j * kKeys * T::kSwizzle, &p.tm_v,
+                              v_full + st, j * 64, hi, kt * kKeys, bi);
       }
     }
+  } else {
+    // Consumer warpgroup c: query rows [q0 + 64c, q0 + 64c + 64).
+    const int c = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + c * 64 + warp * 16 + g;  // rows row0 and row0 + 8
+    int n_mine = n_tiles;  // tiles after these lie wholly above my rows
+    if (p.causal) n_mine = min(n_tiles, (q0 + c * 64 + 63) / kKeys + 1);
+    if (q0 + c * 64 >= p.s_q) n_mine = 0;  // every row of mine is padding
 
-    // dQ += ds·K, ds rounded to bf16.
+    // This thread's rows: lse in base 2 and D, zero past s_q (such rows
+    // are computed but never written).
+    float lse_r[2], d_r[2];
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a_frag(a, s[2 * kk], s[2 * kk + 1]);
-      mma_rows<D, LD>(acc, a, ks, kk, g, t);
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row0 + 8 * r;
+      const bool ok = qpos < p.s_q;
+      const long long at = (long long)bh * p.s_q + qpos;
+      lse_r[r] = ok ? p.lse[at] * 1.4426950408889634f : 0.f;
+      d_r[r] = ok ? p.delta[at] : 0.f;
     }
-  }
+    const uint8_t* qs = smem + C::kQ;
+    const uint8_t* dos = smem + C::kDO;
 
-  __nv_bfloat16* dqp =
-      slice_out<__nv_bfloat16>(p.dq, bi, hi, p.dq_sb, p.dq_sh);
+    float acc[D / 2];  // dQ before the scale
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qpos = q0 + r0 + g + 8 * r;
-    if (qpos >= p.s_q) continue;
-    __nv_bfloat16* row = dqp + qpos * p.dq_ss + 2 * t;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    hopper::mbar_wait(qdo_full, 0);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int st = kt % kStages;
+      const uint32_t phase = (kt / kStages) & 1;
+      // Waited on even when skipped: the empty arrival below must not count
+      // towards the stage's previous use.
+      hopper::mbar_wait(k_full + st, phase);
+      if (kt < n_mine) {
+        const uint8_t* ks = smem + C::kK + st * C::kKVBytes;
+        const uint8_t* vs = smem + C::kV + st * C::kKVBytes;
+        const int k0 = kt * kKeys;
+
+        // S = Q·Kᵀ, then dP = dO·Vᵀ once V has landed: my 64 rows × the
+        // stage's 64 keys. p is computed while dP runs.
+        float s[32], dp[32];
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(row + j * 8) =
-          pack_f32(acc[j][2 * r] * p.scale, acc[j][2 * r + 1] * p.scale);
+        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)
+          hopper::wgmma_ss_n64(s, T::k_major(qs, kRows, c * 64, k),
+                               T::k_major(ks, kKeys, 0, k), k > 0);
+        hopper::wgmma_commit();
+        hopper::mbar_wait(v_full + st, phase);
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)
+          hopper::wgmma_ss_n64(dp, T::k_major(dos, kRows, c * 64, k),
+                               T::k_major(vs, kKeys, 0, k), k > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+
+        // p = exp(S·scale − lse); masked pairs give 0. Element 4j + e sits
+        // at row row0 + 8·(e / 2), key k0 + 8j + 2t + e % 2.
+        const bool edge = k0 + kKeys > p.s_k ||
+                          (p.causal && k0 + kKeys - 1 > q0 + c * 64);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e / 2;
+            float pe = hopper::exp2_approx(
+                fmaf(s[4 * j + e], p.scale_log2, -lse_r[r]));
+            if (edge) {
+              const int key = k0 + 8 * j + 2 * t + (e % 2);
+              if (key >= p.s_k || (p.causal && key > row0 + 8 * r)) pe = 0.f;
+            }
+            s[4 * j + e] = pe;
+          }
+        }
+
+        // ds = p·(dP − D), rounded to bf16, then dQ += ds·K with K as the
+        // MN-major B operand.
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          dp[i] = s[i] * (dp[i] - d_r[(i / 2) % 2]);
+        uint32_t da[4][4];  // ds in bf16, one A fragment per 16-key step
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          acc_to_a_frag(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_rs(acc, da[kk], T::mn_major(ks, kKeys, kk));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        hopper::fence_regs(da);
+      }
+      if (lane == 0) hopper::mbar_arrive(empty + st);
+    }
+
+    __nv_bfloat16* dqp =
+        slice_out<__nv_bfloat16>(p.dq, bi, hi, p.dq_sb, p.dq_sh);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row0 + 8 * r;
+      if (qpos >= p.s_q) continue;
+      __nv_bfloat16* row = dqp + qpos * p.dq_ss + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + j * 8) = pack_f32(
+            acc[4 * j + 2 * r] * p.scale, acc[4 * j + 2 * r + 1] * p.scale);
+    }
   }
 }
 
@@ -648,11 +761,44 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
 }
 
 template <int D>
-cudaError_t launch_dq(const Params& p, int bh, bool bf16, cudaStream_t st) {
-  dim3 grid((p.s_q + kBlockQ - 1) / kBlockQ, bh);
-  if (bf16)
-    return launch(flash_bwd_dq_bf16_kernel<D>, grid, 128, bf16_smem_bytes<D>(),
-                  st, p);
+cudaError_t launch_dq_bf16(const Params& a, int b, cudaStream_t st) {
+  using C = dq::Config<D>;
+  static const cudaError_t setup =
+      hopper::prepare(flash_bwd_dq_bf16_kernel<D>, C::kSmem, C::kThreads, 0);
+  if (setup != cudaSuccess) return setup;
+  cudaError_t err;
+  DqParams p{};
+  if ((err = hopper::encode_bshd(&p.tm_q, a.q, b, a.s_q, a.h, D, a.q_sb,
+                                 a.q_ss, a.q_sh, C::kRows)) != cudaSuccess ||
+      (err = hopper::encode_bshd(&p.tm_do, a.dout, b, a.s_q, a.h, D, a.do_sb,
+                                 a.do_ss, a.do_sh, C::kRows)) !=
+          cudaSuccess ||
+      (err = hopper::encode_bshd(&p.tm_k, a.k, b, a.s_k, a.h, D, a.k_sb,
+                                 a.k_ss, a.k_sh, dq::kKeys)) != cudaSuccess ||
+      (err = hopper::encode_bshd(&p.tm_v, a.v, b, a.s_k, a.h, D, a.v_sb,
+                                 a.v_ss, a.v_sh, dq::kKeys)) != cudaSuccess)
+    return err;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.dq = a.dq;
+  p.h = a.h;
+  p.s_q = a.s_q;
+  p.s_k = a.s_k;
+  p.dq_sb = a.dq_sb;
+  p.dq_ss = a.dq_ss;
+  p.dq_sh = a.dq_sh;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * 1.4426950408889634f;
+  p.causal = a.causal;
+  const dim3 grid(b * a.h, (a.s_q + C::kRows - 1) / C::kRows);
+  flash_bwd_dq_bf16_kernel<D><<<grid, C::kThreads, C::kSmem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const Params& p, int b, bool bf16, cudaStream_t st) {
+  if (bf16) return launch_dq_bf16<D>(p, b, st);
+  dim3 grid((p.s_q + kBlockQ - 1) / kBlockQ, b * p.h);
   return launch(flash_bwd_dq_f32_kernel<D>, grid, 64, f32_smem_bytes<D>(), st,
                 p);
 }
@@ -733,9 +879,9 @@ extern "C" int sparktorch_flash_bwd_dq(
                                h, s_q, s_k, strides, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_dq<32>(p, b * h, bf16 != 0, st);
-    case 64: return launch_dq<64>(p, b * h, bf16 != 0, st);
-    case 128: return launch_dq<128>(p, b * h, bf16 != 0, st);
+    case 32: return launch_dq<32>(p, b, bf16 != 0, st);
+    case 64: return launch_dq<64>(p, b, bf16 != 0, st);
+    case 128: return launch_dq<128>(p, b, bf16 != 0, st);
     default: return cudaErrorInvalidValue;
   }
 }

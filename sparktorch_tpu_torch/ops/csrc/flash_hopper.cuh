@@ -1,4 +1,4 @@
-// Hopper building blocks of the bf16 flash-attention forward and dk/dv
+// Hopper building blocks of the bf16 flash-attention forward, dq and dk/dv
 // kernels (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA tile loads,
 // wgmma on shared-memory and register operands, register hand-over
 // between warpgroups, and the host-side tensor maps. Everything is

@@ -125,10 +125,14 @@ def test_cuda_autograd_through_fused_qkv_views(cuda_device, causal):
     _close(qkv.grad.flatten(2, 3), want.flatten(2, 3), 1e-2)
 
 
-# The bf16 kernels tile 128 query rows (forward) or 128 keys (dk/dv) a
-# block, in stages of 64: sequence lengths on both sides of every tile
-# edge, every head dim, q/k/v as views of one fused qkv product.
+# The bf16 kernels tile 128 query rows (forward), 192 (dq at head_dim
+# <= 64; 128 at 128) or 128 keys (dk/dv) a block, in stages of 64:
+# sequence lengths on both sides of every tile edge, every head dim, q/k/v
+# as views of one fused qkv product. The backward adds the edges of dq's
+# 192-row tiles and of a third Q tile: dq walks its Q tiles longest first,
+# so a partial last tile runs first.
 _EDGES = [1, 63, 65, 127, 129, 255, 257]
+_BWD_EDGES = _EDGES + [191, 193, 383, 385]
 
 
 def _fused_qkv(gen, device, b, s, h, d):
@@ -158,7 +162,7 @@ def test_cuda_forward_at_tile_edges(cuda_device, s, causal, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("s", _EDGES)
+@pytest.mark.parametrize("s", _BWD_EDGES)
 def test_cuda_backward_at_tile_edges(cuda_device, s, causal, d):
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     q, k, v = _fused_qkv(gen, cuda_device, 2, s, 3, d)

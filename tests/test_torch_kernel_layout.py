@@ -66,6 +66,8 @@ def test_extent_one_dims_ignore_their_strides():
     # nvcc's anonymous namespace: a hash, the file name, another hash.
     ("_ZN44_GLOBAL__N__4daee69_12_flash_bwd_cu_7b2654a225flash_bwd_dkv_"
      "bf16_kernelILi128EEEvNS_9DkvParamsE", "flash_bwd_dkv_bf16_kernel<128>"),
+    ("_ZN44_GLOBAL__N__4daee69_12_flash_bwd_cu_7b2654a224flash_bwd_dq_"
+     "bf16_kernelILi32EEEvNS_8DqParamsE", "flash_bwd_dq_bf16_kernel<32>"),
     ("_ZN43_GLOBAL__N__6c7a8f1_11_fused_ce_cu_b7df2e7313ce_bwd_kernelIfEEvPKT_"
      "PKxPKfS7_PS2_i", "ce_bwd_kernel<f>"),
     ("_Z13ce_fwd_kernelI13__nv_bfloat16EvPKT_xPKxPfS6_i",
