@@ -41,7 +41,20 @@ the CPU path):
    gradient cosine above 0.99 for every parameter;
 7. train BERT: ``bert_base(attn_impl="flash")``, Adam lr 2e-5, 128 rows of
    128 ids with 2 classes, 4 steps: 12 forward, 12 dq and 12 dk/dv
-   launches per step and no CE kernel (2-D logits take the dense loss).
+   launches per step and no CE kernel (2-D logits take the dense loss);
+8. quick start: README.md's quick start as written (MnistMLP, 4,096 rows,
+   ``Pipeline.fit`` and ``transform``), then the lazily packaged MnistCNN
+   (BASELINE config 2) for 8 steps;
+9. hogwild: ResNet-18 on CIFAR-10 shapes (BASELINE config 3) through the
+   parameter server — (a) ``train_async``, local, 1 worker; (b)
+   ``SparkTorch(mode="hogwild", partitions=4).fit`` and ``transform``; (c)
+   binary HTTP with bf16 pushes, 2 workers — and (d) the sync trainer at
+   the same minibatch; every loss finite, applies equal to pushes, the
+   loss falling in (a) and (d); one iteration of (a) under torch.profiler;
+10. serve ResNet-50: ``resnet50()`` at 224×224×3 served over 2,048 rows,
+   the first chunk's bf16 logits against the module in f32.
+
+No kernel of KERNELS lies on phases 8–10: each expects 0 launches.
 
 The second-to-last line is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -97,6 +110,24 @@ LM = dict(vocab_size=32768, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
           remat=True)
 LM_BATCH, LM_SEQ, LM_ITERS, PARITY_SEQ = 2, 8192, 6, 2048
 BERT_ROWS, BERT_SEQ, BERT_ITERS = 128, 128, 4
+
+# README.md's quick start as written, then BASELINE config 2 (the lazy
+# MnistCNN of bench_lazy_cnn_sync: 1,024 rows, Adam 1e-3, full batch).
+QUICK_ROWS, QUICK_ITERS, QUICK_MB = 4096, 50, 256
+CNN_ROWS, CNN_ITERS = 1024, 8
+# BASELINE config 3 (bench_resnet18_hogwild): ResNet-18 on CIFAR-10
+# shapes, SGD 1e-2, minibatch 256, push_every 4. Iterations per worker
+# of each leg and its repeats (the median is reported): (a) local,
+# 1 worker, at the JAX bench's 1,024 (256 push windows); (b) the
+# estimator, 4 workers; (c) binary HTTP wire, bf16 pushes, 2 workers;
+# (d) sync steps. (a) and (d) run in alternating pairs, so their ratio
+# shares any drift.
+HW_ROWS, HW_MB, HW_PUSH = 2048, 256, 4
+HW_ITERS = dict(local=1024, estimator=256, http=128, sync=512)
+HW_REPEATS = dict(paired=5, estimator=3, http=3)
+# BASELINE config 5's model: ResNet-50 (1000 classes, 224x224x3, 7x7
+# stem), served over 2,048 flat rows in 1,024-row chunks.
+R50_ROWS, R50_HW = 2048, (224, 224, 3)
 
 # name: (source, the TPU kernel it replaces, design). "wgmma+tma": a
 # warp-specialised Hopper kernel (TMA loads into a ring of mbarrier-guarded
@@ -547,10 +578,21 @@ def kernel_family(name):
     for family in ("flash_fwd", "flash_bwd", "ce_fwd_kernel", "ce_bwd_kernel"):
         if family in name:
             return family.replace("_kernel", "")
-    if "memcpy" in name:
+    if "memcpy" in name or "memset" in name:
         return "memcpy"
+    # Before "cudnn": cuDNN's own BatchNorm kernels are cudnn::bn_*.
+    if "batch_norm" in name or "batchnorm" in name or "bn_" in name:
+        return "batchnorm"
+    if any(k in name for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                               "implicit", "nchwtonhwc", "nhwctonchw")):
+        return "conv"
     if any(k in name for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
         return "gemm"
+    if "multi_tensor_apply" in name or "foreach" in name:
+        return "foreach"
+    if any(k in name for k in ("elementwise", "vectorized", "reduce",
+                               "pool", "index", "cat", "copy")):
+        return "elementwise"
     return "other"
 
 
@@ -567,7 +609,7 @@ def profile_pass(torch, label, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_family, other = [], {}, {}
+    spans, by_family, by_name = [], {}, {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -575,8 +617,8 @@ def profile_pass(torch, label, fn):
         spans.append((start, end))
         family = kernel_family(evt.name)
         by_family[family] = by_family.get(family, 0.0) + (end - start)
-        if family == "other":
-            other[evt.name] = other.get(evt.name, 0.0) + (end - start)
+        key = (family, evt.name)
+        by_name[key] = by_name.get(key, 0.0) + (end - start)
     if not spans:
         log(f"profile [{label}]: no device events in the trace; not measured")
         return
@@ -596,8 +638,17 @@ def profile_pass(torch, label, fn):
     log(f"profile [{label}, {len(spans)} device events]: {shares}; "
         f"device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
         f"({100 * (1 - busy / wall_us):.1f}% idle, profiler on)")
-    for name, us in sorted(other.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"  other: {us / 1e3:.2f} ms {name[:110]}")
+    # The largest kernels of each family, so the split can be checked.
+    for family in by_family:
+        top = sorted(((us, name) for (f, name), us in by_name.items()
+                      if f == family), reverse=True)[:3]
+        for us, name in top:
+            short = name.replace("at::native::", "").replace(
+                "(anonymous namespace)::", "")
+            log(f"  {family}: {us / 1e3:.3f} ms {short[:160]}")
+    return {"device_ms": {k: v / 1e3 for k, v in by_family.items()},
+            "busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3,
+            "idle_pct": 100 * (1 - busy / wall_us)}
 
 
 def slice_phase(torch):
@@ -861,6 +912,381 @@ def train_bert_phase(torch):
                         examples_per_s=BERT_ROWS / step_s)
 
 
+# ---------------------------------------------------------------------------
+# The vision and hogwild paths: no kernel of KERNELS lies on them (their
+# convolutions, BatchNorm and dense layers are cuDNN/cuBLAS calls).
+# ---------------------------------------------------------------------------
+
+NO_KERNELS = dict.fromkeys(KERNELS, 0)
+
+
+def quickstart_phase(torch):
+    """README.md's quick start on the card as written, then BASELINE
+    config 2 (the lazily packaged MnistCNN)."""
+    from sparktorch_tpu_torch import (
+        Pipeline,
+        SparkTorch,
+        serialize_torch_obj,
+        serialize_torch_obj_lazy,
+    )
+    from sparktorch_tpu_torch.models import MnistCNN, MnistMLP
+
+    rng = np.random.default_rng(0)
+    x = rng.random((QUICK_ROWS, 784), dtype=np.float32)
+    y = rng.integers(0, 10, QUICK_ROWS)
+    df = {"features": list(x), "label": y.astype(np.float32)}
+    torch.manual_seed(0)
+    torch_obj = serialize_torch_obj(
+        MnistMLP(), criterion="cross_entropy",
+        optimizer="adam", optimizer_params={"lr": 1e-3},
+        input_shape=(784,),
+    )
+    est = SparkTorch(inputCol="features", labelCol="label",
+                     predictionCol="predictions", torchObj=torch_obj,
+                     iters=QUICK_ITERS, miniBatch=QUICK_MB,
+                     validationPct=0.1, earlyStopPatience=10)
+    reset_counts()
+    t0 = time.perf_counter()
+    model = Pipeline(stages=[est]).fit(df)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preds = model.transform(df)["predictions"]
+    transform_s = time.perf_counter() - t0
+    expect_counts("quick start", read_counts(), NO_KERNELS)
+    records = est._last_metrics
+    losses = [r["loss"] for r in records]
+    if not np.isfinite(losses + [r["val_loss"] for r in records]).all():
+        raise AssertionError(f"quick start: losses {losses}")
+    if preds.shape != (QUICK_ROWS,) or not np.isin(preds, range(10)).all():
+        raise AssertionError(f"quick start: predictions {preds[:8]}")
+    step_ms = 1e3 * float(np.median([r["step_time_s"] for r in records]))
+    log(f"quick start: MnistMLP {len(records)} steps of {QUICK_MB} rows "
+        f"(stop at {len(records)} of {QUICK_ITERS}), loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}; median step {step_ms:.2f} ms (each step reads "
+        f"its loss and val_loss back); fit {fit_s:.2f} s; transform "
+        f"{QUICK_ROWS} rows in {transform_s:.3f} s = "
+        f"{QUICK_ROWS / transform_s:,.0f} rows/s")
+
+    payload = serialize_torch_obj_lazy(
+        MnistCNN, criterion="cross_entropy", optimizer="adam",
+        optimizer_params={"lr": 1e-3}, input_shape=(784,))
+    xc = rng.normal(0, 1, (CNN_ROWS, 784)).astype(np.float32)
+    yc = rng.integers(0, 10, CNN_ROWS).astype(np.float32)
+    frame = {"features": list(xc), "label": yc}
+    _, cnn_records, counts, wall = fit(torch, payload, frame, CNN_ITERS,
+                                       "lazy MnistCNN", NO_KERNELS)
+    cnn_ms = 1e3 * cnn_records[0]["step_time_s"]
+    log(f"lazy MnistCNN: {CNN_ITERS} full-batch steps of {CNN_ROWS} rows, "
+        f"losses {[round(r['loss'], 4) for r in cnn_records]}; step "
+        f"{cnn_ms:.2f} ms = {CNN_ROWS / cnn_ms * 1e3:,.0f} examples/s "
+        f"(fit wall {wall:.2f} s)")
+    return counts, dict(steps=len(records), step_ms=step_ms,
+                        transform_rows_per_s=QUICK_ROWS / transform_s,
+                        cnn_step_ms=cnn_ms,
+                        cnn_examples_per_s=CNN_ROWS / cnn_ms * 1e3)
+
+
+def cifar_like(n, seed=0):
+    """CIFAR-10 shapes (NHWC 32x32x3, 10 classes): seeded noise plus a
+    fixed seeded pattern per class, so a few hundred steps learn."""
+    rng = np.random.default_rng(seed)
+    patterns = rng.normal(0, 1, (10, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, n).astype(np.int32)
+    x = rng.normal(0, 1, (n, 32, 32, 3)).astype(np.float32)
+    x += 0.5 * patterns[y]
+    return x, y
+
+
+def steady_examples_per_s(records, mb):
+    """bench.py's steady-state rule: drop the windows dispatched up to
+    the second timestamp, and end the span where the last loss reached
+    the host."""
+    uts = sorted({r["t"] for r in records})
+    t_done = max(r["t_done"] for r in records if "t_done" in r)
+    n_steady = sum(1 for r in records if r["t"] > uts[1])
+    return n_steady * mb / (t_done - uts[1])
+
+
+def check_hogwild(leg, metrics, summary, falls):
+    """Hold one hogwild run: every loss finite, applies == pushes, and
+    (where ``falls``) the last window's mean loss below the first's."""
+    losses = [r["loss"] for r in sorted(metrics,
+                                        key=lambda r: (r["t"], r["iter"]))]
+    budget = summary["hogwild_budget"]
+    applied = summary["server_applied"]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"hogwild {leg}: losses {losses}")
+    if applied != budget["pushes"]:
+        raise AssertionError(f"hogwild {leg}: {applied} applies, "
+                             f"{budget['pushes']} pushes")
+    window = HW_PUSH * 2
+    first, last = np.mean(losses[:window]), np.mean(losses[-window:])
+    if falls and not last < first:
+        raise AssertionError(f"hogwild {leg}: loss did not fall "
+                             f"({first:.4f} -> {last:.4f})")
+    rate = steady_examples_per_s(metrics, HW_MB)
+    per_worker = ", ".join(
+        f"w{p['worker']} pull {p['pull_s']:.3f} s + place "
+        f"{p['pull_place_s']:.3f} s, push {p['push_materialize_s']:.3f} + "
+        f"{p['push_wire_s']:.3f} s of {p['loop_s']:.2f} s"
+        for p in sorted(summary["hogwild_phases"], key=lambda p: p["worker"]))
+    log(f"hogwild {leg}: {len(losses)} iterations, {applied} applies == "
+        f"{int(budget['pushes'])} pushes (server apply host time "
+        f"{summary['server_apply_s']:.3f} s), loss {first:.4f} -> "
+        f"{last:.4f}; {rate:,.0f} examples/s steady; {per_worker}")
+    return dict(examples_per_s=rate, applies=applied,
+                pushes=int(budget["pushes"]), first_loss=float(first),
+                last_loss=float(last),
+                pull_bytes=int(budget["pull_bytes"]),
+                push_bytes=int(budget["push_bytes"]))
+
+
+def median_of(leg, runs):
+    """The median run of ``runs`` by examples/s, with every run's rate
+    and the spread (max - min) / median."""
+    rates = sorted(r["examples_per_s"] for r in runs)
+    med = sorted(runs, key=lambda r: r["examples_per_s"])[len(runs) // 2]
+    spread = 100 * (rates[-1] - rates[0]) / med["examples_per_s"]
+    log(f"{leg}: median {med['examples_per_s']:,.0f} examples/s over "
+        f"{len(runs)} runs {[round(r) for r in rates]}, spread "
+        f"{spread:.1f}%")
+    return dict(med, rates=rates, spread_pct=spread)
+
+
+def add_counts(total, path):
+    """Read the counts after one run of ``path``, hold them at 0 and add
+    them into ``total``."""
+    got = read_counts()
+    expect_counts(path, got, NO_KERNELS)
+    return {k: total.get(k, 0) + v for k, v in got.items()}
+
+
+def hogwild_iteration_profile(torch, payload, x, y):
+    """One steady-state leg-(a) iteration under torch.profiler: a pull,
+    a push_every-step gradient window, the push and the server's apply,
+    on a server and worker already warmed by one iteration."""
+    import copy as _copy
+
+    from sparktorch_tpu_torch.serve.param_server import ParameterServer
+    from sparktorch_tpu_torch.train import hogwild
+    from sparktorch_tpu_torch.utils.data import DataBatch
+
+    server = ParameterServer(payload, device="cuda")
+    try:
+        transport = hogwild.LocalTransport(server)
+        spec = server.spec
+        module = _copy.deepcopy(spec.make_module()).cuda().eval()
+        shard = DataBatch(torch.from_numpy(x), torch.from_numpy(y).long(),
+                          torch.ones(len(x))).to("cuda")
+        loss_fn = spec.loss_fn()
+        windows = hogwild.make_grad_windows(loss_fn, HW_MB, HW_PUSH, HW_PUSH)
+
+        def iteration():
+            errors = []
+            hogwild._worker_loop(0, transport, module, None, shard, None,
+                                 HW_PUSH, 0, False, 0, [], errors, HW_PUSH,
+                                 None, windows)
+            if errors:
+                raise errors[0]
+            server.drain()
+
+        iteration()
+        torch.cuda.synchronize()
+        return profile_pass(torch, "one hogwild ResNet-18 iteration "
+                            f"(pull, {HW_PUSH} grad steps, push, apply)",
+                            iteration)
+    finally:
+        server.stop()
+
+
+def hogwild_phase(torch):
+    """BASELINE config 3: ResNet-18 through the parameter server, in
+    three legs, and the sync trainer at the same minibatch. Returns the
+    kernel counts of each leg's runs and the numbers."""
+    from sparktorch_tpu_torch import SparkTorch, serialize_torch_obj
+    from sparktorch_tpu_torch.models import resnet18
+    from sparktorch_tpu_torch.train.hogwild import train_async
+    from sparktorch_tpu_torch.train.sync import train_distributed
+
+    x, y = cifar_like(HW_ROWS)
+    torch.manual_seed(3)
+    kw = dict(criterion="cross_entropy", optimizer="sgd",
+              optimizer_params={"lr": 1e-2})
+    payload = serialize_torch_obj(resnet18(num_classes=10), **kw,
+                                  input_shape=(32, 32, 3))
+    common = dict(labels=y, mini_batch=HW_MB, push_every=HW_PUSH,
+                  device="cuda")
+    train_async(payload, x, iters=2 * HW_PUSH, partitions=1, **common)
+    train_distributed(payload, x, labels=y, iters=8, mini_batch=HW_MB,
+                      device="cuda", steps_per_call=8)
+    torch.cuda.synchronize()
+    counts = {k: {} for k in ("hogwild_local", "hogwild_estimator",
+                              "hogwild_http", "sync_resnet18")}
+    local_runs, sync_runs = [], []
+    window = 2 * HW_PUSH
+    for rep in range(HW_REPEATS["paired"]):
+        reset_counts()
+        result = train_async(payload, x, iters=HW_ITERS["local"],
+                             partitions=1, **common)
+        counts["hogwild_local"] = add_counts(counts["hogwild_local"],
+                                             "hogwild (a) local")
+        local_runs.append(check_hogwild(
+            f"(a) local, 1 worker, run {rep}", result.metrics,
+            result.summary, falls=True))
+        reset_counts()
+        sync = train_distributed(payload, x, labels=y, iters=HW_ITERS["sync"],
+                                 mini_batch=HW_MB, device="cuda",
+                                 steps_per_call=8)
+        counts["sync_resnet18"] = add_counts(counts["sync_resnet18"],
+                                             "sync ResNet-18 (d)")
+        sync_losses = [r["loss"] for r in sync.metrics]
+        first = float(np.mean(sync_losses[:window]))
+        last = float(np.mean(sync_losses[-window:]))
+        if not (np.isfinite(sync_losses).all() and last < first):
+            raise AssertionError(f"sync ResNet-18: losses {sync_losses}")
+        step_s = float(np.median([r["step_time_s"]
+                                  for r in sync.metrics[8:]]))
+        sync_runs.append(dict(examples_per_s=HW_MB / step_s,
+                              step_ms=1e3 * step_s, first_loss=first,
+                              last_loss=last))
+        log(f"sync ResNet-18 (d) run {rep}: {len(sync_losses)} steps of "
+            f"{HW_MB}, median step {1e3 * step_s:.2f} ms = "
+            f"{HW_MB / step_s:,.0f} examples/s; loss {first:.4f} -> "
+            f"{last:.4f}")
+    out = {"local": median_of("hogwild (a) local, 1 worker", local_runs),
+           "sync": median_of("sync ResNet-18 (d)", sync_runs)}
+    pairs = [a["examples_per_s"] / d["examples_per_s"]
+             for a, d in zip(local_runs, sync_runs)]
+    out["hogwild_over_sync"] = float(np.median(pairs))
+    out["hogwild_over_sync_runs"] = pairs
+    log(f"hogwild (a) / sync (d), run by run: "
+        f"{[round(p, 3) for p in pairs]}; median {np.median(pairs):.3f}")
+
+    flat = serialize_torch_obj(resnet18(num_classes=10, input_hw=(32, 32, 3)),
+                               **kw, input_shape=(32 * 32 * 3,))
+    frame = {"features": x.reshape(HW_ROWS, -1), "label": y.astype(np.float32)}
+    est_runs = []
+    for rep in range(HW_REPEATS["estimator"]):
+        est = SparkTorch(inputCol="features", labelCol="label",
+                         torchObj=flat, mode="hogwild", partitions=4,
+                         iters=HW_ITERS["estimator"], miniBatch=HW_MB,
+                         pushEvery=HW_PUSH, device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        fitted = est.fit(frame)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preds = fitted.setDevice("cuda").transform(frame)["predictions"]
+        transform_s = time.perf_counter() - t0
+        counts["hogwild_estimator"] = add_counts(counts["hogwild_estimator"],
+                                                 "hogwild (b) estimator")
+        state = fitted.getModel().params
+        if not any(k.endswith("running_var") for k in state):
+            raise AssertionError("hogwild (b): the fitted state has no BN "
+                                 "buffers")
+        if preds.shape != (HW_ROWS,) or not np.isin(preds, range(10)).all():
+            raise AssertionError(f"hogwild (b): predictions {preds[:8]}")
+        if len(est._last_metrics) != 4 * HW_ITERS["estimator"]:
+            raise AssertionError(f"hogwild (b): {len(est._last_metrics)} "
+                                 "losses")
+        run = check_hogwild(
+            f"(b) SparkTorch(mode='hogwild', partitions=4).fit, run {rep}",
+            est._last_metrics, est._last_summary, falls=True)
+        run.update(fit_s=fit_s, transform_rows_per_s=HW_ROWS / transform_s)
+        log(f"hogwild (b) run {rep}: fit {fit_s:.2f} s; transform {HW_ROWS} "
+            f"rows {HW_ROWS / transform_s:,.0f} rows/s")
+        est_runs.append(run)
+    out["estimator"] = median_of("hogwild (b) estimator, 4 workers", est_runs)
+
+    http_runs = []
+    for rep in range(HW_REPEATS["http"]):
+        reset_counts()
+        result = train_async(payload, x, iters=HW_ITERS["http"],
+                             partitions=2, transport="http", wire="binary",
+                             quant="bf16", **common)
+        counts["hogwild_http"] = add_counts(counts["hogwild_http"],
+                                            "hogwild (c) http")
+        http_runs.append(check_hogwild(
+            f"(c) binary HTTP, bf16 pushes, 2 workers, run {rep}",
+            result.metrics, result.summary, falls=False))
+    out["http"] = median_of("hogwild (c) binary HTTP, 2 workers", http_runs)
+
+    out["profile"] = hogwild_iteration_profile(torch, payload, x[:HW_MB * 2],
+                                               y[:HW_MB * 2])
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def roughen_batchnorm(torch, module, seed):
+    """Seeded BatchNorm scales and running variances in [0.5, 1.5] and
+    running means N(0, 0.1²): no residual branch is zeroed out."""
+    from sparktorch_tpu_torch.models.resnet import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                n = m.weight.numel()
+                m.weight.copy_(0.5 + torch.rand(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+
+
+def serve_resnet50_phase(torch):
+    """BASELINE config 5's model served by SparkTorchModel.transform."""
+    import copy as _copy
+
+    from sparktorch_tpu_torch import BatchPredictor, create_spark_torch_model
+    from sparktorch_tpu_torch.models import resnet50
+
+    torch.manual_seed(5)
+    module = resnet50(input_hw=R50_HW)
+    roughen_batchnorm(torch, module, 5)
+    stm = create_spark_torch_model(module, inputCol="features",
+                                   predictionCol="predicted").setDevice("cuda")
+    x = np.random.default_rng(5).standard_normal(
+        (R50_ROWS, int(np.prod(R50_HW))), dtype=np.float32)
+    stm.transform({"features": x[:CHUNK]})  # weights to the card, warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    preds = stm.transform({"features": x})["predicted"]
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("serve ResNet-50", counts, NO_KERNELS)
+    if preds.shape != (R50_ROWS,) or not np.isin(preds, range(1000)).all():
+        raise AssertionError(f"serve ResNet-50: predictions {preds[:8]}")
+    log(f"serve ResNet-50 (bf16, 224x224x3, 1000 classes): transform "
+        f"{R50_ROWS} rows in {wall:.3f} s = {R50_ROWS / wall:,.1f} rows/s "
+        f"(host clock, H2D of {x.nbytes / 2**30:.2f} GiB included)")
+
+    served = stm._predictor()
+    got = served.predict(x[:CHUNK])
+    f32 = _copy.deepcopy(served.module)
+    f32.compute_dtype = torch.float32
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = BatchPredictor(f32, device="cuda", chunk=CHUNK).predict(
+            x[:CHUNK])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    diff = float(np.abs(got - want).max())
+    limit = 5e-2 * max(1.0, float(np.abs(want).max()))
+    agree = float((got.argmax(1) == want.argmax(1)).mean())
+    log(f"serve ResNet-50: bf16 vs f32 logits max abs diff {diff:.3e} "
+        f"(limit {limit:.3e}, max |logit| {np.abs(want).max():.3f}); argmax "
+        f"agreement {100 * agree:.2f}%")
+    if not np.isfinite(got).all() or diff > limit:
+        raise AssertionError("serve ResNet-50: bf16 disagrees with f32")
+    del f32
+    profile = profile_pass(torch, "one served ResNet-50 chunk of 1024 rows",
+                           lambda: served.predict(x[:CHUNK]))
+    torch.cuda.empty_cache()
+    return counts, dict(rows_per_s=R50_ROWS / wall, max_abs_diff=diff,
+                        argmax_agreement=agree, profile=profile)
+
+
 def main() -> int:
     import torch
 
@@ -897,6 +1323,9 @@ def main() -> int:
     lm_counts, lm = train_lm_phase(torch)
     parity = train_parity_phase(torch)
     bert_counts, bert = train_bert_phase(torch)
+    quick_counts, quick = quickstart_phase(torch)
+    hogwild_counts, hogwild = hogwild_phase(torch)
+    r50_counts, resnet50_serve = serve_resnet50_phase(torch)
 
     # Each kernel's numbers at its main path's shape: the serving chunk
     # for the forward, the LM training step for the other four.
@@ -906,7 +1335,10 @@ def main() -> int:
     kernels = []
     for name, (source, replaces, design) in KERNELS.items():
         by_path = {"serve": serve_counts[name], "train_lm": lm_counts[name],
-                   "train_bert": bert_counts[name]}
+                   "train_bert": bert_counts[name],
+                   "quickstart_and_lazy_cnn": quick_counts[name],
+                   **{path: c[name] for path, c in hogwild_counts.items()},
+                   "serve_resnet50": r50_counts[name]}
         cases = main_cases[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -922,7 +1354,8 @@ def main() -> int:
         })
     log(json.dumps({"kernels": kernels, "serve_rows_per_s": rows_per_s,
                     "train_lm": lm, "train_parity": parity,
-                    "train_bert": bert}))
+                    "train_bert": bert, "quickstart": quick,
+                    "hogwild": hogwild, "serve_resnet50": resnet50_serve}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,10 +5,13 @@ sits beside it, mirrors its layout and names, and runs on an NVIDIA
 Hopper card. Each Pallas kernel of the JAX package becomes a kernel
 written by hand for Hopper (``ops/csrc``).
 
-Ported so far: synchronous training on one GPU (``SparkTorch.fit``) and
-batch inference (``SparkTorchModel.transform`` and ``BatchPredictor``)
-of the transformer family, with flash attention (forward and backward)
-and the fused cross-entropy as CUDA kernels, plus model packaging and
+Ported so far: synchronous training on one GPU (``SparkTorch.fit``),
+hogwild training through the parameter server (``mode="hogwild"``:
+``train/hogwild.py``, ``serve/param_server.py``, the binary wire in
+``net/``), and batch inference (``SparkTorchModel.transform`` and
+``BatchPredictor``) of the small nets, the MNIST nets, the ResNets and
+the transformer family, with flash attention (forward and backward) and
+the fused cross-entropy as CUDA kernels, plus model packaging and
 pipeline persistence. It imports neither jax nor anything of
 ``sparktorch_tpu``.
 """

@@ -1,9 +1,11 @@
 """``SparkTorch`` Estimator and ``SparkTorchModel`` Transformer — the port of ``sparktorch_tpu/ml/estimator.py``.
 
-``SparkTorch.fit`` trains the packaged model with the synchronous
-trainer (:func:`sparktorch_tpu_torch.train.sync.train_distributed`) on
-one device and returns a ``SparkTorchModel`` holding the trained
-``state_dict``. The Param surface is the JAX package's, name for name;
+``SparkTorch.fit`` trains the packaged model on one device with the
+synchronous trainer (:func:`sparktorch_tpu_torch.train.sync.train_distributed`)
+or, with ``mode="hogwild"``, through the parameter server
+(:func:`sparktorch_tpu_torch.train.hogwild.train_async`), and returns
+a ``SparkTorchModel`` holding the trained ``state_dict`` (BatchNorm
+running statistics included). The Param surface is the JAX package's, name for name;
 ``device`` defaults to ``"cuda"`` and raises when there is no card.
 
 ``transform`` runs the batched forward over the whole column in fixed
@@ -335,9 +337,7 @@ class SparkTorch(Estimator):
 
     def _fit(self, dataset) -> SparkTorchModel:
         mode = self.getMode()
-        if mode in ("hogwild", "async"):
-            raise _not_ported("mode 'hogwild'", "hogwild")
-        if mode not in ("synchronous", "sync", "barrier"):
+        if mode not in ("synchronous", "sync", "barrier", "hogwild", "async"):
             raise ValueError(
                 f"unknown mode {mode!r}; use 'synchronous' or 'hogwild'")
         if self.getCheckpointDir():
@@ -346,14 +346,10 @@ class SparkTorch(Estimator):
             raise _not_ported("a mesh or n_micro setting",
                               "multi-GPU training and train/pipeline.py")
 
-        from sparktorch_tpu_torch.train.sync import train_distributed
-
         df = LocalDataFrame.from_any(dataset)
         x, y = self._extract_xy(df)
         mini_batch = self.getMiniBatch()
-        result = train_distributed(
-            self.getTorchObj(),
-            x,
+        common = dict(
             labels=y,
             iters=self.getIters(),
             partition_shuffles=self.getPartitionShuffles(),
@@ -364,7 +360,22 @@ class SparkTorch(Estimator):
             seed=self._seed,
             device=self.getDevice(),
         )
+        if mode in ("hogwild", "async"):
+            from sparktorch_tpu_torch.train.hogwild import train_async
+
+            result = train_async(
+                self.getTorchObj(), x,
+                acquire_lock=self.getAcquireLock(),
+                port=self.getPort(),
+                partitions=self.getPartitions(),
+                push_every=self.getOrDefault(self.pushEvery),
+                **common)
+        else:
+            from sparktorch_tpu_torch.train.sync import train_distributed
+
+            result = train_distributed(self.getTorchObj(), x, **common)
         self._last_metrics = result.metrics
+        self._last_summary = result.summary
         return SparkTorchModel(
             inputCol=self.getInputCol(),
             predictionCol=self.getPredictionCol(),

@@ -1,0 +1,389 @@
+"""Device-resident parameter server for asynchronous (hogwild) training — the port of ``sparktorch_tpu/serve/param_server.py``.
+
+The reference (``sparktorch/server.py``) is a Flask app holding the
+canonical model in shared CPU memory, with routes ``GET /``,
+``GET /parameters``, ``POST /update`` (``optimizer.step()`` per push)
+and ``POST /losses`` (windowed early stop), tolerating 10 update errors.
+
+As in the JAX package:
+
+- the canonical parameters live on the card behind a
+  :class:`~sparktorch_tpu_torch.utils.locks.VersionedSlot`; a pull is
+  a lock-free read of an immutable (version, snapshot) pair, and a
+  client that holds the current version gets nothing;
+- one writer thread drains a FIFO queue of gradient trees through the
+  spec's optimizer, each gradient cast up to its parameter's dtype
+  first (pushes may arrive in bfloat16);
+- the model state (BatchNorm running statistics) never changes: hogwild
+  workers compute their gradients on the running statistics.
+
+torch optimizers update in place, and a published snapshot must stay
+as it was, so the writer keeps its own master parameters and optimizer
+and publishes a copy after each apply: one device-to-device copy of the
+parameters per apply (a fused ``_foreach_copy_``). Workers copy a
+snapshot into their own module and never alias it. The writer and the
+workers all enqueue on the device's default stream, so an apply and
+its snapshot copy are ordered before any worker work enqueued after the
+swap, and applies serialise with the workers' compute on the card.
+
+:class:`ParamServerHttp` serves the reference's routes plus the binary
+ones (``/parameters.bin`` with a 304 for a current client,
+``/update.bin``, ``/losses.json``). Not ported yet (ROADMAP, Queue 1):
+the ``/metrics``, ``/telemetry`` and ``/delta.bin`` routes, and the
+rpctrace and goodput hooks.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import queue
+import socket as _socket
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, Optional, Tuple
+
+import dill
+import numpy as np
+import torch
+
+from sparktorch_tpu_torch.inference import _resolve_device
+from sparktorch_tpu_torch.net import wire as binwire
+from sparktorch_tpu_torch.utils.early_stopper import EarlyStopping
+from sparktorch_tpu_torch.utils.locks import VersionedSlot
+from sparktorch_tpu_torch.utils.serde import ModelSpec, deserialize_model
+
+MAX_TOLERATED_ERRORS = 10  # server.py:139-142 parity
+
+
+def as_tensor(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` (a tensor, or a numpy array as the wire decodes it) on
+    ``like``'s device in ``like``'s dtype."""
+    if not isinstance(value, torch.Tensor):
+        # The wire's arrays are read-only views of a request body;
+        # torch wraps only writable memory.
+        value = torch.from_numpy(np.require(value, requirements="W"))
+    return value.to(like.device, like.dtype, non_blocking=True)
+
+
+def build_module(spec: ModelSpec, seed: int) -> torch.nn.Module:
+    """The spec's module, on the CPU: a copy of an eager spec's module
+    (its weights), or a lazy spec's class built under ``seed``."""
+    if spec.module is not None:
+        return copy.deepcopy(spec.make_module())
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return spec.make_module()
+
+
+def snapshot(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A copy of ``tensors`` made by one fused copy."""
+    out = {k: torch.empty_like(v) for k, v in tensors.items()}
+    torch._foreach_copy_(list(out.values()), list(tensors.values()))
+    return out
+
+
+class ParameterServer:
+    """Canonical-parameter holder and asynchronous applier."""
+
+    def __init__(self, torch_obj, window_len: int = 3,
+                 early_stop_patience: int = -1, acquire_lock: bool = True,
+                 device=None, seed: int = 0):
+        self.spec: ModelSpec = deserialize_model(torch_obj)
+        self.device = _resolve_device(device)
+        self.acquire_lock = acquire_lock  # parity knob; the single
+        # writer thread always serialises applies.
+        module = build_module(self.spec, seed).to(self.device)
+        with torch.no_grad():
+            self._master = {n: p.detach().clone()
+                            for n, p in module.named_parameters()}
+            self._model_state = {n: b.detach().clone()
+                                 for n, b in module.named_buffers()}
+        self._opt = self.spec.make_optimizer(list(self._master.values()))
+        self.slot = VersionedSlot(snapshot(self._master))
+
+        # Windowed early stop (server.py:102-123 parity).
+        self.window_len = max(1, window_len)
+        self._losses: list = []
+        self._stopper = (EarlyStopping(patience=early_stop_patience)
+                         if early_stop_patience and early_stop_patience > 0
+                         else None)
+        self._stop_flag = False
+        self._loss_lock = threading.Lock()
+
+        self._queue: "queue.Queue" = queue.Queue()
+        self._errors = 0
+        self._failed: Optional[BaseException] = None
+        self._applied = 0
+        self.apply_s = 0.0  # host seconds in the writer's applies
+        self._running = True
+        self._writer = threading.Thread(target=self._apply_loop, daemon=True)
+        self._writer.start()
+
+    # -- state access ------------------------------------------------------
+
+    def get_parameters(self, have_version: int = -1
+                       ) -> Optional[Tuple[int, Dict[str, torch.Tensor]]]:
+        """The (version, snapshot) pair, or None when the client holds
+        the current version (``GET /parameters``, server.py:93-100)."""
+        return self.slot.read_if_newer(have_version)
+
+    def model_state(self) -> Dict[str, torch.Tensor]:
+        return self._model_state
+
+    @property
+    def applied_updates(self) -> int:
+        return self._applied
+
+    # -- gradient path -----------------------------------------------------
+
+    def push_gradients(self, grads, wait: bool = True,
+                       timeout: float = 60.0) -> None:
+        """Queue a gradient tree (parameter name → gradient) for the
+        writer thread. With ``wait`` the call returns once this
+        gradient is applied, so a worker's next pull sees its own push
+        (``POST /update``, server.py:125-147)."""
+        if self._failed is not None:
+            raise RuntimeError("parameter server failed") from self._failed
+        done = threading.Event() if wait else None
+        self._queue.put((grads, done))
+        if done is not None and not done.wait(timeout):
+            raise TimeoutError("parameter server apply timed out")
+
+    def _apply(self, grads) -> None:
+        with torch.no_grad():
+            for name, p in self._master.items():
+                p.grad = as_tensor(grads[name], p)
+            self._opt.step()
+            self.slot.swap(snapshot(self._master))
+
+    def _apply_loop(self):
+        while self._running:
+            try:
+                grads, done = self._queue.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            try:
+                t0 = time.perf_counter()
+                self._apply(grads)
+                self.apply_s += time.perf_counter() - t0
+                self._applied += 1
+            except Exception as e:  # tolerate a bounded error count
+                self._errors += 1
+                if self._errors > MAX_TOLERATED_ERRORS:
+                    self._failed = e
+                    self._running = False
+            finally:
+                if done is not None:
+                    done.set()
+                self._queue.task_done()
+
+    def drain(self, timeout: float = 30.0) -> None:
+        """Block until every queued gradient is applied."""
+        deadline = time.monotonic() + timeout
+        while self._queue.unfinished_tasks and time.monotonic() < deadline:
+            time.sleep(0.005)
+
+    # -- early stopping ----------------------------------------------------
+
+    def post_loss(self, loss: float) -> bool:
+        """Windowed-average early-stop vote; True => stop
+        (``POST /losses``, server.py:102-123)."""
+        with self._loss_lock:
+            if self._stop_flag:
+                return True
+            if self._stopper is None:
+                return False
+            self._losses.append(float(loss))
+            if len(self._losses) >= self.window_len:
+                avg = float(np.mean(self._losses))
+                self._losses.clear()
+                if self._stopper.step(avg):
+                    self._stop_flag = True
+        return self._stop_flag
+
+    @property
+    def should_stop(self) -> bool:
+        return self._stop_flag
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def stop(self):
+        self._running = False
+        if self._writer.is_alive():
+            self._writer.join(timeout=5.0)
+
+    def final_state(self):
+        """(params, model_state) after the pending applies."""
+        self.drain()
+        if self._failed is not None:
+            raise RuntimeError("parameter server failed") from self._failed
+        _, params = self.slot.read()
+        return params, self._model_state
+
+
+# ---------------------------------------------------------------------------
+# HTTP wire (stdlib; the reference used Flask — server.py:79-149)
+# ---------------------------------------------------------------------------
+
+
+def _to_host(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+class _KeepAliveHTTPServer(ThreadingHTTPServer):
+    """A ThreadingHTTPServer whose ``stop`` also closes the kept-alive
+    client connections, so a stopped server goes dark."""
+
+    daemon_threads = True
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._live_requests: set = set()
+        self._live_lock = threading.Lock()
+
+    def process_request(self, request, client_address):
+        with self._live_lock:
+            self._live_requests.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        with self._live_lock:
+            self._live_requests.discard(request)
+        super().shutdown_request(request)
+
+    def close_all_connections(self):
+        with self._live_lock:
+            live = list(self._live_requests)
+        for sock in live:
+            try:
+                sock.shutdown(_socket.SHUT_RDWR)
+            except OSError:
+                pass  # already closing
+
+
+class ParamServerHttp:
+    """A :class:`ParameterServer` over HTTP/1.1 (keep-alive).
+
+    ``GET /`` liveness; ``GET /parameters`` (dill ``(version, tree)``,
+    204 when not newer than ``X-Have-Version``); ``POST /update`` (dill
+    gradient tree); ``POST /losses`` (dill float -> dill
+    ``{"stop": bool}``); and the binary routes ``GET /parameters.bin``
+    (a wire frame, 304 when the client is current), ``POST /update.bin``
+    (400 on a malformed frame) and ``POST /losses.json``. Both pull
+    routes render from one host copy per version.
+    """
+
+    def __init__(self, server: ParameterServer, host: str = "127.0.0.1",
+                 port: int = 3000):
+        self.server = server
+        self.host = host
+        self.port = port
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self):
+        ps = self.server
+        cache: Dict[str, Any] = {"version": None, "host": None,
+                                 "dill": None, "bin": None}
+        cache_lock = threading.Lock()
+
+        def cached_body(fmt: str) -> Tuple[int, bytes]:
+            """(version, body) from one slot read; the host copy and
+            each rendering are made once per version."""
+            with cache_lock:
+                version, params = ps.slot.read()
+                if cache["version"] != version:
+                    cache.update(version=version, host=_to_host(params),
+                                 dill=None, bin=None)
+                if cache[fmt] is None:
+                    cache[fmt] = (
+                        dill.dumps((version, cache["host"])) if fmt == "dill"
+                        else binwire.frame_bytes(binwire.encode(
+                            cache["host"], version=version)))
+                return version, cache[fmt]
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def _send(self, code: int, body: bytes = b"",
+                      content_type: Optional[str] = None):
+                self.send_response(code)
+                if content_type:
+                    self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if body:
+                    self.wfile.write(body)
+
+            def do_GET(self):
+                route = self.path.split("?", 1)[0]
+                if route == "/":
+                    self._send(200, b"sparktorch-tpu parameter server")
+                elif route in ("/parameters", "/parameters.bin"):
+                    have = int(self.headers.get("X-Have-Version", "-1"))
+                    binary = route.endswith(".bin")
+                    version, body = cached_body("bin" if binary else "dill")
+                    if version <= have:
+                        self._send(304 if binary else 204)
+                    else:
+                        self._send(200, body, binwire.CONTENT_TYPE
+                                   if binary else None)
+                else:
+                    self._send(404)
+
+            def do_POST(self):
+                route = self.path.split("?", 1)[0]
+                raw = self.rfile.read(int(self.headers.get("Content-Length",
+                                                           "0")))
+                if route in ("/update", "/update.bin"):
+                    try:
+                        grads = (binwire.decode(raw)[1]
+                                 if route == "/update.bin"
+                                 else dill.loads(raw))
+                    except Exception:
+                        # A malformed body is the client's fault: 400,
+                        # never counted against the apply budget.
+                        self._send(400)
+                        return
+                    try:
+                        ps.push_gradients(grads)
+                        self._send(200, b"OK")
+                    except Exception:
+                        self._send(500)
+                elif route == "/losses":
+                    stop = ps.post_loss(dill.loads(raw))
+                    self._send(200, dill.dumps({"stop": bool(stop)}))
+                elif route == "/losses.json":
+                    try:
+                        loss = float(json.loads(raw)["loss"])
+                    except (ValueError, KeyError, TypeError):
+                        self._send(400)
+                        return
+                    self._send(200, json.dumps(
+                        {"stop": bool(ps.post_loss(loss))}).encode(),
+                        "application/json")
+                else:
+                    self._send(404)
+
+        self._httpd = _KeepAliveHTTPServer((self.host, self.port), Handler)
+        self.port = self._httpd.server_address[1]  # resolve port 0
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def stop(self):
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.close_all_connections()
+            self._httpd.server_close()
+            self._httpd = None

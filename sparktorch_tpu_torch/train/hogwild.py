@@ -1,0 +1,510 @@
+"""Asynchronous (hogwild) training against the parameter server — the port of ``sparktorch_tpu/train/hogwild.py``.
+
+Reference: ``sparktorch/hogwild.py`` — HTTP helpers with one retry
+(:31-62), a per-partition worker loop that pulls the state_dict, runs
+forward and backward, pushes the grads and polls the early stop
+(:65-142), and a ``train()`` that runs partition-shuffle rounds
+and pulls the final weights (:145-186).
+
+As in the JAX package, each worker is a thread that owns a copy of the
+module on its device (worker *i* on device ``i % n_devices``: on one
+card every worker shares it), holds its data shard there, pulls only
+when the server's version moved, and pushes the weighted-mean gradient
+of its minibatch (the reference's missing ``zero_grad`` is not
+reproduced). ``push_every=k`` pushes the mean gradient of a window of
+k minibatch steps, all taken on the parameters last pulled. Gradients
+are computed with the module in eval mode — BatchNorm on its running
+statistics, which the server never changes — as the JAX worker applies
+its model without a mutable ``batch_stats``.
+
+Transports: ``local`` (in-process; the snapshot is copied device to
+device into the worker's module) or ``http``, on the binary wire
+(:class:`~sparktorch_tpu_torch.net.transport.BinaryTransport`,
+``quant`` None, ``bf16`` or ``int8``) or the reference's dill wire
+(:class:`HttpTransport`).
+
+Minibatch offsets come from a host ``torch.Generator`` seeded per worker
+and round (the JAX worker draws them from a ``jax.random`` key), so the
+two packages agree step for step only on full batches.
+
+Not ported yet (ROADMAP, Queue 1): ``shards>1`` and ``pull_quant`` (the
+sharded fleet), ``supervise``/``ft_policy``, ``telemetry``,
+``profile_dir``, and the Spark-executor worker ``run_hogwild_worker``.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import logging
+import threading
+import time
+import urllib.error
+import urllib.request
+from typing import Any, Callable, Dict, List, Optional
+
+import dill
+import numpy as np
+import torch
+
+from sparktorch_tpu_torch.inference import _resolve_device
+from sparktorch_tpu_torch.ml.estimator import _not_ported
+from sparktorch_tpu_torch.net.transport import (
+    BinaryTransport,
+    new_phase_stats,
+    tree_to_host,
+)
+from sparktorch_tpu_torch.serve.param_server import (
+    ParameterServer,
+    ParamServerHttp,
+    as_tensor,
+    build_module,
+)
+from sparktorch_tpu_torch.train.sync import TrainResult
+from sparktorch_tpu_torch.utils.data import (
+    DataBatch,
+    handle_features,
+    sample_minibatch,
+)
+from sparktorch_tpu_torch.utils.serde import deserialize_model, meta_copy
+
+log = logging.getLogger("sparktorch_tpu_torch.train.hogwild")
+
+_HTTP_TIMEOUT = 10.0  # hogwild.py:34-38 parity (10 s timeout, 1 retry)
+_HTTP_PULL_TIMEOUT = 180.0
+
+# ---------------------------------------------------------------------------
+# Transports
+# ---------------------------------------------------------------------------
+
+
+class LocalTransport:
+    """Direct in-process access to the server object."""
+
+    def __init__(self, server: ParameterServer):
+        self.server = server
+        self.stats = new_phase_stats()
+
+    def pull(self, have_version: int):
+        t0 = time.perf_counter()
+        snap = self.server.get_parameters(have_version)
+        st = self.stats
+        st["pull_s"] += time.perf_counter() - t0
+        st["pulls"] += 1
+        st["pull_fresh"] += snap is not None
+        return snap
+
+    def push(self, grads) -> None:
+        t0 = time.perf_counter()
+        self.server.push_gradients(grads)
+        self.stats["push_wire_s"] += time.perf_counter() - t0
+        self.stats["pushes"] += 1
+
+    def post_loss(self, loss: float) -> bool:
+        t0 = time.perf_counter()
+        out = self.server.post_loss(loss)
+        self.stats["poll_s"] += time.perf_counter() - t0
+        return out
+
+    def alive(self) -> bool:
+        return True
+
+
+class HttpTransport:
+    """The reference's wire (hogwild.py:31-62): dill over HTTP, one
+    retry and a 10 s timeout per call. Pushes go as bfloat16 tensors
+    unless ``compress=False``; the server casts them back up."""
+
+    def __init__(self, url: str, compress: bool = True):
+        self.url = url.rstrip("/")
+        self.compress = compress
+        self.stats = new_phase_stats()
+
+    def _request(self, req, timeout: float = _HTTP_TIMEOUT,
+                 retry_on_timeout: bool = False):
+        """One retry; a timeout is retried only for the pull, since a
+        timed-out POST may have been applied."""
+        retriable: tuple = (urllib.error.URLError, ConnectionError)
+        if retry_on_timeout:
+            retriable = retriable + (TimeoutError,)
+        try:
+            return urllib.request.urlopen(req, timeout=timeout)
+        except retriable:
+            return urllib.request.urlopen(req, timeout=timeout)
+
+    def pull(self, have_version: int):
+        st = self.stats
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            self.url + "/parameters",
+            headers={"X-Have-Version": str(have_version)})
+        with self._request(req, timeout=_HTTP_PULL_TIMEOUT,
+                           retry_on_timeout=True) as resp:
+            body = resp.read() if resp.status != 204 else None
+        st["pull_s"] += time.perf_counter() - t0
+        st["pulls"] += 1
+        if body is None:
+            return None
+        st["pull_fresh"] += 1
+        st["pull_bytes"] += len(body)
+        return dill.loads(body)
+
+    def push(self, grads) -> None:
+        st = self.stats
+        t0 = time.perf_counter()
+        if self.compress:
+            grads = {k: (v.to(torch.bfloat16) if v.is_floating_point()
+                         else v) for k, v in grads.items()}
+        payload = dill.dumps(tree_to_host(grads))
+        t1 = time.perf_counter()
+        st["push_materialize_s"] += t1 - t0
+        req = urllib.request.Request(self.url + "/update", data=payload,
+                                     method="POST")
+        with self._request(req) as resp:
+            if resp.status != 200:
+                raise RuntimeError(f"/update failed: {resp.status}")
+        st["push_wire_s"] += time.perf_counter() - t1
+        st["push_bytes"] += len(payload)
+        st["pushes"] += 1
+
+    def post_loss(self, loss: float) -> bool:
+        t0 = time.perf_counter()
+        req = urllib.request.Request(self.url + "/losses",
+                                     data=dill.dumps(float(loss)),
+                                     method="POST")
+        with self._request(req) as resp:
+            out = bool(dill.loads(resp.read())["stop"])
+        self.stats["poll_s"] += time.perf_counter() - t0
+        return out
+
+    def alive(self) -> bool:
+        req = urllib.request.Request(self.url + "/")
+        with self._request(req) as resp:
+            return resp.status == 200
+
+
+# ---------------------------------------------------------------------------
+# Worker
+# ---------------------------------------------------------------------------
+
+
+def make_grad_window(loss_fn: Callable, mini_batch: Optional[int], k: int):
+    """``grad_window(module, shard, generator) -> (grads, losses)``: k
+    minibatch gradient steps (each a contiguous block at a random
+    offset when ``mini_batch`` is below the shard size) on the same
+    parameters, the mean of their weighted-mean gradients, and the k
+    losses. The grads are new tensors the worker never touches again,
+    so they may sit in the server's queue."""
+
+    def grad_window(module, shard: DataBatch, generator):
+        module.zero_grad(set_to_none=True)
+        losses = []
+        for _ in range(k):
+            batch = shard
+            if mini_batch and 0 < mini_batch < shard.size:
+                batch = sample_minibatch(shard, generator, mini_batch)
+            per = loss_fn(module(batch.x), batch.y)
+            loss = (per * batch.w).sum() / batch.w.sum().clamp_min(1.0)
+            loss.backward()  # accumulates into .grad
+            losses.append(loss.detach())
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in module.named_parameters()}
+        if k > 1:
+            torch._foreach_div_(list(grads.values()), float(k))
+        return grads, torch.stack(losses)
+
+    return grad_window
+
+
+def make_grad_step(loss_fn: Callable, mini_batch: Optional[int] = None):
+    """The gradient of one minibatch: a window of one step."""
+    return make_grad_window(loss_fn, mini_batch, 1)
+
+
+def make_grad_windows(loss_fn: Callable, mini_batch: Optional[int],
+                      push_every: int, iters: int):
+    """``(full_window, tail_window)`` for ``push_every=k``: the tail
+    covers ``iters % k`` when k does not divide ``iters``. None when
+    ``push_every <= 1``."""
+    if not push_every or push_every <= 1:
+        return None
+    rem = iters % push_every
+    window = make_grad_window(loss_fn, mini_batch, push_every)
+    return window, (make_grad_window(loss_fn, mini_batch, rem) if rem
+                    else window)
+
+
+def make_eval_loss(loss_fn: Callable):
+    """The weighted loss of a whole batch, no gradients — the
+    validation probe for early stopping."""
+
+    @torch.no_grad()
+    def eval_loss(module, batch: DataBatch) -> torch.Tensor:
+        per = loss_fn(module(batch.x), batch.y)
+        return (per * batch.w).sum() / batch.w.sum().clamp_min(1.0)
+
+    return eval_loss
+
+
+def load_params(module: torch.nn.Module, params: Dict[str, Any]) -> None:
+    """Copy a pulled snapshot into the worker's module (never alias
+    it): one fused copy from device tensors, per-tensor uploads from
+    host arrays."""
+    own = dict(module.named_parameters())
+    with torch.no_grad():
+        dst = [own[n] for n in params]
+        src = [as_tensor(v, own[n]) for n, v in params.items()]
+        torch._foreach_copy_(dst, src)
+
+
+def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
+                 grad_step, shard: DataBatch,
+                 val_shard: Optional[DataBatch], iters: int, verbose: int,
+                 early_stop: bool, seed: int, records: List[dict],
+                 errors: List[BaseException], push_every: int = 1,
+                 eval_loss=None, grad_windows=None,
+                 phase_out: Optional[List[dict]] = None):
+    """One worker's round: pull → gradient (or a window of them) →
+    push, ``iters`` times. Losses stay on the device until the round
+    ends, unless ``verbose`` or the early stop needs one now."""
+    try:
+        transport.stats = new_phase_stats()  # per-round budget
+        generator = torch.Generator().manual_seed(seed + worker_id)
+        have_version = -1
+        pending: list = []
+        window_k = push_every if push_every and push_every > 1 else 1
+        it = 0
+        t_place = t_dispatch = 0.0
+        t_loop0 = time.perf_counter()
+        while it < iters:
+            snap = transport.pull(have_version)
+            if snap is not None:
+                have_version, params = snap
+                t0 = time.perf_counter()
+                load_params(module, params)
+                t_place += time.perf_counter() - t0
+            k = min(window_k, iters - it)
+            t0 = time.perf_counter()
+            if window_k > 1 and grad_windows is not None:
+                fn = grad_windows[0] if k == window_k else grad_windows[1]
+                grads, losses = fn(module, shard, generator)
+            else:
+                k = 1
+                grads, losses = grad_step(module, shard, generator)
+            t_dispatch += time.perf_counter() - t0
+            transport.push(grads)
+            pending.append((it, k, have_version, losses, time.perf_counter()))
+            it += k
+            if verbose:
+                log.info(f"[sparktorch_tpu_torch:hogwild] worker {worker_id} "
+                         f"iter {it - 1} loss {float(losses[-1]):.6f} "
+                         f"v{have_version}")
+            if early_stop:
+                signal = (eval_loss(module, val_shard)
+                          if eval_loss is not None and val_shard is not None
+                          else losses[-1])
+                if transport.post_loss(float(signal)):
+                    break
+        t_drain0 = time.perf_counter()
+        done = []
+        for start, k, version, losses, ts in pending:
+            for j, value in enumerate(losses.cpu().tolist()):
+                done.append({"worker": worker_id, "iter": start + j,
+                             "loss": value, "version": version, "t": ts})
+        if done:
+            # When the last loss reached the host: the end of the
+            # worker's compute, for throughput.
+            done[-1]["t_done"] = time.perf_counter()
+        records.extend(done)
+        if phase_out is not None:
+            st = dict(transport.stats)
+            st.update(worker=worker_id, pull_place_s=t_place,
+                      dispatch_s=t_dispatch,
+                      drain_s=time.perf_counter() - t_drain0,
+                      loop_s=time.perf_counter() - t_loop0, iters=it)
+            phase_out.append(st)
+    except BaseException as e:  # raised again by train_async
+        errors.append(e)
+
+
+# ---------------------------------------------------------------------------
+# Entry point
+# ---------------------------------------------------------------------------
+
+
+_BUDGET_PHASES = ("pull_s", "pull_place_s", "dispatch_s",
+                  "push_materialize_s", "push_wire_s", "poll_s", "drain_s")
+
+
+def _budget(phase_stats: List[dict]) -> dict:
+    """Per-phase seconds summed over the workers; ``other_s`` is loop
+    bookkeeping no phase claims."""
+    keys = _BUDGET_PHASES + ("loop_s", "pull_bytes", "push_bytes", "pulls",
+                             "pushes", "pull_fresh")
+    tot = {k: float(sum(d.get(k, 0) for d in phase_stats)) for k in keys}
+    tot["other_s"] = tot["loop_s"] - sum(tot[k] for k in _BUDGET_PHASES)
+    return tot
+
+
+def train_async(
+    torch_obj,
+    data: Any,
+    labels: Optional[np.ndarray] = None,
+    mesh=None,
+    iters: int = 10,
+    partition_shuffles: int = 1,
+    verbose: int = 0,
+    mini_batch: Optional[int] = None,
+    validation_pct: float = 0.0,
+    early_stop_patience: int = -1,
+    acquire_lock: bool = True,
+    port: int = 0,
+    partitions: int = -1,
+    seed: int = 0,
+    transport: str = "local",
+    push_every: int = 1,
+    compress: bool = True,
+    wire: str = "binary",
+    quant: Optional[str] = None,
+    shards: int = 1,
+    pull_quant: Optional[str] = None,
+    telemetry=None,
+    profile_dir: Optional[str] = None,
+    supervise: bool = False,
+    ft_policy=None,
+    device=None,
+) -> TrainResult:
+    """Asynchronous parameter-server training (``hogwild.train``,
+    hogwild.py:145-186): start the server on ``device`` (CUDA unless
+    the caller asks for the CPU), run ``partition_shuffles`` rounds of
+    ``partitions`` worker threads (default: one per device), return
+    the server's final parameters with the model state, and stop the
+    server, on failure too.
+
+    Every round shuffles the rows, round 0 included, then splits them
+    over the workers (``np.array_split``), as the JAX package does.
+    ``push_every=k`` pushes once per k-step window; pulls and the
+    early-stop vote then happen once per window, so
+    ``early_stop_patience`` counts windows. ``wire`` picks the HTTP
+    wire (``binary`` or ``dill``); binary pushes are bfloat16 unless
+    ``quant`` says ``int8`` or ``compress=False`` ships float32.
+    ``mesh`` is accepted for the JAX signature and unused.
+    """
+    for setting, bad, item in (
+            ("shards>1", shards and shards > 1,
+             "the sharded fleet, serve/fleet.py"),
+            ("pull_quant", pull_quant is not None,
+             "the sharded fleet, serve/fleet.py"),
+            ("supervise/ft_policy", supervise or ft_policy is not None,
+             "the ft supervisor"),
+            ("telemetry", telemetry is not None, "the obs hooks"),
+            ("profile_dir", profile_dir is not None, "the obs hooks")):
+        if bad:
+            raise _not_ported(f"train_async {setting}", item)
+    if transport not in ("local", "http"):
+        raise ValueError(f"unknown transport {transport!r}; use 'local' "
+                         "or 'http'")
+    if transport == "http" and wire not in ("binary", "dill"):
+        raise ValueError(f"unknown wire {wire!r}; use 'binary' or 'dill'")
+    dev = _resolve_device(device)
+    spec = deserialize_model(torch_obj)
+    train_batch, val_batch = handle_features(data, labels, validation_pct,
+                                             seed)
+    if spec.input_shape is None:
+        spec.input_shape = tuple(train_batch.x.shape[1:])
+    devices = ([dev] if dev.type != "cuda" else
+               [torch.device("cuda", j)
+                for j in range(torch.cuda.device_count())])
+    n_workers = partitions if partitions and partitions > 0 else len(devices)
+
+    server = ParameterServer(spec, window_len=n_workers,
+                             early_stop_patience=early_stop_patience,
+                             acquire_lock=acquire_lock, device=dev, seed=seed)
+    http: Optional[ParamServerHttp] = None
+    transports: List[Any] = []
+    try:
+        if transport == "http":
+            http = ParamServerHttp(server, port=port).start()
+            if wire == "dill":
+                transports = [HttpTransport(http.url, compress=compress)
+                              for _ in range(n_workers)]
+            else:
+                push_quant = quant if quant else ("bf16" if compress
+                                                  else None)
+                transports = [BinaryTransport(http.url, quant=push_quant)
+                              for _ in range(n_workers)]
+            if not transports[0].alive():  # torch_distributed.py:326
+                raise RuntimeError(f"parameter server at {http.url} is down")
+        else:
+            transports = [LocalTransport(server) for _ in range(n_workers)]
+
+        loss_fn = spec.loss_fn()
+        grad_step = make_grad_step(loss_fn, mini_batch)
+        grad_windows = make_grad_windows(loss_fn, mini_batch, push_every,
+                                         iters)
+        eval_loss = make_eval_loss(loss_fn) if val_batch is not None else None
+        # The server's twin (the same module, or the same class built
+        # under the same seed): its buffers are the server's model state.
+        template = build_module(spec, seed)
+        worker_devices = [devices[i % len(devices)] for i in range(n_workers)]
+        modules = [copy.deepcopy(template).to(d).eval()
+                   for d in worker_devices]
+        val_shards = [val_batch.to(d) if val_batch is not None else None
+                      for d in worker_devices]
+        early_stop = early_stop_patience is not None and early_stop_patience > 0
+
+        records: List[dict] = []
+        errors: List[BaseException] = []
+        phase_stats: List[dict] = []
+        x, y, w = (a.numpy() for a in train_batch)
+        shuffle_rng = np.random.default_rng(seed + 1)
+        for round_idx in range(max(1, partition_shuffles)):
+            # Every round shuffles, round 0 included (the reference's
+            # _fit always repartitions, torch_distributed.py:288-289): a
+            # label-sorted input must not become single-class workers.
+            perm = shuffle_rng.permutation(x.shape[0])
+            x, y, w = x[perm], y[perm], w[perm]  # hogwild.py:161-177
+            parts = zip(np.array_split(x, n_workers),
+                        np.array_split(y, n_workers),
+                        np.array_split(w, n_workers))
+            threads = []
+            for i, (xs, ys, ws) in enumerate(parts):
+                shard = DataBatch(torch.from_numpy(xs), torch.from_numpy(ys),
+                                  torch.from_numpy(ws)).to(worker_devices[i])
+                t = threading.Thread(
+                    target=_worker_loop,
+                    args=(i, transports[i], modules[i], grad_step, shard,
+                          val_shards[i], iters, verbose, early_stop,
+                          seed + round_idx * n_workers, records, errors,
+                          push_every, eval_loss, grad_windows, phase_stats),
+                    daemon=True)
+                threads.append(t)
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                raise RuntimeError("hogwild worker failed") from errors[0]
+            if server.should_stop:
+                break
+
+        params, model_state = server.final_state()
+        state = {**params, **model_state}
+        state = {k: state[k].detach().cpu() for k in template.state_dict()}
+        summary = None
+        if phase_stats:
+            summary = {"hogwild_phases": phase_stats,
+                       "hogwild_budget": _budget(phase_stats),
+                       "server_applied": server.applied_updates,
+                       "server_apply_s": server.apply_s}
+        if spec.module is not None:
+            spec = dataclasses.replace(spec, module=meta_copy(template))
+        return TrainResult(params=state, metrics=records, spec=spec,
+                           summary=summary)
+    finally:
+        for t in transports:
+            close = getattr(t, "close", None)
+            if close is not None:
+                close()
+        if http is not None:
+            http.stop()
+        server.stop()

@@ -174,10 +174,23 @@ class ModelSpec:
 
     def make_module(self) -> nn.Module:
         if self.module is not None:
-            return self.module
+            return self._sized(self.module)
         if self.module_cls is None:
             raise ValueError("ModelSpec has neither module nor module_cls")
-        return self.module_cls(**self.module_kwargs)
+        return self._sized(self.module_cls(**self.module_kwargs))
+
+    def _sized(self, module: nn.Module, device=None) -> nn.Module:
+        """``module`` with its lazy layers (``nn.LazyLinear``: a port
+        ``MLP`` given no ``in_features``) sized by one forward of a
+        zero ``input_shape`` example, as Flax sizes a layer at init."""
+        lazy = any(isinstance(p, nn.parameter.UninitializedParameter)
+                   for p in module.parameters())
+        if lazy and self.input_shape is not None:
+            x = torch.zeros((1, *self.input_shape), device=device,
+                            dtype=getattr(torch, self.input_dtype))
+            with torch.no_grad():
+                module(x)
+        return module
 
     def loss_fn(self) -> LossFn:
         return resolve_loss(self.loss)
@@ -191,9 +204,10 @@ class ModelSpec:
         """The module on the ``meta`` device: shapes and dtypes, no
         weights, no initialisation work."""
         if self.module is not None:
-            return meta_copy(self.module)
+            return meta_copy(self.make_module())
         with torch.device("meta"):
-            return self.make_module()
+            module = self.module_cls(**self.module_kwargs)
+        return self._sized(module, device="meta")
 
 
 def spec_encoder(obj: Any) -> str:

@@ -10,13 +10,15 @@ import pytest
 import torch
 
 import sparktorch_tpu_torch as port
-from sparktorch_tpu_torch.models import tiny_transformer
+from sparktorch_tpu_torch.models import MnistMLP, tiny_transformer
 from sparktorch_tpu_torch.models.transformer import SequenceClassifier
 from sparktorch_tpu_torch.ops import _build
+from sparktorch_tpu_torch.serve.param_server import ParameterServer
+from sparktorch_tpu_torch.train.hogwild import train_async
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sparktorch_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparktorch_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "sparktorch_tpu")
 
 
 def test_import_pulls_in_no_jax():
@@ -24,7 +26,11 @@ def test_import_pulls_in_no_jax():
         "import sys, sparktorch_tpu_torch, sparktorch_tpu_torch.models, "
         "sparktorch_tpu_torch.convert, sparktorch_tpu_torch.train.sync, "
         "sparktorch_tpu_torch.train.step, sparktorch_tpu_torch.utils.losses, "
-        "sparktorch_tpu_torch.ops.fused_ce\n"
+        "sparktorch_tpu_torch.ops.fused_ce, sparktorch_tpu_torch.models.simple, "
+        "sparktorch_tpu_torch.models.resnet, sparktorch_tpu_torch.net.wire, "
+        "sparktorch_tpu_torch.net.transport, sparktorch_tpu_torch.utils.locks, "
+        "sparktorch_tpu_torch.serve.param_server, "
+        "sparktorch_tpu_torch.train.hogwild\n"
         "from sparktorch_tpu_torch import SparkTorch\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -77,6 +83,20 @@ def test_fit_refuses_cpu_without_being_asked():
     assert est.getDevice() == "cuda"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         est.fit({"features": [[1.0] * 8], "label": [0.0]})
+
+
+def test_hogwild_refuses_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    obj = port.serialize_torch_obj(MnistMLP(), input_shape=(784,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParameterServer(obj)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_async(obj, [[0.0] * 784], labels=[0], iters=1)
+    est = port.SparkTorch(inputCol="features", labelCol="label",
+                          torchObj=obj, iters=1, mode="hogwild")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        est.fit({"features": [[0.0] * 784], "label": [0.0]})
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

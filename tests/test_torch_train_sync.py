@@ -18,11 +18,16 @@ import torch
 
 import sparktorch_tpu as jax_pkg
 import sparktorch_tpu_torch as port
+from sparktorch_tpu.models import resnet as jax_resnet
+from sparktorch_tpu.models import simple as jax_simple
 from sparktorch_tpu.models import transformer as jax_tf
+from sparktorch_tpu.parallel.mesh import build_mesh
 from sparktorch_tpu.train import step as jax_step
 from sparktorch_tpu.train.sync import train_distributed as jax_train
 from sparktorch_tpu.utils import data as jax_data
 from sparktorch_tpu_torch.convert import state_dict_from_flax
+from sparktorch_tpu_torch.models import resnet as torch_resnet
+from sparktorch_tpu_torch.models import simple as torch_simple
 from sparktorch_tpu_torch.models import transformer as torch_tf
 from sparktorch_tpu_torch.train.step import train_step
 from sparktorch_tpu_torch.train.sync import train_distributed
@@ -251,7 +256,6 @@ def test_minibatch_and_shuffle_rounds_train():
 
 
 @pytest.mark.parametrize("setting,match", [
-    (dict(mode="hogwild"), "hogwild"),
     (dict(checkpointDir="/nonexistent"), "checkpoint"),
     (dict(mesh="dp"), "multi-GPU"),
     (dict(n_micro=8), "pipeline"),
@@ -263,3 +267,83 @@ def test_unported_settings_name_the_roadmap(setting, match):
                           device="cpu", **setting)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
         est.fit(_cls_frame(n=4))
+
+
+def _vision_pair(make_jax, make_port, x, seed=0):
+    jax_model = make_jax()
+    variables = jax.device_get(jax_model.init(jax.random.key(seed),
+                                              jnp.asarray(x[:1])))
+    module = make_port()
+    module.load_state_dict(state_dict_from_flax(variables, module))
+    return jax_model, module
+
+
+def test_readme_quick_start_matches_jax():
+    # README.md's quick start at 200 rows and 8 full-batch steps (the two
+    # packages draw minibatch offsets from different generators).
+    rng = np.random.default_rng(5)
+    x = rng.random((200, 784)).astype(np.float32)
+    y = rng.integers(0, 10, 200)
+    df = {"features": list(x), "label": y.astype(np.float32)}
+    jax_model, model = _vision_pair(jax_simple.MnistMLP,
+                                    torch_simple.MnistMLP, x)
+    jax_obj, obj = _packages(jax_model, model, criterion="cross_entropy",
+                             optimizer="adam", optimizer_params={"lr": 1e-3},
+                             input_shape=(784,))
+    kw = dict(inputCol="features", labelCol="label",
+              predictionCol="predictions", iters=8, validationPct=0.1,
+              earlyStopPatience=10)
+    jax_est = jax_pkg.SparkTorch(torchObj=jax_obj, **kw)
+    est = port.SparkTorch(torchObj=obj, device="cpu", **kw)
+    want = jax_pkg.Pipeline(stages=[jax_est]).fit(df).transform(df)
+    fitted = port.Pipeline(stages=[est]).fit(df)
+    fitted.stages[-1].setDevice("cpu")
+    got = fitted.transform(df)
+    for key in ("loss", "val_loss"):
+        np.testing.assert_allclose([r[key] for r in est._last_metrics],
+                                   [r[key] for r in jax_est._last_metrics],
+                                   atol=1e-5, rtol=1e-5, err_msg=key)
+    np.testing.assert_array_equal(got["predictions"], want["predictions"])
+
+
+# Two stages of one block each: a plain block and a strided one with
+# its projection.
+TINY_RESNET = dict(stage_sizes=(1, 1), num_classes=3, width=4)
+
+
+@pytest.mark.parametrize("optimizer,params,param_tol", [
+    ("sgd", {"lr": 0.1}, 2e-5),
+    ("adam", {"lr": 1e-2}, 1e-4),
+])
+def test_resnet_sync_steps_match_jax_on_one_device(optimizer, params,
+                                                    param_tol):
+    # One device: the JAX trainer's batch statistics are per shard, so
+    # only a one-device mesh normalises over the batch the port does.
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((16, 8, 8, 3)).astype(np.float32)
+    y = rng.integers(0, 3, 16).astype(np.int32)
+    jax_model, model = _vision_pair(
+        lambda: jax_resnet.ResNet(block_cls=jax_resnet.ResNetBlock,
+                                  compute_dtype=jnp.float32, **TINY_RESNET),
+        lambda: torch_resnet.ResNet(block_cls=torch_resnet.ResNetBlock,
+                                    compute_dtype="float32", **TINY_RESNET),
+        x)
+    jax_obj, obj = _packages(jax_model, model, criterion="cross_entropy",
+                             optimizer=optimizer, optimizer_params=params)
+    want = jax_train(jax_obj, x, labels=y, iters=3, seed=0,
+                     mesh=build_mesh(devices=jax.devices()[:1]))
+    got = train_distributed(obj, x, labels=y, iters=3, seed=0, device="cpu")
+    np.testing.assert_allclose([r["loss"] for r in got.metrics],
+                               [r["loss"] for r in want.metrics],
+                               atol=1e-5, rtol=1e-5)
+    expected = state_dict_from_flax(
+        {"params": want.params, **jax.device_get(want.model_state)}, model)
+    assert set(got.params) == set(expected)
+    moved = 0
+    for key, value in got.params.items():
+        np.testing.assert_allclose(value.numpy(), expected[key].numpy(),
+                                   atol=param_tol, rtol=param_tol,
+                                   err_msg=key)
+        moved += key.endswith("running_var") and not np.allclose(
+            value.numpy(), 1.0)
+    assert moved > 0
