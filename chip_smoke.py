@@ -45,23 +45,46 @@ the CPU path):
 8. quick start: README.md's quick start as written (MnistMLP, 4,096 rows,
    ``Pipeline.fit`` and ``transform``), then the lazily packaged MnistCNN
    (BASELINE config 2) for 8 steps;
-9. hogwild: ResNet-18 on CIFAR-10 shapes (BASELINE config 3) through the
+9. train LM streaming: the LM of phase 5 through
+   ``train_distributed_streaming``: 16 host sequences in 4-row chunks,
+   2-row minibatch steps (2 a chunk), 2 epochs, a snapshot every 4 steps,
+   then a resume of 1 epoch: phase 5's launches per step times the
+   steps, every loss finite, the second epoch's mean below the first's,
+   the latest snapshot at the steps run; the snapshot's size and its
+   save and restore seconds; one chunk boundary under torch.profiler,
+   where the next chunk's host→device copy must run on a stream other
+   than the kernels' and overlap them;
+10. train LM resume: ``SparkTorch(checkpointDir=..., checkpointEvery=3)``
+   fits of the LM, 6 steps straight against 3 + ``resume=True`` + 3:
+   parameters within 1e-6 × max|param|, exact launch counts;
+11. hogwild: ResNet-18 on CIFAR-10 shapes (BASELINE config 3) through the
    parameter server — (a) ``train_async``, local, 1 worker; (b)
    ``SparkTorch(mode="hogwild", partitions=4).fit`` and ``transform``; (c)
    binary HTTP with bf16 pushes, 2 workers — and (d) the sync trainer at
    the same minibatch; every loss finite, applies equal to pushes, the
    loss falling in (a) and (d); one iteration of (a) under torch.profiler;
-10. serve ResNet-50: ``resnet50()`` at 224×224×3 served over 2,048 rows,
-   the first chunk's bf16 logits against the module in f32.
+12. serve ResNet-50: ``resnet50()`` at 224×224×3 served over 2,048 rows,
+   the first chunk's bf16 logits against the module in f32;
+13. serve ResNet-50 stream (BASELINE config 5): 8,192 seeded uint8 rows
+   written with ``write_rows_parquet`` and streamed by
+   ``stream_parquet_predict`` in 1,024-row chunks, normalised and
+   argmaxed on the card, with ``device_outputs`` off and on; argmaxes
+   against the f32-input host path on ≥ 99.9% of rows; the
+   device-resident rate; one chunk's pinning and upload times; an
+   ``update_params`` swap that changes the predictions.
 
-No kernel of KERNELS lies on phases 8–10: each expects 0 launches.
+No kernel of KERNELS lies on phases 8, 11–13: each expects 0 launches.
+Snapshots, the Parquet file and traces go to ``.chip_smoke_tmp/`` beside
+the script and are deleted at the end.
 
 The second-to-last line is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -128,6 +151,18 @@ HW_REPEATS = dict(paired=5, estimator=3, http=3)
 # BASELINE config 5's model: ResNet-50 (1000 classes, 224x224x3, 7x7
 # stem), served over 2,048 flat rows in 1,024-row chunks.
 R50_ROWS, R50_HW = 2048, (224, 224, 3)
+# The streaming LM: 16 host sequences of the LM above in 4-row chunks,
+# 2-row minibatch steps (2 a chunk), 2 epochs, a snapshot every 4 steps,
+# then a resume of 1 epoch. The checkpoint/resume check: SparkTorch.fit
+# of 6 steps straight against 3 + resume + 3, a snapshot every 3.
+STREAM_ROWS, STREAM_CHUNK, STREAM_MB, STREAM_EPOCHS = 16, 4, 2, 2
+STREAM_EVERY, RESUME_ITERS, RESUME_EVERY = 4, 6, 3
+# BASELINE config 5's stream: 8,192 seeded uint8 rows of 224x224x3 in a
+# Parquet file of 1,024-row groups, streamed in 1,024-row chunks.
+R50_STREAM_ROWS = 8192
+# Snapshots, the Parquet file and traces, deleted when each phase ends.
+SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       ".chip_smoke_tmp")
 
 # name: (source, the TPU kernel it replaces, design). "wgmma+tma": a
 # warp-specialised Hopper kernel (TMA loads into a ring of mbarrier-guarded
@@ -770,6 +805,15 @@ def lm_config(seq, attn_impl):
     return TransformerConfig(max_len=seq, attn_impl=attn_impl, **LM)
 
 
+def lm_step_counts(steps):
+    """Launches of each kernel in ``steps`` LM training steps: 2 forward
+    launches a layer (remat recomputes it), 1 dq and 1 dk/dv a layer, 1
+    CE forward and 1 CE backward."""
+    n_layers = LM["n_layers"]
+    return dict(flash_fwd=2 * n_layers * steps, flash_bwd_dq=n_layers * steps,
+                flash_bwd_dkv=n_layers * steps, ce_fwd=steps, ce_bwd=steps)
+
+
 def train_lm_phase(torch):
     from sparktorch_tpu_torch import deserialize_model, serialize_torch_obj
     from sparktorch_tpu_torch.models import CausalLM
@@ -793,10 +837,8 @@ def train_lm_phase(torch):
     frame = {"features": list(ids[:, :-1].astype(np.float32)),
              "label": list(ids[:, 1:])}
     n = LM_ITERS
-    _, records, counts, wall = fit(
-        torch, payload, frame, n, "train LM",
-        dict(flash_fwd=2 * cfg.n_layers * n, flash_bwd_dq=cfg.n_layers * n,
-             flash_bwd_dkv=cfg.n_layers * n, ce_fwd=n, ce_bwd=n))
+    _, records, counts, wall = fit(torch, payload, frame, n, "train LM",
+                                   lm_step_counts(n))
     losses = [r["loss"] for r in records]
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train LM: loss did not fall: {losses}")
@@ -850,10 +892,8 @@ def train_parity_phase(torch):
         reset_counts()
         m = train_step(module, resolve_loss(loss), opt, batch)
         out[name] = (float(m.loss), float(m.grad_norm), read_counts())
-    n_layers = LM["n_layers"]
-    expect_counts("train parity (flash step)", out["flash"][2], dict(
-        flash_fwd=2 * n_layers, flash_bwd_dq=n_layers,
-        flash_bwd_dkv=n_layers, ce_fwd=1, ce_bwd=1))
+    expect_counts("train parity (flash step)", out["flash"][2],
+                  lm_step_counts(1))
     expect_counts("train parity (dense step)", out["dense"][2],
                   dict.fromkeys(KERNELS, 0))
     (loss_f, norm_f, _), (loss_d, norm_d, _) = out["flash"], out["dense"]
@@ -910,6 +950,208 @@ def train_bert_phase(torch):
         f"(fit wall {wall:.2f} s); the fitted model serves {BERT_ROWS} rows")
     return counts, dict(step_ms=step_s * 1e3,
                         examples_per_s=BERT_ROWS / step_s)
+
+
+def lm_payload(torch, seed):
+    from sparktorch_tpu_torch import serialize_torch_obj
+    from sparktorch_tpu_torch.models import CausalLM
+
+    torch.manual_seed(seed)
+    return serialize_torch_obj(CausalLM(lm_config(LM_SEQ, "flash")),
+                               criterion="cross_entropy", optimizer="adamw",
+                               optimizer_params={"lr": 3e-4})
+
+
+def lm_ids(rows, seed):
+    ids = np.random.default_rng(seed).integers(0, LM["vocab_size"],
+                                               (rows, LM_SEQ + 1))
+    return ids[:, :-1].astype(np.float32), ids[:, 1:]
+
+
+def add_up(total, counts):
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
+def upload_trace(torch, fn):
+    """Run ``fn`` under torch.profiler and return, from its trace, the
+    host→device copies on streams other than the flash kernels' and
+    how many of them overlap a flash-stream kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(SCRATCH, "stream_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    compute = {e["args"]["stream"] for e in kernels if "flash" in e["name"]}
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e["name"]]
+    side = [c for c in copies if c["args"]["stream"] not in compute]
+    busy = [(k["ts"], k["ts"] + k["dur"]) for k in kernels
+            if k["args"]["stream"] in compute]
+    overlapped = [c for c in side if any(
+        a < c["ts"] + c["dur"] and c["ts"] < b for a, b in busy)]
+    return dict(compute_streams=sorted(compute),
+                copy_streams=sorted({c["args"]["stream"] for c in side}),
+                side_copies=len(side), overlapped=len(overlapped),
+                all_htod=len(copies),
+                side_copy_us=[round(c["dur"], 1) for c in side])
+
+
+def train_lm_streaming_phase(torch, resident_tokens_per_s):
+    """The LM through train_distributed_streaming: host data in 4-row
+    chunks, one chunk ahead on the card, snapshots at chunk boundaries,
+    then a resume."""
+    from sparktorch_tpu_torch.train.sync import train_distributed_streaming
+    from sparktorch_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        latest_step,
+    )
+
+    payload = lm_payload(torch, 6)
+    x, y = lm_ids(STREAM_ROWS, 6)
+    d = os.path.join(SCRATCH, "stream_ckpt")
+    per_epoch = (STREAM_ROWS // STREAM_CHUNK) * (STREAM_CHUNK // STREAM_MB)
+    kw = dict(labels=y, chunk_rows=STREAM_CHUNK, mini_batch=STREAM_MB,
+              seed=6, device="cuda", checkpoint_dir=d,
+              checkpoint_every=STREAM_EVERY)
+    total, runs = {}, []
+    for epochs, resume in ((STREAM_EPOCHS, False), (1, True)):
+        steps = epochs * per_epoch
+        reset_counts()
+        t0 = time.perf_counter()
+        result = train_distributed_streaming(payload, x, epochs=epochs,
+                                             resume=resume, **kw)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        label = "train LM streaming" + (" (resumed)" if resume else "")
+        expect_counts(label, counts, lm_step_counts(steps))
+        total = add_up(total, counts)
+        losses = [r["loss"] for r in result.metrics]
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"{label}: {len(losses)} steps, {losses}")
+        done = sum(len(r.metrics) for r in runs) + steps
+        if latest_step(d) != done:
+            raise AssertionError(f"{label}: latest step {latest_step(d)}, "
+                                 f"expected {done}")
+        runs.append(result)
+        step_s = float(np.median([r["step_time_s"] for r in result.metrics]))
+        log(f"{label}: {steps} steps of {STREAM_MB} x {LM_SEQ} tokens in "
+            f"{wall:.2f} s (snapshots included); median step "
+            f"{step_s * 1e3:.1f} ms = {STREAM_MB * LM_SEQ / step_s:,.0f} "
+            f"tokens/s (resident trainer: {resident_tokens_per_s:,.0f}); "
+            f"latest step {latest_step(d)}; losses "
+            f"{[round(v, 4) for v in losses]}")
+    first = runs[0].metrics
+    means = [np.mean([r["loss"] for r in first if r["round"] == e])
+             for e in range(STREAM_EPOCHS)]
+    if not means[-1] < means[0]:
+        raise AssertionError(f"train LM streaming: epoch means {means}")
+    step_s = float(np.median([r["step_time_s"] for r in first]))
+
+    mgr = CheckpointManager(d)
+    step = mgr.latest_step()
+    snapshot = os.path.join(d, str(step), "state.pt")
+    nbytes = os.path.getsize(snapshot)
+    t0 = time.perf_counter()
+    state = mgr.restore()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    CheckpointManager(os.path.join(SCRATCH, "resave")).save(step, state)
+    save_s = time.perf_counter() - t0
+    del state
+    log(f"train LM streaming: snapshot of step {step} {nbytes / 2**20:,.1f} "
+        f"MiB (params, AdamW moments, step); save {save_s:.2f} s, restore "
+        f"{restore_s:.2f} s (local disk, host clock)")
+
+    # One chunk boundary under the profiler: chunk 1's upload against
+    # chunk 0's steps.
+    trace = upload_trace(torch, lambda: train_distributed_streaming(
+        payload, x[:2 * STREAM_CHUNK], labels=y[:2 * STREAM_CHUNK],
+        chunk_rows=STREAM_CHUNK, mini_batch=STREAM_MB, seed=6,
+        device="cuda"))
+    log(f"train LM streaming, one chunk boundary traced: {trace}")
+    if not trace["overlapped"] or set(trace["copy_streams"]) & set(
+            trace["compute_streams"]):
+        raise AssertionError("train LM streaming: no chunk upload on a side "
+                             "stream overlapped the steps")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(os.path.join(SCRATCH, "resave"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total, dict(step_ms=step_s * 1e3,
+                       tokens_per_s=STREAM_MB * LM_SEQ / step_s,
+                       resident_tokens_per_s=resident_tokens_per_s,
+                       epoch_mean_losses=[float(m) for m in means],
+                       snapshot_bytes=nbytes, save_s=save_s,
+                       restore_s=restore_s, upload_trace=trace)
+
+
+def train_lm_resume_phase(torch):
+    """SparkTorch.fit of the LM with checkpointDir: 6 steps straight
+    against 3 steps and a resume of 3, on the same seeded weights."""
+    from sparktorch_tpu_torch import SparkTorch
+    from sparktorch_tpu_torch.utils.checkpoint import latest_step
+
+    payload = lm_payload(torch, 7)
+    x, y = lm_ids(LM_BATCH, 7)
+    frame = {"features": list(x), "label": list(y)}
+    total = {}
+
+    def fit(iters, d, resume=False):
+        nonlocal total
+        est = SparkTorch(inputCol="features", labelCol="label",
+                         torchObj=payload, iters=iters, device="cuda",
+                         checkpointDir=d, checkpointEvery=RESUME_EVERY,
+                         resume=resume)
+        reset_counts()
+        model = est.fit(frame)
+        counts = read_counts()
+        expect_counts(f"train LM resume ({iters} steps"
+                      f"{', resumed' if resume else ''})", counts,
+                      lm_step_counts(iters))
+        total = add_up(total, counts)
+        losses = [r["loss"] for r in est._last_metrics]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train LM resume: losses {losses}")
+        return model.getModel().params, losses
+
+    straight_dir = os.path.join(SCRATCH, "straight")
+    split_dir = os.path.join(SCRATCH, "split")
+    half = RESUME_ITERS // 2
+    straight, straight_losses = fit(RESUME_ITERS, straight_dir)
+    _, first_losses = fit(half, split_dir)
+    t0 = time.perf_counter()
+    resumed, resumed_losses = fit(half, split_dir, resume=True)
+    resumed_s = time.perf_counter() - t0
+    if latest_step(split_dir) != RESUME_ITERS or latest_step(
+            straight_dir) != RESUME_ITERS:
+        raise AssertionError("train LM resume: latest steps "
+                             f"{latest_step(straight_dir)}, "
+                             f"{latest_step(split_dir)}")
+    diff = max(float((resumed[k].float() - v.float()).abs().max())
+               for k, v in straight.items())
+    scale = max(float(v.float().abs().max()) for v in straight.values())
+    identical = all(torch.equal(resumed[k], v) for k, v in straight.items())
+    log(f"train LM resume: straight losses "
+        f"{[round(v, 6) for v in straight_losses]}, split "
+        f"{[round(v, 6) for v in first_losses + resumed_losses]}; largest "
+        f"parameter difference {diff:.3e} (limit {1e-6 * scale:.3e} = 1e-6 x "
+        f"max|param| {scale:.3f}); bit for bit: {identical}; the resumed "
+        f"fit took {resumed_s:.2f} s (restore, 3 steps, snapshot)")
+    if diff > 1e-6 * scale:
+        raise AssertionError("train LM resume: resumed parameters differ "
+                             "from the straight run's")
+    shutil.rmtree(straight_dir, ignore_errors=True)
+    shutil.rmtree(split_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total, dict(max_param_diff=diff, max_abs_param=scale,
+                       bitwise=identical, straight_losses=straight_losses,
+                       split_losses=first_losses + resumed_losses)
 
 
 # ---------------------------------------------------------------------------
@@ -1287,6 +1529,180 @@ def serve_resnet50_phase(torch):
                         argmax_agreement=agree, profile=profile)
 
 
+def pin_and_upload_ms(torch, arr):
+    """Host milliseconds to copy ``arr`` into page-locked memory (twice:
+    the first allocates, the second reuses torch's cached block) and
+    device milliseconds of its host→device copy (CUDA events)."""
+    pin = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pinned = torch.from_numpy(arr).pin_memory()
+        pin.append((time.perf_counter() - t0) * 1e3)
+    up = time_ms(torch, lambda: pinned.to("cuda", non_blocking=True), 5)
+    return dict(mib=arr.nbytes / 2**20, pin_first_ms=pin[0],
+                pin_again_ms=pin[1], h2d_ms=up,
+                h2d_gb_per_s=arr.nbytes / up / 1e6)
+
+
+def check_agreement(what, got, want):
+    """Share of equal argmaxes; at least 99.9% (two runs of one bf16
+    model may take other cuDNN kernels for a convolution)."""
+    agree = float((got == want).mean())
+    log(f"serve ResNet-50 stream vs {what}: argmax agreement "
+        f"{100 * agree:.3f}% of {len(want)} rows")
+    if agree < 0.999:
+        raise AssertionError(f"serve ResNet-50 stream disagrees with {what}")
+    return agree
+
+
+def serve_resnet50_stream_phase(torch, transform_rows_per_s):
+    """BASELINE config 5's path: the seeded bf16 ResNet-50 over a Parquet
+    file of uint8 rows, normalised and argmaxed on the card."""
+    from sparktorch_tpu_torch import BatchPredictor, inference
+    from sparktorch_tpu_torch.models import resnet50
+
+    import pyarrow
+
+    log(f"serve ResNet-50 stream: pyarrow {pyarrow.__version__}")
+    torch.manual_seed(5)
+    module = resnet50(input_hw=R50_HW)
+    roughen_batchnorm(torch, module, 5)
+    row = int(np.prod(R50_HW))
+    rng = np.random.default_rng(8)
+    raw = rng.integers(0, 256, (R50_STREAM_ROWS, row), dtype=np.uint8)
+    path = os.path.join(SCRATCH, "rows.parquet")
+    t0 = time.perf_counter()
+    written = inference.write_rows_parquet(
+        path, (raw[i:i + CHUNK] for i in range(0, R50_STREAM_ROWS, CHUNK)),
+        rows_per_group=CHUNK)
+    write_s = time.perf_counter() - t0
+    log(f"serve ResNet-50 stream: wrote {written} rows x {row} uint8 "
+        f"({os.path.getsize(path) / 2**30:.2f} GiB) in {write_s:.2f} s")
+
+    def normalise(t):
+        return t.float() / 255
+
+    def argmax(y):
+        return y.argmax(-1)
+
+    # The reader alone: the Parquet pull and decode of every batch, no
+    # pinning, no card.
+    read_only = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        n = sum(b.shape[0] for b in inference.parquet_batches(
+            path, (row,), np.uint8, batch_rows=CHUNK))
+        read_only.append(n / (time.perf_counter() - t0))
+    log(f"serve ResNet-50 stream: the Parquet reader alone "
+        f"{[round(r, 1) for r in read_only]} rows/s (two passes, one "
+        f"thread, host clock)")
+
+    pred = BatchPredictor(module, device="cuda", chunk=CHUNK,
+                          preprocess=normalise, postprocess=argmax)
+    pred.predict(raw[:CHUNK])  # weights to the card, warm-up
+    torch.cuda.synchronize()
+    counts, legs = {}, {}
+    preds = None
+    for device_outputs in (False, True):
+        outs = []
+        reset_counts()
+        t0 = time.perf_counter()
+        stats = inference.stream_parquet_predict(
+            pred, path, row_shape=(row,), dtype=np.uint8, drain=outs.append,
+            device_outputs=device_outputs)
+        got = (torch.cat(outs).cpu().numpy() if device_outputs
+               else np.concatenate(outs))
+        synced_s = time.perf_counter() - t0
+        counts = add_counts(counts, "serve ResNet-50 stream")
+        if stats["n_rows"] != R50_STREAM_ROWS or got.shape != (
+                R50_STREAM_ROWS,):
+            raise AssertionError(f"serve ResNet-50 stream: {stats}, "
+                                 f"predictions {got.shape}")
+        if preds is not None:
+            check_agreement("device_outputs", got, preds)
+        preds = got
+        leg = dict(stats, rows_per_sec_synced=R50_STREAM_ROWS / synced_s)
+        legs["device_outputs" if device_outputs else "host_outputs"] = leg
+        log(f"serve ResNet-50 stream (device_outputs={device_outputs}): "
+            f"{stats}; {R50_STREAM_ROWS / synced_s:,.1f} rows/s to the last "
+            f"prediction on the host")
+
+    # The same rows as float32 on the host (x / 255 there), through the
+    # same bf16 model: the f32-input host path, 4x the upload bytes.
+    f32 = BatchPredictor(module, device="cuda", chunk=CHUNK,
+                         postprocess=argmax)
+    reset_counts()
+    want, busy = [], 0.0
+    for i in range(0, R50_STREAM_ROWS, CHUNK):
+        part = raw[i:i + CHUNK].astype(np.float32) / 255
+        t0 = time.perf_counter()
+        want.append(f32.predict(part))
+        busy += time.perf_counter() - t0
+    want = np.concatenate(want)
+    counts = add_counts(counts, "serve ResNet-50 f32 host path")
+    agree = check_agreement("the f32-input host path", preds, want)
+    log(f"serve ResNet-50 stream: the f32-input host path "
+        f"{R50_STREAM_ROWS / busy:,.1f} rows/s in predict (f32 rows made "
+        f"outside the clock); transform {transform_rows_per_s:,.1f} rows/s")
+
+    # Device-resident rate (the JAX bench's chip_rate): rows on the card.
+    dev = torch.from_numpy(raw).cuda()
+    pred.predict(dev[:CHUNK])
+    torch.cuda.synchronize()
+    resident = {}
+    for name, fn in (("predict", lambda: pred.predict(dev)),
+                     ("predict_device", lambda: pred.predict_device(dev))):
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            rates.append(R50_STREAM_ROWS / (time.perf_counter() - t0))
+        check_agreement(f"device-resident {name}",
+                        out.cpu().numpy() if isinstance(out, torch.Tensor)
+                        else out, preds)
+        resident[name] = max(rates)
+        log(f"serve ResNet-50 device-resident {name}: "
+            f"{[round(r, 1) for r in rates]} rows/s (best of 3)")
+    del dev
+
+    # Where the upload time goes: pinning and copying one chunk.
+    h2d = {"uint8": pin_and_upload_ms(torch, raw[:CHUNK]),
+           "float32": pin_and_upload_ms(
+               torch, raw[:CHUNK].astype(np.float32) / 255)}
+    for kind, m in h2d.items():
+        log(f"serve ResNet-50 chunk upload, {kind} ({m['mib']:.1f} MiB): pin "
+            f"{m['pin_first_ms']:.1f} ms first, {m['pin_again_ms']:.1f} ms "
+            f"again (host clock); pinned H2D {m['h2d_ms']:.2f} ms = "
+            f"{m['h2d_gb_per_s']:.1f} GB/s (CUDA events)")
+    pinned = torch.from_numpy(raw[:CHUNK]).pin_memory()
+    profile = profile_pass(torch, "one streamed ResNet-50 chunk of 1024 "
+                           "pinned uint8 rows", lambda: pred.predict(pinned))
+    counts = add_counts(counts, "serve ResNet-50 stream (profiled)")
+
+    # A live weight swap: fresh seeded weights change the predictions.
+    torch.manual_seed(55)
+    other = resnet50(input_hw=R50_HW)
+    roughen_batchnorm(torch, other, 55)
+    pred.update_params(other.state_dict())
+    swapped = pred.predict(raw[:CHUNK])
+    changed = float((swapped != preds[:CHUNK]).mean())
+    log(f"serve ResNet-50 update_params: {100 * changed:.1f}% of "
+        f"{CHUNK} argmaxes changed with the new weights")
+    if changed == 0.0:
+        raise AssertionError("serve ResNet-50: update_params changed nothing")
+    os.remove(path)
+    del pred, f32, other
+    torch.cuda.empty_cache()
+    return counts, dict(legs=legs, read_only_rows_per_s=read_only,
+                        argmax_agreement=agree,
+                        f32_host_rows_per_s=R50_STREAM_ROWS / busy,
+                        transform_rows_per_s=transform_rows_per_s,
+                        resident_rows_per_s=resident, h2d=h2d,
+                        update_params_changed=changed, write_s=write_s,
+                        profile=profile)
+
+
 def main() -> int:
     import torch
 
@@ -1316,6 +1732,14 @@ def main() -> int:
                 f"stores {st} B, spill loads {ld} B, static smem {smem} B"
                 + launch)
 
+    os.makedirs(SCRATCH, exist_ok=True)
+    try:
+        return run_phases(torch)
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+
+
+def run_phases(torch) -> int:
     fwd_cases = kernel_phase(torch)
     bwd_cases = bwd_kernel_phase(torch)
     ce_cases = ce_kernel_phase(torch)
@@ -1324,8 +1748,13 @@ def main() -> int:
     parity = train_parity_phase(torch)
     bert_counts, bert = train_bert_phase(torch)
     quick_counts, quick = quickstart_phase(torch)
+    stream_counts, lm_stream = train_lm_streaming_phase(
+        torch, lm["tokens_per_s"])
+    resume_counts, lm_resume = train_lm_resume_phase(torch)
     hogwild_counts, hogwild = hogwild_phase(torch)
     r50_counts, resnet50_serve = serve_resnet50_phase(torch)
+    r50_stream_counts, resnet50_stream = serve_resnet50_stream_phase(
+        torch, resnet50_serve["rows_per_s"])
 
     # Each kernel's numbers at its main path's shape: the serving chunk
     # for the forward, the LM training step for the other four.
@@ -1336,9 +1765,12 @@ def main() -> int:
     for name, (source, replaces, design) in KERNELS.items():
         by_path = {"serve": serve_counts[name], "train_lm": lm_counts[name],
                    "train_bert": bert_counts[name],
+                   "train_lm_streaming": stream_counts[name],
+                   "train_lm_resume": resume_counts[name],
                    "quickstart_and_lazy_cnn": quick_counts[name],
                    **{path: c[name] for path, c in hogwild_counts.items()},
-                   "serve_resnet50": r50_counts[name]}
+                   "serve_resnet50": r50_counts[name],
+                   "serve_resnet50_stream": r50_stream_counts[name]}
         cases = main_cases[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -1354,8 +1786,10 @@ def main() -> int:
         })
     log(json.dumps({"kernels": kernels, "serve_rows_per_s": rows_per_s,
                     "train_lm": lm, "train_parity": parity,
-                    "train_bert": bert, "quickstart": quick,
-                    "hogwild": hogwild, "serve_resnet50": resnet50_serve}))
+                    "train_bert": bert, "train_lm_streaming": lm_stream,
+                    "train_lm_resume": lm_resume, "quickstart": quick,
+                    "hogwild": hogwild, "serve_resnet50": resnet50_serve,
+                    "serve_resnet50_stream": resnet50_stream}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

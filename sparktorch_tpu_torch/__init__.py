@@ -6,14 +6,19 @@ Hopper card. Each Pallas kernel of the JAX package becomes a kernel
 written by hand for Hopper (``ops/csrc``).
 
 Ported so far: synchronous training on one GPU (``SparkTorch.fit``),
-hogwild training through the parameter server (``mode="hogwild"``:
-``train/hogwild.py``, ``serve/param_server.py``, the binary wire in
-``net/``), and batch inference (``SparkTorchModel.transform`` and
-``BatchPredictor``) of the small nets, the MNIST nets, the ResNets and
-the transformer family, with flash attention (forward and backward) and
-the fused cross-entropy as CUDA kernels, plus model packaging and
-pipeline persistence. It imports neither jax nor anything of
-``sparktorch_tpu``.
+with step checkpoints and resume (``utils/checkpoint.py``) and a
+streaming trainer for data larger than the card
+(``train.sync.train_distributed_streaming``), hogwild training through
+the parameter server (``mode="hogwild"``: ``train/hogwild.py``,
+``serve/param_server.py``, the binary wire in ``net/``), and batch
+inference (``SparkTorchModel.transform``, ``BatchPredictor`` with
+on-device pre- and postprocessing, ``predict_device`` and live weight
+updates, and Parquet streaming: ``inference.write_rows_parquet``,
+``inference.stream_parquet_predict``) of the small nets, the MNIST nets,
+the ResNets and the transformer family, with flash attention (forward
+and backward) and the fused cross-entropy as CUDA kernels, plus model
+packaging and pipeline persistence. It imports neither jax nor
+anything of ``sparktorch_tpu``.
 """
 
 from sparktorch_tpu_torch.utils.serde import (

@@ -1,9 +1,11 @@
 """``SparkTorch`` Estimator and ``SparkTorchModel`` Transformer — the port of ``sparktorch_tpu/ml/estimator.py``.
 
 ``SparkTorch.fit`` trains the packaged model on one device with the
-synchronous trainer (:func:`sparktorch_tpu_torch.train.sync.train_distributed`)
-or, with ``mode="hogwild"``, through the parameter server
-(:func:`sparktorch_tpu_torch.train.hogwild.train_async`), and returns
+synchronous trainer (:func:`sparktorch_tpu_torch.train.sync.train_distributed`,
+with step snapshots in ``checkpointDir`` every ``checkpointEvery`` steps
+and ``resume`` from the newest) or, with ``mode="hogwild"``, through the
+parameter server (:func:`sparktorch_tpu_torch.train.hogwild.train_async`,
+which ignores ``checkpointDir`` as the reference's does), and returns
 a ``SparkTorchModel`` holding the trained ``state_dict`` (BatchNorm
 running statistics included). The Param surface is the JAX package's, name for name;
 ``device`` defaults to ``"cuda"`` and raises when there is no card.
@@ -340,8 +342,6 @@ class SparkTorch(Estimator):
         if mode not in ("synchronous", "sync", "barrier", "hogwild", "async"):
             raise ValueError(
                 f"unknown mode {mode!r}; use 'synchronous' or 'hogwild'")
-        if self.getCheckpointDir():
-            raise _not_ported("checkpointDir", "utils/checkpoint.py")
         if self._mesh is not None or self._n_micro != 4:
             raise _not_ported("a mesh or n_micro setting",
                               "multi-GPU training and train/pipeline.py")
@@ -372,8 +372,17 @@ class SparkTorch(Estimator):
                 **common)
         else:
             from sparktorch_tpu_torch.train.sync import train_distributed
+            from sparktorch_tpu_torch.utils.checkpoint import latest_step
 
-            result = train_distributed(self.getTorchObj(), x, **common)
+            # Resume only from a finalized snapshot: resume=True over an
+            # empty or torn directory trains from scratch.
+            ckpt_dir = self.getCheckpointDir()
+            resume = bool(ckpt_dir and self.getResume()
+                          and latest_step(ckpt_dir) is not None)
+            result = train_distributed(
+                self.getTorchObj(), x, checkpoint_dir=ckpt_dir,
+                checkpoint_every=self.getCheckpointEvery(), resume=resume,
+                **common)
         self._last_metrics = result.metrics
         self._last_summary = result.summary
         return SparkTorchModel(

@@ -1,11 +1,16 @@
-"""Synchronous training on one GPU — the port of ``train_distributed`` (``sparktorch_tpu/train/sync.py:159``).
+"""Synchronous training on one GPU — the port of ``train_distributed`` (``sparktorch_tpu/train/sync.py:159``) and ``train_distributed_streaming`` (:743).
 
-The whole training batch goes onto the card once. Each round (the
-reference's partition shuffle) starts with an on-device permutation of
-the resident rows, drawn from a ``torch.Generator`` seeded with
-``seed + 1``; round 0 shuffles too when minibatch sampling is on, since
-the sampler takes contiguous blocks. Each step is
-:func:`~sparktorch_tpu_torch.train.step.train_step`.
+:func:`train_distributed` puts the whole training batch onto the card
+once. Each round (the reference's partition shuffle) starts with an
+on-device permutation of the resident rows, drawn from a
+``torch.Generator`` seeded with ``seed + 1``; round 0 shuffles too when
+minibatch sampling is on, since the sampler takes contiguous blocks.
+Each step is :func:`~sparktorch_tpu_torch.train.step.train_step`.
+
+:func:`train_distributed_streaming` keeps the data in host memory and
+walks it in fixed-size chunks, one chunk ahead on the card: chunk i+1
+is copied from a pinned staging buffer on a side stream while chunk
+i's steps run, so device memory holds about two chunks.
 
 Read-backs: the step losses come back to the host once per chunk of
 ``steps_per_call`` steps (default: up to 32), so the card is never
@@ -14,11 +19,18 @@ the host needs each step's signal before it may start the next step, so
 then every step is read back — which makes the stop fire at exactly the
 step the JAX package's stops at.
 
+Checkpoints (``checkpoint_dir``): a snapshot of the module, the
+optimizer and the global step at the first chunk boundary at or past
+each ``checkpoint_every`` steps, and a final one on clean completion.
+With ``resume`` the newest snapshot is restored first and ``iters``
+counts the steps run after it; the shuffle generators restart from
+their seeds, as the reference's do, so a resumed run equals the
+straight one on full-batch runs.
+
 Records have the JAX package's keys: ``round, iter, loss, val_loss,
 examples, grad_norm, step_time_s``. Not ported yet (ROADMAP, Queue 1):
-several GPUs (``torch.distributed``), pipeline parallelism,
-checkpoint/resume, and the gang, chaos, goodput, health and profiler
-hooks.
+several GPUs (``torch.distributed``), pipeline parallelism, and the
+gang, chaos, goodput, health and profiler hooks.
 """
 
 from __future__ import annotations
@@ -32,8 +44,9 @@ from typing import Any, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from sparktorch_tpu_torch.inference import _resolve_device
+from sparktorch_tpu_torch.inference import _resolve_device, torch_dtype
 from sparktorch_tpu_torch.train.step import eval_step, train_step
+from sparktorch_tpu_torch.utils.checkpoint import CheckpointManager
 from sparktorch_tpu_torch.utils.data import DataBatch, handle_features
 from sparktorch_tpu_torch.utils.early_stopper import EarlyStopping
 from sparktorch_tpu_torch.utils.metrics import MetricsRecorder
@@ -61,14 +74,89 @@ def _shuffle_batch(batch: DataBatch, generator: torch.Generator) -> DataBatch:
 
 
 def _resolve_steps_per_call(steps_per_call: Optional[int], default: int,
-                            iters: int) -> int:
+                            iters: int, checkpoint_every: int = 0,
+                            ckpt_active: bool = False) -> int:
     """Chunk size between read-backs: ``steps_per_call`` or the default,
-    at most ``iters``, and a divisor of ``iters``."""
-    n = max(1, min(int(default if steps_per_call is None else steps_per_call),
-                   iters))
+    at most ``iters``, and a divisor of ``iters``. A DEFAULTED chunk
+    never strides past the checkpoint cadence (saves happen between
+    chunks); an explicit ``steps_per_call`` wins, and saves then land at
+    the chunk boundaries at or past the cadence."""
+    if steps_per_call is None:
+        steps_per_call = default
+        if ckpt_active and checkpoint_every and checkpoint_every > 0:
+            steps_per_call = min(steps_per_call, checkpoint_every)
+    n = max(1, min(int(steps_per_call), iters))
     while iters % n:
         n -= 1
     return n
+
+
+def _trainer_state(module: torch.nn.Module,
+                   optimizer: torch.optim.Optimizer, step: int) -> dict:
+    return {"model": module.state_dict(),
+            "optimizer": optimizer.state_dict(), "step": int(step)}
+
+
+def _open_checkpoint(checkpoint_dir: Optional[str], resume: bool,
+                     module: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer):
+    """Open the manager and, when resuming from a finalized snapshot,
+    load it into ``module`` and ``optimizer``. Returns (manager or
+    None, the restored global step or 0)."""
+    if not checkpoint_dir:
+        return None, 0
+    ckpt = CheckpointManager(checkpoint_dir)
+    if not (resume and ckpt.latest_step() is not None):
+        return ckpt, 0
+    # Loaded on the CPU: load_state_dict copies the weights and moments
+    # onto the module's device and leaves the optimizer's step counters
+    # on the CPU, where torch keeps them (on the card, a non-capturable
+    # Adam would read each counter back every step).
+    state = ckpt.restore(map_location="cpu")
+    module.load_state_dict(state["model"])
+    optimizer.load_state_dict(state["optimizer"])
+    return ckpt, int(state["step"])
+
+
+def _save_if_due(ckpt, module, optimizer, step: int, last_ckpt_step: int,
+                 every: int) -> int:
+    """Save on the first chunk boundary at or past the cadence (a chunk
+    that strides over the exact multiple must not skip the save).
+    Returns the (possibly advanced) last-saved step."""
+    if ckpt is None or every <= 0 or step - last_ckpt_step < every:
+        return last_ckpt_step
+    ckpt.save(step, _trainer_state(module, optimizer, step))
+    return step
+
+
+def _finalize_checkpoint(ckpt, module, optimizer, step: int,
+                         completed: bool) -> None:
+    """The final snapshot, on clean completion only (the periodic ones
+    already on disk keep a failed run resumable)."""
+    if ckpt is None:
+        return
+    if completed and ckpt.latest_step() != step:
+        ckpt.save(step, _trainer_state(module, optimizer, step), force=True)
+    ckpt.wait()
+    ckpt.close()
+
+
+def _build_trainer(torch_obj, spec: ModelSpec, dev: torch.device):
+    """The module on ``dev`` in train mode, its optimizer and loss."""
+    module = spec.make_module()
+    if isinstance(torch_obj, ModelSpec) and spec.module is not None:
+        module = copy.deepcopy(module)  # leave the caller's module as it is
+    module = module.to(dev).train()
+    return module, spec.make_optimizer(module.parameters()), spec.loss_fn()
+
+
+def _result(module: torch.nn.Module, spec: ModelSpec,
+            recorder: MetricsRecorder) -> TrainResult:
+    params = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    if spec.module is not None:
+        spec = dataclasses.replace(spec, module=meta_copy(module))
+    return TrainResult(params=params, metrics=recorder.records, spec=spec,
+                       summary=recorder.summary())
 
 
 def train_distributed(
@@ -84,6 +172,9 @@ def train_distributed(
     seed: int = 0,
     device=None,
     steps_per_call: Optional[int] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
 ) -> TrainResult:
     """Synchronous training of the packaged model on one device (CUDA
     unless ``device`` says otherwise; raises when there is no card and
@@ -101,66 +192,224 @@ def train_distributed(
     if val_batch is not None:
         val_batch = val_batch.to(dev)
 
-    module = spec.make_module()
-    if isinstance(torch_obj, ModelSpec) and spec.module is not None:
-        module = copy.deepcopy(module)  # leave the caller's module as it is
-    module = module.to(dev).train()
-    optimizer = spec.make_optimizer(module.parameters())
-    loss_fn = spec.loss_fn()
+    module, optimizer, loss_fn = _build_trainer(torch_obj, spec, dev)
+    ckpt, global_step = _open_checkpoint(checkpoint_dir, resume, module,
+                                         optimizer)
+    last_ckpt_step = global_step
 
     stopper = (EarlyStopping(patience=early_stop_patience)
                if early_stop_patience is not None and early_stop_patience > 0
                else None)
     per_step = stopper is not None or val_batch is not None
     chunk = 1 if per_step else _resolve_steps_per_call(
-        steps_per_call, min(iters, 32), iters)
+        steps_per_call, min(iters, 32), iters, checkpoint_every,
+        ckpt is not None)
     mini_batch = mini_batch if mini_batch is not None and mini_batch > 0 else None
     shuffle_gen = torch.Generator(device=dev).manual_seed(seed + 1)
     sample_gen = torch.Generator().manual_seed(seed)
 
     recorder = MetricsRecorder()
-    for shuffle_round in range(max(1, partition_shuffles)):
-        if shuffle_round > 0 or mini_batch is not None:
-            train_batch = _shuffle_batch(train_batch, shuffle_gen)
-        stop = False
-        i = 0
-        while i < iters and not stop:
-            n = min(chunk, iters - i)
-            t0 = time.perf_counter()
-            steps = [train_step(module, loss_fn, optimizer, train_batch,
-                                mini_batch, sample_gen) for _ in range(n)]
-            # The chunk's one read-back: (n, 3) loss, examples, grad norm.
-            host = torch.stack([torch.stack(m) for m in steps]).tolist()
-            dt = (time.perf_counter() - t0) / n
-            val_loss = (float(eval_step(module, loss_fn, val_batch))
-                        if val_batch is not None else None)
-            for loss, examples, gnorm in host:
-                record = {
-                    "round": shuffle_round,
-                    "iter": i,
-                    "loss": loss,
-                    "val_loss": val_loss,
-                    "examples": examples,
-                    "grad_norm": gnorm,
-                    "step_time_s": dt,
-                }
-                recorder.record(record)
-                if verbose:
-                    msg = (f"[sparktorch_tpu_torch] round {shuffle_round} "
-                           f"iter {i} loss {loss:.6f}")
-                    if val_loss is not None:
-                        msg += f" val_loss {val_loss:.6f}"
-                    log.info(msg)
-                if stopper is not None and stopper.step(
-                        val_loss if val_loss is not None else loss):
-                    stop = True
-                    break
-                i += 1
-        if stop:
-            break
+    completed = False
+    try:
+        for shuffle_round in range(max(1, partition_shuffles)):
+            if shuffle_round > 0 or mini_batch is not None:
+                train_batch = _shuffle_batch(train_batch, shuffle_gen)
+            stop = False
+            i = 0
+            while i < iters and not stop:
+                n = min(chunk, iters - i)
+                t0 = time.perf_counter()
+                steps = [train_step(module, loss_fn, optimizer, train_batch,
+                                    mini_batch, sample_gen) for _ in range(n)]
+                # The chunk's one read-back: (n, 3) loss, examples, grad norm.
+                host = torch.stack([torch.stack(m) for m in steps]).tolist()
+                dt = (time.perf_counter() - t0) / n
+                val_loss = (float(eval_step(module, loss_fn, val_batch))
+                            if val_batch is not None else None)
+                for loss, examples, gnorm in host:
+                    record = {
+                        "round": shuffle_round,
+                        "iter": i,
+                        "loss": loss,
+                        "val_loss": val_loss,
+                        "examples": examples,
+                        "grad_norm": gnorm,
+                        "step_time_s": dt,
+                    }
+                    recorder.record(record)
+                    global_step += 1
+                    if verbose:
+                        msg = (f"[sparktorch_tpu_torch] round {shuffle_round} "
+                               f"iter {i} loss {loss:.6f}")
+                        if val_loss is not None:
+                            msg += f" val_loss {val_loss:.6f}"
+                        log.info(msg)
+                    if stopper is not None and stopper.step(
+                            val_loss if val_loss is not None else loss):
+                        stop = True
+                        break
+                    i += 1
+                last_ckpt_step = _save_if_due(ckpt, module, optimizer,
+                                              global_step, last_ckpt_step,
+                                              checkpoint_every)
+            if stop:
+                break
+        completed = True
+    finally:
+        _finalize_checkpoint(ckpt, module, optimizer, global_step, completed)
+    return _result(module, spec, recorder)
 
-    params = {k: v.detach().cpu() for k, v in module.state_dict().items()}
-    if spec.module is not None:
-        spec = dataclasses.replace(spec, module=meta_copy(module))
-    return TrainResult(params=params, metrics=recorder.records, spec=spec,
-                       summary=recorder.summary())
+
+class _ChunkFeeder:
+    """Host rows to the device one chunk ahead of the steps.
+
+    ``put(idx)`` gathers rows ``idx`` of each host array into a
+    ``chunk_rows`` buffer (the tail zero: weight-0 padding rows) and
+    starts its upload; ``take(handle)`` returns the chunk as a
+    :class:`DataBatch` the current stream may use. On CUDA the gather
+    fills one of two pinned staging buffers and the copy runs on a side
+    stream: the current stream waits on the copy's event before its
+    first use, ``record_stream`` keeps the device tensors alive until
+    that stream is done with them, and a staging buffer is refilled only
+    after the event of the copy that read it has fired."""
+
+    def __init__(self, arrays, chunk_rows: int, device: torch.device):
+        self.arrays = arrays
+        self.rows = chunk_rows
+        self.device = device
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)
+            self.staging = [
+                [torch.empty((chunk_rows, *a.shape[1:]),
+                             dtype=torch_dtype(a.dtype),
+                             pin_memory=True) for a in arrays]
+                for _ in range(2)]
+            self.copied = [None, None]
+            self.turn = 0
+
+    def _fill(self, bufs, idx: np.ndarray):
+        k = len(idx)
+        for buf, a in zip(bufs, self.arrays):
+            np.take(a, idx, axis=0, out=buf[:k])
+            buf[k:] = 0
+        return bufs
+
+    def put(self, idx: np.ndarray):
+        if not self.cuda:
+            bufs = self._fill([np.empty((self.rows, *a.shape[1:]), a.dtype)
+                               for a in self.arrays], idx)
+            return DataBatch(*(torch.from_numpy(b) for b in bufs)), None
+        b, self.turn = self.turn, self.turn ^ 1
+        if self.copied[b] is not None:
+            self.copied[b].synchronize()
+        host = self.staging[b]
+        self._fill([t.numpy() for t in host], idx)
+        with torch.cuda.stream(self.stream):
+            batch = DataBatch(*(t.to(self.device, non_blocking=True)
+                                for t in host))
+            self.copied[b] = self.stream.record_event()
+        return batch, self.copied[b]
+
+    def take(self, handle) -> DataBatch:
+        batch, ready = handle
+        if ready is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(ready)
+            for t in batch:
+                t.record_stream(current)
+        return batch
+
+
+def train_distributed_streaming(
+    torch_obj: Union[str, ModelSpec],
+    data: Any,
+    labels: Optional[np.ndarray] = None,
+    chunk_rows: int = 65536,
+    epochs: int = 1,
+    steps_per_chunk: Optional[int] = None,
+    mini_batch: Optional[int] = None,
+    verbose: int = 0,
+    seed: int = 0,
+    device=None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+) -> TrainResult:
+    """Train on data larger than the card's memory by streaming host
+    chunks (device: as :func:`train_distributed`).
+
+    ``data`` is a host numpy array (or an ``(x, y)`` pair), walked in
+    ``chunk_rows`` slices per epoch in a fresh permutation from one
+    ``np.random.default_rng(seed + 1 + restored_step)`` — the
+    reference's order, row for row. The last chunk is padded to
+    ``chunk_rows`` with weight-0 rows, so every chunk has one shape.
+    Per chunk, ``steps_per_chunk`` steps run (default: one pass,
+    ``ceil(chunk_rows / mini_batch)`` minibatch steps, or 1 full-chunk
+    step) and their losses come back in one read-back. Checkpoints are
+    saved at chunk boundaries; ``resume`` continues from the newest
+    one. Records have the reference's keys; ``grad_norm`` and
+    ``val_loss`` are None."""
+    dev = _resolve_device(device)
+    spec = deserialize_model(torch_obj)
+    if isinstance(data, tuple) and len(data) == 2 and labels is None:
+        data, labels = data
+    train_all, _ = handle_features(data, labels, 0.0, seed)
+    arrays = [t.numpy() for t in train_all]
+    n = arrays[0].shape[0]
+    if spec.input_shape is None:
+        spec.input_shape = tuple(arrays[0].shape[1:])
+    chunk_rows = max(1, min(int(chunk_rows), n))
+    mini_batch = mini_batch if mini_batch is not None and mini_batch > 0 else None
+    steps = steps_per_chunk or (-(-chunk_rows // mini_batch)
+                                if mini_batch is not None else 1)
+
+    module, optimizer, loss_fn = _build_trainer(torch_obj, spec, dev)
+    ckpt, global_step = _open_checkpoint(checkpoint_dir, resume, module,
+                                         optimizer)
+    last_ckpt_step = global_step
+    # Fold the restored step into the shuffle seed: a resumed run draws
+    # fresh permutations instead of replaying the epochs already run.
+    shuffle_rng = np.random.default_rng(seed + 1 + global_step)
+    sample_gen = torch.Generator().manual_seed(seed)
+    feeder = _ChunkFeeder(arrays, chunk_rows, dev)
+
+    recorder = MetricsRecorder()
+    it = 0
+    completed = False
+    try:
+        for epoch in range(max(1, epochs)):
+            order = shuffle_rng.permutation(n)
+            starts = range(0, n, chunk_rows)
+            pending = feeder.put(order[:chunk_rows])
+            for ci, lo in enumerate(starts):
+                batch = feeder.take(pending)
+                t0 = time.perf_counter()
+                metrics = [train_step(module, loss_fn, optimizer, batch,
+                                      mini_batch, sample_gen)
+                           for _ in range(steps)]
+                # The next chunk's upload rides under these steps.
+                if ci + 1 < len(starts):
+                    nxt = starts[ci + 1]
+                    pending = feeder.put(order[nxt:nxt + chunk_rows])
+                host = torch.stack([torch.stack((m.loss, m.examples))
+                                    for m in metrics]).tolist()
+                dt = (time.perf_counter() - t0) / steps
+                for loss, examples in host:
+                    recorder.record({
+                        "round": epoch, "iter": it, "loss": loss,
+                        "val_loss": None, "examples": examples,
+                        "grad_norm": None, "step_time_s": dt,
+                    })
+                    it += 1
+                global_step += steps
+                last_ckpt_step = _save_if_due(ckpt, module, optimizer,
+                                              global_step, last_ckpt_step,
+                                              checkpoint_every)
+                if verbose:
+                    log.info(f"[sparktorch_tpu_torch] epoch {epoch} chunk "
+                             f"{ci} loss {host[-1][0]:.6f}")
+        completed = True
+    finally:
+        _finalize_checkpoint(ckpt, module, optimizer, global_step, completed)
+    return _result(module, spec, recorder)

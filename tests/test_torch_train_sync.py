@@ -255,10 +255,11 @@ def test_minibatch_and_shuffle_rounds_train():
     assert np.mean(losses[-6:]) < np.mean(losses[:6])
 
 
+# checkpointDir is ported (tests/test_torch_checkpoint.py); the ids of
+# the cases that remain are kept.
 @pytest.mark.parametrize("setting,match", [
-    (dict(checkpointDir="/nonexistent"), "checkpoint"),
-    (dict(mesh="dp"), "multi-GPU"),
-    (dict(n_micro=8), "pipeline"),
+    pytest.param(dict(mesh="dp"), "multi-GPU", id="setting1-multi-GPU"),
+    pytest.param(dict(n_micro=8), "pipeline", id="setting2-pipeline"),
 ])
 def test_unported_settings_name_the_roadmap(setting, match):
     model = torch_tf.SequenceClassifier(torch_tf.TransformerConfig(**CLS))
