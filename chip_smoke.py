@@ -39,9 +39,17 @@ the CPU path):
    the fused CE against the same weights with dense attention and the
    dense CE: loss within 1e-2 (relative), grad norm within 1e-2, and a
    gradient cosine above 0.99 for every parameter;
-7. train BERT: ``bert_base(attn_impl="flash")``, Adam lr 2e-5, 128 rows of
-   128 ids with 2 classes, 4 steps: 12 forward, 12 dq and 12 dk/dv
-   launches per step and no CE kernel (2-D logits take the dense loss);
+7. bench: the seven configs of ``sparktorch_tpu_torch.bench.CONFIGS`` (the
+   port's benchmark entry: BASELINE configs 1–5, the MNIST-CNN headline
+   and the long-context LM), each record printed on its own line and
+   held to the JAX config's record keys less the documented omissions,
+   with 8/4/4/1/1 launches per LM step (the dense 2k leg: the CE kernels
+   only), 12/12/12/0/0 per BERT-base step and none elsewhere;
+   train BERT: ``bert_base(attn_impl="flash")``, Adam lr 2e-5, 128 rows of
+   128 ids with 2 classes, 4 steps through ``SparkTorch.fit`` and
+   ``transform``: 12 forward, 12 dq and 12 dk/dv launches per step and
+   no CE kernel (2-D logits take the dense loss); its step time is the
+   bench's ``bert_dp`` record;
 8. quick start: README.md's quick start as written (MnistMLP, 4,096 rows,
    ``Pipeline.fit`` and ``transform``), then the lazily packaged MnistCNN
    (BASELINE config 2) for 8 steps;
@@ -58,11 +66,13 @@ the CPU path):
    fits of the LM, 6 steps straight against 3 + ``resume=True`` + 3:
    parameters within 1e-6 × max|param|, exact launch counts;
 11. hogwild: ResNet-18 on CIFAR-10 shapes (BASELINE config 3) through the
-   parameter server — (a) ``train_async``, local, 1 worker; (b)
+   parameter server — (a) ``train_async``, local, 1 worker (its rate is
+   the bench's ``resnet18_hogwild`` record); (b)
    ``SparkTorch(mode="hogwild", partitions=4).fit`` and ``transform``; (c)
-   binary HTTP with bf16 pushes, 2 workers — and (d) the sync trainer at
-   the same minibatch; every loss finite, applies equal to pushes, the
-   loss falling in (a) and (d); one iteration of (a) under torch.profiler;
+   binary HTTP with bf16 pushes, 2 workers — and (d) ``train_distributed``
+   at the same minibatch; every loss finite, applies equal to pushes, the
+   loss falling in (a), (b) and (d); one iteration of (a) under
+   torch.profiler;
 12. serve ResNet-50: ``resnet50()`` at 224×224×3 served over 2,048 rows,
    the first chunk's bf16 logits against the module in f32;
 13. serve ResNet-50 stream (BASELINE config 5): 8,192 seeded uint8 rows
@@ -71,9 +81,17 @@ the CPU path):
    argmaxed on the card, with ``device_outputs`` off and on; argmaxes
    against the f32-input host path on ≥ 99.9% of rows; the
    device-resident rate; one chunk's pinning and upload times; an
-   ``update_params`` swap that changes the predictions.
+   ``update_params`` swap that changes the predictions;
+14. DP: MnistMLP, 1,024 rows, full batch, 5 steps through
+   ``train_distributed(mesh=build_mesh())`` — (i) a world of one under
+   NCCL (a TCP store on 127.0.0.1), whose Adam fit must equal the fit
+   without a process group bit for bit, with the NCCL calls and kernels
+   of a traced fit; (ii) two processes on the card under gloo with CUDA
+   tensors, each rank's SGD parameters within 1e-5 × max|param| of the
+   world of one's (a correctness check: gloo stages through the host).
 
-No kernel of KERNELS lies on phases 8, 11–13: each expects 0 launches.
+No kernel of KERNELS lies on phases 8, 11–14: each expects 0 launches.
+The total wall time prints before the last two lines.
 Snapshots, the Parquet file and traces go to ``.chip_smoke_tmp/`` beside
 the script and are deleted at the end.
 
@@ -91,9 +109,13 @@ import time
 
 import numpy as np
 
-# Published peaks of one H100 SXM (dense, no sparsity) at 700 W.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES_PER_S = 3.35e12
+# The H100's peaks and the kernels' bounds live in the package, one
+# source for this script and the bench's roofline fields.
+from sparktorch_tpu_torch.ops.roofline import (
+    attention_bound,
+    ce_bound,
+    flash_bwd_bound,
+)
 
 # Kernel vs plain version: bf16 rounds P before P·V in both, but sums in
 # another order; f32 differs only by summation order.
@@ -140,14 +162,16 @@ QUICK_ROWS, QUICK_ITERS, QUICK_MB = 4096, 50, 256
 CNN_ROWS, CNN_ITERS = 1024, 8
 # BASELINE config 3 (bench_resnet18_hogwild): ResNet-18 on CIFAR-10
 # shapes, SGD 1e-2, minibatch 256, push_every 4. Iterations per worker
-# of each leg and its repeats (the median is reported): (a) local,
-# 1 worker, at the JAX bench's 1,024 (256 push windows); (b) the
-# estimator, 4 workers; (c) binary HTTP wire, bf16 pushes, 2 workers;
-# (d) sync steps. (a) and (d) run in alternating pairs, so their ratio
-# shares any drift.
+# of each leg: (a) local, 1 worker (its rate is the bench's record, at
+# the JAX bench's 1,024); (b) the estimator, 4 workers, HW_EST_REPEATS
+# times (the median is reported); (c) binary HTTP wire, bf16 pushes, 2
+# workers; (d) sync steps.
 HW_ROWS, HW_MB, HW_PUSH = 2048, 256, 4
-HW_ITERS = dict(local=1024, estimator=256, http=128, sync=512)
-HW_REPEATS = dict(paired=5, estimator=3, http=3)
+HW_ITERS = dict(local=512, estimator=256, http=128, sync=512)
+HW_EST_REPEATS = 3
+# The DP checks: MnistMLP (BASELINE config 1's model and batch), full
+# batch, DP_STEPS steps; a rank's results must arrive within DP_JOIN_S.
+DP_ROWS, DP_STEPS, DP_JOIN_S = 1024, 5, 300
 # BASELINE config 5's model: ResNet-50 (1000 classes, 224x224x3, 7x7
 # stem), served over 2,048 flat rows in 1,024-row chunks.
 R50_ROWS, R50_HW = 2048, (224, 224, 3)
@@ -233,44 +257,6 @@ def time_ms(torch, fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def attention_bound(b, s, h, d, causal, dtype, with_lse, itemsize):
-    """Least time (ms) for one attention forward on an H100, and which
-    of bytes or operations sets it: QKᵀ and PV at 2 FLOPs per MAC over
-    the (query, key) pairs the mask keeps; q, k, v read and o (and lse)
-    written once."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * b * h * d * pairs
-    nbytes = 4 * b * s * h * d * itemsize + (4 * b * h * s if with_lse else 0)
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
-
-
-def flash_bwd_bound(kind, b, s, h, d, causal, dtype, itemsize):
-    """Least time (ms) for one backward kernel: 6·d FLOPs per kept
-    query-key pair for dq (S, dP, dS·K), 8·d for dk/dv (S, dP, Pᵀ·dO,
-    dSᵀ·Q); q, k, v, dO read once, dq (or dk and dv) written once, lse
-    and D read once."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = (6 if kind == "dq" else 8) * d * b * h * pairs
-    tensors = 5 if kind == "dq" else 6
-    nbytes = tensors * b * s * h * d * itemsize + 8 * b * h * s
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
-
-
-def ce_bound(kind, t, v, itemsize):
-    """Least time (ms) for one CE kernel: the logits read once (and, in
-    the backward, the gradient written once) plus the per-token labels,
-    lse, g and loss; ~4 f32 operations per logit (max, subtract, exp,
-    add — the backward's subtract, exp, subtract, multiply)."""
-    nbytes = t * v * itemsize * (1 if kind == "fwd" else 2) + 16 * t
-    t_ops = 4 * t * v / PEAK_FLOPS["float32"]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
 def check_close(name, got, want, atol, rtol):
@@ -921,7 +907,7 @@ def train_parity_phase(torch):
     return dict(rel_loss=rel_loss, rel_grad_norm=rel_norm, min_cosine=worst)
 
 
-def train_bert_phase(torch):
+def train_bert_phase(torch, bench_rec):
     from sparktorch_tpu_torch import serialize_torch_obj
     from sparktorch_tpu_torch.models import bert_base
 
@@ -940,16 +926,17 @@ def train_bert_phase(torch):
         torch, payload, frame, n, "train BERT",
         dict(flash_fwd=layers * n, flash_bwd_dq=layers * n,
              flash_bwd_dkv=layers * n, ce_fwd=0, ce_bwd=0))
-    step_s = records[0]["step_time_s"]
     preds = fitted.setDevice("cuda").transform(frame)["predictions"]
     if preds.shape != (BERT_ROWS,) or not np.isin(preds, (0.0, 1.0)).all():
         raise AssertionError(f"train BERT: predictions {preds[:8]}")
+    step_s = bench_rec["step_time_p50_s"]
     log(f"train BERT: {n} steps, losses "
-        f"{[round(r['loss'], 4) for r in records]}; step "
-        f"{step_s * 1e3:.1f} ms = {BERT_ROWS / step_s:,.1f} examples/s "
-        f"(fit wall {wall:.2f} s); the fitted model serves {BERT_ROWS} rows")
+        f"{[round(r['loss'], 4) for r in records]} (fit wall {wall:.2f} s); "
+        f"the fitted model serves {BERT_ROWS} rows; step {step_s * 1e3:.1f} "
+        f"ms = {bench_rec['examples_per_sec_per_chip']:,.1f} examples/s "
+        f"(bench bert_dp)")
     return counts, dict(step_ms=step_s * 1e3,
-                        examples_per_s=BERT_ROWS / step_s)
+                        examples_per_s=bench_rec["examples_per_sec_per_chip"])
 
 
 def lm_payload(torch, seed):
@@ -1239,19 +1226,11 @@ def cifar_like(n, seed=0):
     return x, y
 
 
-def steady_examples_per_s(records, mb):
-    """bench.py's steady-state rule: drop the windows dispatched up to
-    the second timestamp, and end the span where the last loss reached
-    the host."""
-    uts = sorted({r["t"] for r in records})
-    t_done = max(r["t_done"] for r in records if "t_done" in r)
-    n_steady = sum(1 for r in records if r["t"] > uts[1])
-    return n_steady * mb / (t_done - uts[1])
-
-
 def check_hogwild(leg, metrics, summary, falls):
     """Hold one hogwild run: every loss finite, applies == pushes, and
     (where ``falls``) the last window's mean loss below the first's."""
+    from sparktorch_tpu_torch.bench import steady_examples_per_s
+
     losses = [r["loss"] for r in sorted(metrics,
                                         key=lambda r: (r["t"], r["iter"]))]
     budget = summary["hogwild_budget"]
@@ -1341,10 +1320,17 @@ def hogwild_iteration_profile(torch, payload, x, y):
         server.stop()
 
 
-def hogwild_phase(torch):
+def hogwild_phase(torch, bench_rec):
     """BASELINE config 3: ResNet-18 through the parameter server, in
-    three legs, and the sync trainer at the same minibatch. Returns the
-    kernel counts of each leg's runs and the numbers."""
+    three legs, and the sync trainer at the same minibatch, each on
+    learnable CIFAR-shaped rows and held to its checks: (a) local, 1
+    worker; (b) ``SparkTorch(mode="hogwild", partitions=4)`` with
+    ``transform``; (c) binary HTTP, bf16 pushes, 2 workers; (d)
+    ``train_distributed`` with minibatch sampling. Leg (a)'s rate is the
+    bench's ``resnet18_hogwild`` record (phase ``bench``), which times
+    that workload at the JAX bench's depth; the other legs' rates are
+    their own runs'. Profiles one leg-(a) iteration. Returns the kernel
+    counts of each leg's runs and the numbers."""
     from sparktorch_tpu_torch import SparkTorch, serialize_torch_obj
     from sparktorch_tpu_torch.models import resnet18
     from sparktorch_tpu_torch.train.hogwild import train_async
@@ -1362,53 +1348,46 @@ def hogwild_phase(torch):
     train_distributed(payload, x, labels=y, iters=8, mini_batch=HW_MB,
                       device="cuda", steps_per_call=8)
     torch.cuda.synchronize()
-    counts = {k: {} for k in ("hogwild_local", "hogwild_estimator",
-                              "hogwild_http", "sync_resnet18")}
-    local_runs, sync_runs = [], []
+
+    reset_counts()
+    result = train_async(payload, x, iters=HW_ITERS["local"], partitions=1,
+                         **common)
+    counts = {"hogwild_local": add_counts({}, "hogwild (a) local")}
+    local = check_hogwild("(a) local, 1 worker", result.metrics,
+                          result.summary, falls=True)
+    out = {"local": dict(local, examples_per_s=bench_rec[
+        "examples_per_sec_per_chip"], rates=bench_rec["repeat_rates"],
+        spread_pct=bench_rec["repeat_spread_pct"]),
+        "hogwild_over_sync": bench_rec["async_efficiency_vs_sync"]}
+    log(f"hogwild (a) rate: {out['local']['examples_per_s']:,.0f} "
+        f"examples/s (bench resnet18_hogwild, median of "
+        f"{bench_rec['repeat_rates']}; over its sync twin "
+        f"{bench_rec['async_efficiency_vs_sync']})")
+
+    reset_counts()
     window = 2 * HW_PUSH
-    for rep in range(HW_REPEATS["paired"]):
-        reset_counts()
-        result = train_async(payload, x, iters=HW_ITERS["local"],
-                             partitions=1, **common)
-        counts["hogwild_local"] = add_counts(counts["hogwild_local"],
-                                             "hogwild (a) local")
-        local_runs.append(check_hogwild(
-            f"(a) local, 1 worker, run {rep}", result.metrics,
-            result.summary, falls=True))
-        reset_counts()
-        sync = train_distributed(payload, x, labels=y, iters=HW_ITERS["sync"],
-                                 mini_batch=HW_MB, device="cuda",
-                                 steps_per_call=8)
-        counts["sync_resnet18"] = add_counts(counts["sync_resnet18"],
-                                             "sync ResNet-18 (d)")
-        sync_losses = [r["loss"] for r in sync.metrics]
-        first = float(np.mean(sync_losses[:window]))
-        last = float(np.mean(sync_losses[-window:]))
-        if not (np.isfinite(sync_losses).all() and last < first):
-            raise AssertionError(f"sync ResNet-18: losses {sync_losses}")
-        step_s = float(np.median([r["step_time_s"]
-                                  for r in sync.metrics[8:]]))
-        sync_runs.append(dict(examples_per_s=HW_MB / step_s,
-                              step_ms=1e3 * step_s, first_loss=first,
-                              last_loss=last))
-        log(f"sync ResNet-18 (d) run {rep}: {len(sync_losses)} steps of "
-            f"{HW_MB}, median step {1e3 * step_s:.2f} ms = "
-            f"{HW_MB / step_s:,.0f} examples/s; loss {first:.4f} -> "
-            f"{last:.4f}")
-    out = {"local": median_of("hogwild (a) local, 1 worker", local_runs),
-           "sync": median_of("sync ResNet-18 (d)", sync_runs)}
-    pairs = [a["examples_per_s"] / d["examples_per_s"]
-             for a, d in zip(local_runs, sync_runs)]
-    out["hogwild_over_sync"] = float(np.median(pairs))
-    out["hogwild_over_sync_runs"] = pairs
-    log(f"hogwild (a) / sync (d), run by run: "
-        f"{[round(p, 3) for p in pairs]}; median {np.median(pairs):.3f}")
+    sync = train_distributed(payload, x, labels=y, iters=HW_ITERS["sync"],
+                             mini_batch=HW_MB, device="cuda",
+                             steps_per_call=8)
+    counts["sync_resnet18"] = add_counts({}, "sync ResNet-18 (d)")
+    sync_losses = [r["loss"] for r in sync.metrics]
+    first = float(np.mean(sync_losses[:window]))
+    last = float(np.mean(sync_losses[-window:]))
+    if not (np.isfinite(sync_losses).all() and last < first):
+        raise AssertionError(f"sync ResNet-18: losses {sync_losses}")
+    step_s = float(np.median([r["step_time_s"] for r in sync.metrics[8:]]))
+    out["sync"] = dict(examples_per_s=HW_MB / step_s, step_ms=1e3 * step_s,
+                       first_loss=first, last_loss=last)
+    log(f"sync ResNet-18 (d): train_distributed, {len(sync_losses)} steps of "
+        f"{HW_MB} sampled from {HW_ROWS} rows, median step "
+        f"{1e3 * step_s:.2f} ms = {HW_MB / step_s:,.0f} examples/s; loss "
+        f"{first:.4f} -> {last:.4f}")
 
     flat = serialize_torch_obj(resnet18(num_classes=10, input_hw=(32, 32, 3)),
                                **kw, input_shape=(32 * 32 * 3,))
     frame = {"features": x.reshape(HW_ROWS, -1), "label": y.astype(np.float32)}
     est_runs = []
-    for rep in range(HW_REPEATS["estimator"]):
+    for rep in range(HW_EST_REPEATS):
         est = SparkTorch(inputCol="features", labelCol="label",
                          torchObj=flat, mode="hogwild", partitions=4,
                          iters=HW_ITERS["estimator"], miniBatch=HW_MB,
@@ -1420,8 +1399,8 @@ def hogwild_phase(torch):
         t0 = time.perf_counter()
         preds = fitted.setDevice("cuda").transform(frame)["predictions"]
         transform_s = time.perf_counter() - t0
-        counts["hogwild_estimator"] = add_counts(counts["hogwild_estimator"],
-                                                 "hogwild (b) estimator")
+        counts["hogwild_estimator"] = add_counts(
+            counts.get("hogwild_estimator", {}), "hogwild (b) estimator")
         state = fitted.getModel().params
         if not any(k.endswith("running_var") for k in state):
             raise AssertionError("hogwild (b): the fitted state has no BN "
@@ -1440,18 +1419,13 @@ def hogwild_phase(torch):
         est_runs.append(run)
     out["estimator"] = median_of("hogwild (b) estimator, 4 workers", est_runs)
 
-    http_runs = []
-    for rep in range(HW_REPEATS["http"]):
-        reset_counts()
-        result = train_async(payload, x, iters=HW_ITERS["http"],
-                             partitions=2, transport="http", wire="binary",
-                             quant="bf16", **common)
-        counts["hogwild_http"] = add_counts(counts["hogwild_http"],
-                                            "hogwild (c) http")
-        http_runs.append(check_hogwild(
-            f"(c) binary HTTP, bf16 pushes, 2 workers, run {rep}",
-            result.metrics, result.summary, falls=False))
-    out["http"] = median_of("hogwild (c) binary HTTP, 2 workers", http_runs)
+    reset_counts()
+    result = train_async(payload, x, iters=HW_ITERS["http"], partitions=2,
+                         transport="http", wire="binary", quant="bf16",
+                         **common)
+    counts["hogwild_http"] = add_counts({}, "hogwild (c) http")
+    out["http"] = check_hogwild("(c) binary HTTP, bf16 pushes, 2 workers",
+                                result.metrics, result.summary, falls=False)
 
     out["profile"] = hogwild_iteration_profile(torch, payload, x[:HW_MB * 2],
                                                y[:HW_MB * 2])
@@ -1703,6 +1677,226 @@ def serve_resnet50_stream_phase(torch, transform_rows_per_s):
                         profile=profile)
 
 
+def bench_counts(name, rec):
+    """The launches each bench config must make: 8/4/4/1/1 per LM step
+    (the 2k dense leg: the CE kernels only), 12/12/12/0/0 per BERT-base
+    step, none elsewhere."""
+    if name == "long_context_lm":
+        flash = rec["steps_run"] + rec["steps_run_at_2k"]["flash"]
+        counts = lm_step_counts(flash)
+        for ce in ("ce_fwd", "ce_bwd"):
+            counts[ce] += rec["steps_run_at_2k"]["dense"]
+        return counts
+    if name == "bert_dp":
+        n = 12 * rec["steps_run"]
+        return dict(NO_KERNELS, flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n)
+    return NO_KERNELS
+
+
+def bench_phase(torch):
+    """The seven BASELINE configs through ``bench.CONFIGS`` (the port's
+    benchmark entry), each record printed on a line of its own and held
+    to the JAX config's keys less the documented omissions, with the
+    launches it made."""
+    import gc
+
+    from sparktorch_tpu_torch import bench
+
+    records, counts = {}, {}
+    for i, (name, config) in enumerate(bench.CONFIGS.items()):
+        if i:
+            gc.collect()
+            torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = config()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        log(json.dumps(rec))
+        jax_keys, omitted, added = bench.RECORD_KEYS[name]
+        want = jax_keys - omitted
+        if not want <= set(rec) or not set(rec) - want <= added:
+            raise AssertionError(
+                f"bench {name}: missing {sorted(want - set(rec))}, "
+                f"unexpected {sorted(set(rec) - want - added)}")
+        rate = rec["examples_per_sec_per_chip"]
+        if not (np.isfinite(rate) and rate > 0):
+            raise AssertionError(f"bench {name}: rate {rate}")
+        if "final_loss" in rec and not np.isfinite(rec["final_loss"]):
+            raise AssertionError(f"bench {name}: final loss "
+                                 f"{rec['final_loss']}")
+        expect_counts(f"bench {name}", got, bench_counts(name, rec))
+        counts[f"bench_{name}"] = got
+        records[name] = rec
+        log(f"bench {name}: {wall:.1f} s")
+    if not 0 < records["bert_dp"]["mfu_honest"] < 1:
+        raise AssertionError(f"bench bert_dp: mfu {records['bert_dp']}")
+    if records["resnet50_inference"]["stream_n_rows"] != 2048:
+        raise AssertionError("bench resnet50_inference: streamed "
+                             f"{records['resnet50_inference']['stream_n_rows']}"
+                             " rows")
+    return counts, records
+
+
+def dp_data():
+    rng = np.random.default_rng(7)
+    return (rng.normal(0, 1, (DP_ROWS, 784)).astype(np.float32),
+            rng.integers(0, 10, DP_ROWS).astype(np.int32))
+
+
+def dp_fit(torch, optimizer, mesh=None):
+    """MnistMLP from seeded weights, full batch, DP_STEPS steps on the
+    card (over ``mesh`` when given): the losses and the parameters."""
+    from sparktorch_tpu_torch import serialize_torch_obj
+    from sparktorch_tpu_torch.models import MnistMLP
+    from sparktorch_tpu_torch.train.sync import train_distributed
+
+    torch.manual_seed(7)
+    payload = serialize_torch_obj(
+        MnistMLP(), criterion="cross_entropy", optimizer=optimizer,
+        optimizer_params={"lr": 1e-3 if optimizer == "adam" else 0.1},
+        input_shape=(784,))
+    x, y = dp_data()
+    result = train_distributed(payload, x, labels=y, iters=DP_STEPS,
+                               device="cuda", mesh=mesh)
+    return [r["loss"] for r in result.metrics], result.params
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_world_of_one(torch):
+    """A world of one under NCCL on the card: ``train_distributed``
+    over ``build_mesh()`` makes its all-reduce, and its Adam fit must
+    equal the fit without a process group bit for bit. Returns the SGD
+    fit of that world (the reference of :func:`dp_gloo_pair`) and what
+    the trace saw of NCCL."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparktorch_tpu_torch.parallel.mesh import build_mesh
+
+    plain = dp_fit(torch, "adam")
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = build_mesh()
+        if mesh.dp != 1 or mesh.group is None:
+            raise AssertionError(f"dp: mesh {mesh}")
+        dp_fit(torch, "adam", mesh)  # NCCL's communicator comes up here
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            meshed = dp_fit(torch, "adam", mesh)
+            torch.cuda.synchronize()
+        sgd = dp_fit(torch, "sgd", mesh)
+    finally:
+        dist.destroy_process_group()
+    events = [e for e in prof.events() if "nccl" in e.name.lower()]
+    calls = sum("all_reduce" in e.name for e in events
+                if e.device_type == torch.autograd.DeviceType.CPU)
+    nccl = sorted({e.name for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    if calls < DP_STEPS:
+        raise AssertionError(f"dp world of one: {calls} nccl:all_reduce "
+                             f"calls in {DP_STEPS} steps")
+    if meshed[0] != plain[0]:
+        raise AssertionError(f"dp world of one: losses {meshed[0]} != "
+                             f"{plain[0]} without a process group")
+    for key, value in plain[1].items():
+        if not torch.equal(meshed[1][key], value):
+            raise AssertionError(f"dp world of one: {key} differs")
+    log(f"dp (i) NCCL world of one: {DP_STEPS} Adam steps of MnistMLP on "
+        f"{DP_ROWS} rows equal the fit without a process group bit for bit "
+        f"(losses {[round(x, 6) for x in plain[0]]}); {calls} "
+        f"nccl:all_reduce calls, NCCL kernels on the card: {nccl or 'none'}")
+    return sgd, dict(bitwise_equal=True, all_reduce_calls=calls,
+                     nccl_kernels=nccl)
+
+
+def dp_gloo_rank(rank, world, port, queue):
+    """One rank of :func:`dp_gloo_pair`: the SGD fit over a gloo world,
+    with CUDA tensors."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from sparktorch_tpu_torch.parallel.mesh import build_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        losses, params = dp_fit(torch, "sgd", build_mesh())
+        queue.put((rank, losses, {k: v.numpy() for k, v in params.items()}))
+    except Exception:
+        queue.put((rank, traceback.format_exc(), None))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_gloo_pair(torch, reference):
+    """Two processes on the one card under gloo, with CUDA tensors (a
+    correctness check only: gloo stages through the host): each rank's
+    SGD parameters within 1e-5 × max|param| of the world of one's."""
+    import multiprocessing as mp
+    import queue as _queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=dp_gloo_rank, args=(r, 2, port, results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in range(2):
+            rank, losses, params = results.get(timeout=DP_JOIN_S)
+            if params is None:
+                raise AssertionError(f"dp (ii) rank {rank} raised:\n{losses}")
+            got[rank] = (losses, params)
+    except _queue.Empty:
+        raise AssertionError(f"dp (ii): no result within {DP_JOIN_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=DP_JOIN_S)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ref_losses, ref_params = reference
+    scale = max(float(v.abs().max()) for v in ref_params.values())
+    worst = 0.0
+    for rank, (losses, params) in got.items():
+        for key, value in ref_params.items():
+            worst = max(worst, float(np.abs(params[key]
+                                            - value.numpy()).max()))
+    log(f"dp (ii) gloo, 2 ranks on one card: {DP_STEPS} SGD steps, losses "
+        f"{[round(x, 6) for x in got[0][0]]} against "
+        f"{[round(x, 6) for x in ref_losses]}; worst parameter difference "
+        f"{worst:.3e} (limit {1e-5 * scale:.3e})")
+    if not worst <= 1e-5 * scale:
+        raise AssertionError("dp (ii): the gloo ranks disagree with the "
+                             "world of one")
+    return dict(max_abs_diff=worst, limit=1e-5 * scale)
+
+
+def dp_phase(torch):
+    """(i) a world of one under NCCL, (ii) two gloo ranks on the card.
+    Returns the launches of (i) (none) and the results."""
+    reset_counts()
+    sgd, one = dp_world_of_one(torch)
+    counts = add_counts({}, "dp world of one")
+    return counts, dict(world_of_one=one, gloo_pair=dp_gloo_pair(torch, sgd))
+
+
+START = time.perf_counter()
+
+
 def main() -> int:
     import torch
 
@@ -1746,15 +1940,18 @@ def run_phases(torch) -> int:
     serve_counts, rows_per_s = slice_phase(torch)
     lm_counts, lm = train_lm_phase(torch)
     parity = train_parity_phase(torch)
-    bert_counts, bert = train_bert_phase(torch)
+    bench_counts_by_path, bench = bench_phase(torch)
+    bert_counts, bert = train_bert_phase(torch, bench["bert_dp"])
     quick_counts, quick = quickstart_phase(torch)
     stream_counts, lm_stream = train_lm_streaming_phase(
         torch, lm["tokens_per_s"])
     resume_counts, lm_resume = train_lm_resume_phase(torch)
-    hogwild_counts, hogwild = hogwild_phase(torch)
+    hogwild_counts, hogwild = hogwild_phase(torch,
+                                            bench["resnet18_hogwild"])
     r50_counts, resnet50_serve = serve_resnet50_phase(torch)
     r50_stream_counts, resnet50_stream = serve_resnet50_stream_phase(
         torch, resnet50_serve["rows_per_s"])
+    dp_counts, dp = dp_phase(torch)
 
     # Each kernel's numbers at its main path's shape: the serving chunk
     # for the forward, the LM training step for the other four.
@@ -1770,7 +1967,10 @@ def run_phases(torch) -> int:
                    "quickstart_and_lazy_cnn": quick_counts[name],
                    **{path: c[name] for path, c in hogwild_counts.items()},
                    "serve_resnet50": r50_counts[name],
-                   "serve_resnet50_stream": r50_stream_counts[name]}
+                   "serve_resnet50_stream": r50_stream_counts[name],
+                   "dp": dp_counts[name],
+                   **{path: c[name]
+                      for path, c in bench_counts_by_path.items()}}
         cases = main_cases[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -1784,12 +1984,14 @@ def run_phases(torch) -> int:
             "launches_by_path": by_path,
             "cases": cases,
         })
+    log(f"total wall time: {time.perf_counter() - START:.1f} s")
     log(json.dumps({"kernels": kernels, "serve_rows_per_s": rows_per_s,
                     "train_lm": lm, "train_parity": parity,
                     "train_bert": bert, "train_lm_streaming": lm_stream,
                     "train_lm_resume": lm_resume, "quickstart": quick,
                     "hogwild": hogwild, "serve_resnet50": resnet50_serve,
-                    "serve_resnet50_stream": resnet50_stream}))
+                    "serve_resnet50_stream": resnet50_stream,
+                    "bench": bench, "dp": dp}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """``SparkTorch`` Estimator and ``SparkTorchModel`` Transformer — the port of ``sparktorch_tpu/ml/estimator.py``.
 
-``SparkTorch.fit`` trains the packaged model on one device with the
+``SparkTorch.fit`` trains the packaged model on one device (or
+data-parallel over a ``mesh`` of the process group) with the
 synchronous trainer (:func:`sparktorch_tpu_torch.train.sync.train_distributed`,
 with step snapshots in ``checkpointDir`` every ``checkpointEvery`` steps
 and ``resume`` from the newest) or, with ``mode="hogwild"``, through the
@@ -274,6 +275,25 @@ class SparkTorch(Estimator):
     def setParams(self, **kwargs):
         return self._set_args(self._input_kwargs)
 
+    def setMesh(self, mesh):
+        """Train data-parallel over ``mesh`` (a
+        :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` mesh or a
+        ``MeshConfig``): every rank of the process group fits with the
+        same frame and trains its shard of it."""
+        self._mesh = mesh
+        return self
+
+    def _resolve_mesh(self):
+        from sparktorch_tpu_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
+
+        if self._mesh is None or isinstance(self._mesh, Mesh):
+            return self._mesh
+        if isinstance(self._mesh, MeshConfig):
+            return build_mesh(self._mesh)
+        raise _not_ported(f"mesh {self._mesh!r} (the port takes the dp mesh "
+                          "of parallel.mesh.build_mesh)",
+                          "the rest of multi-GPU training, items 7 and 8")
+
     def getTorchObj(self):
         return self.getOrDefault(self.torchObj)
 
@@ -342,9 +362,10 @@ class SparkTorch(Estimator):
         if mode not in ("synchronous", "sync", "barrier", "hogwild", "async"):
             raise ValueError(
                 f"unknown mode {mode!r}; use 'synchronous' or 'hogwild'")
-        if self._mesh is not None or self._n_micro != 4:
-            raise _not_ported("a mesh or n_micro setting",
+        if self._n_micro != 4:
+            raise _not_ported("an n_micro setting",
                               "multi-GPU training and train/pipeline.py")
+        mesh = self._resolve_mesh()
 
         df = LocalDataFrame.from_any(dataset)
         x, y = self._extract_xy(df)
@@ -382,7 +403,7 @@ class SparkTorch(Estimator):
             result = train_distributed(
                 self.getTorchObj(), x, checkpoint_dir=ckpt_dir,
                 checkpoint_every=self.getCheckpointEvery(), resume=resume,
-                **common)
+                mesh=mesh, **common)
         self._last_metrics = result.metrics
         self._last_summary = result.summary
         return SparkTorchModel(

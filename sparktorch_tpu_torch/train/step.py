@@ -7,20 +7,28 @@ gradients and the loss by the weight sum — the JAX step's reduction:
     num = Σ w·ℓ,   den = Σ w,   grads = ∇num / max(den, 1),
     loss = num / max(den, 1).
 
-The division is its own step after the backward: a multi-GPU world
-all-reduces (num, den, grads) as sums right there, which keeps padding
-rows (weight 0) and ragged shards exact; it is not DDP's
-divide-by-world-size. Every parameter that got no gradient gets a zero
-one, so optimizers that act without a gradient (AdamW's decay) act on
-it as optax does. Nothing here reads a value back to the host: the step
-returns its metrics as device scalars.
+The division is its own step after the backward. Given a process
+``group`` (the data-parallel trainers pass their mesh's), the step makes
+ONE coalesced ``all_reduce(SUM)`` right there, over a flat buffer of
+num, den, every gradient and the BatchNorm running statistics — the
+psums and the pmean of the JAX step (``sparktorch_tpu/train/step.py:
+327-346``) — and divides by the global weight sum. That keeps padding
+rows (weight 0), ragged and empty shards exact, which DDP's
+divide-by-world-size would not; the running statistics are then
+averaged over the ranks. Without a group the step makes no collective
+call. Every parameter that got no gradient gets a zero one, so
+optimizers that act without a gradient (AdamW's decay) act on it as
+optax does, and every rank reduces the same layout. Nothing here reads
+a value back to the host: the step returns its metrics as device
+scalars.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from sparktorch_tpu_torch.utils.data import DataBatch, sample_minibatch
@@ -32,12 +40,34 @@ class StepMetrics(NamedTuple):
     grad_norm: torch.Tensor  # global L2 norm of the averaged gradients
 
 
+def batchnorm_stats(module: nn.Module) -> List[torch.Tensor]:
+    """The floating-point BatchNorm running statistics of ``module``
+    (``running_mean``, ``running_var``); integer buffers such as
+    ``num_batches_tracked`` are left out."""
+    return [b for name, b in module.named_buffers()
+            if name.rsplit(".", 1)[-1] in ("running_mean", "running_var")
+            and b.is_floating_point()]
+
+
+@torch.no_grad()
+def all_reduce_sums(tensors: List[torch.Tensor], group) -> None:
+    """Sum ``tensors`` in place over ``group`` with one ``all_reduce``
+    of a flat buffer (in their common dtype)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    torch._foreach_copy_(tensors, [v.view_as(t) for v, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)])
+
+
 def train_step(module: nn.Module, loss_fn: Callable,
                optimizer: torch.optim.Optimizer, batch: DataBatch,
                mini_batch: Optional[int] = None,
-               generator: Optional[torch.Generator] = None) -> StepMetrics:
+               generator: Optional[torch.Generator] = None,
+               group=None) -> StepMetrics:
     """One optimizer step on ``batch`` (or a ``mini_batch``-row block of
-    it, its offset drawn from the host-side ``generator``)."""
+    it, its offset drawn from the host-side ``generator``). With a
+    process ``group``, ``batch`` is this rank's shard and the step is
+    data-parallel over the group (module docstring)."""
     mb = batch
     if mini_batch is not None and mini_batch < batch.size:
         mb = sample_minibatch(batch, generator, mini_batch)
@@ -47,7 +77,6 @@ def train_step(module: nn.Module, loss_fn: Callable,
     den = mb.w.sum()
     num.backward()
 
-    safe_den = den.clamp_min(1.0)
     grads = []
     for p in module.parameters():
         if not p.requires_grad:
@@ -55,22 +84,36 @@ def train_step(module: nn.Module, loss_fn: Callable,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
+    num = num.detach()
+    if group is not None:
+        sums = torch.stack([num, den.to(num.dtype)])
+        stats = batchnorm_stats(module) if module.training else []
+        all_reduce_sums([sums, *grads, *stats], group)
+        num, den = sums[0], sums[1].to(den.dtype)
+        if stats:
+            torch._foreach_div_(stats, float(dist.get_world_size(group)))
+    safe_den = den.clamp_min(1.0)
     torch._foreach_div_(grads, safe_den)
     grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     optimizer.step()
-    return StepMetrics(loss=num.detach() / safe_den, examples=den,
+    return StepMetrics(loss=num / safe_den, examples=den,
                        grad_norm=grad_norm)
 
 
 @torch.no_grad()
 def eval_step(module: nn.Module, loss_fn: Callable,
-              batch: DataBatch) -> torch.Tensor:
+              batch: DataBatch, group=None) -> torch.Tensor:
     """Weighted-mean loss of ``batch`` with the module in eval mode —
-    the JAX package's ``make_eval_step``."""
+    the JAX package's ``make_eval_step``; with a process ``group`` the
+    weighted sums are reduced over it first (the global mean)."""
     was_training = module.training
     module.eval()
     try:
         per = loss_fn(module(batch.x), batch.y)
     finally:
         module.train(was_training)
-    return (per * batch.w).sum() / batch.w.sum().clamp_min(1.0)
+    num = (per * batch.w).sum()
+    sums = torch.stack([num, batch.w.sum().to(num.dtype)])
+    if group is not None:
+        all_reduce_sums([sums], group)
+    return sums[0] / sums[1].clamp_min(1.0)

@@ -1,4 +1,4 @@
-"""Synchronous training on one GPU — the port of ``train_distributed`` (``sparktorch_tpu/train/sync.py:159``) and ``train_distributed_streaming`` (:743).
+"""Synchronous training — the port of ``train_distributed`` (``sparktorch_tpu/train/sync.py:159``), ``train_distributed_multihost`` (:581) and ``train_distributed_streaming`` (:743).
 
 :func:`train_distributed` puts the whole training batch onto the card
 once. Each round (the reference's partition shuffle) starts with an
@@ -6,6 +6,20 @@ on-device permutation of the resident rows, drawn from a
 ``torch.Generator`` seeded with ``seed + 1``; round 0 shuffles too when
 minibatch sampling is on, since the sampler takes contiguous blocks.
 Each step is :func:`~sparktorch_tpu_torch.train.step.train_step`.
+
+Data parallelism: with a process group initialized (or a ``mesh`` from
+:func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh`), every rank
+calls :func:`train_distributed` with the same data and trains its
+contiguous shard of it, padded to a multiple of the world with weight-0
+rows; the step makes one all-reduce of the weighted sums. The validation
+split and the round shuffles (a host permutation of the whole batch,
+from ``seed + 1``) are drawn alike on every rank, so the shards agree;
+minibatch offsets come from ``seed + rank``. The reported losses are
+global. Rank 0 writes the checkpoints, behind a barrier, and every rank
+restores from the shared directory. Between chunks :func:`check_gang`
+raises ``GangFailure`` when a peer host has died.
+:func:`train_distributed_multihost` takes each rank's own partition
+instead.
 
 :func:`train_distributed_streaming` keeps the data in host memory and
 walks it in fixed-size chunks, one chunk ahead on the card: chunk i+1
@@ -29,8 +43,8 @@ straight one on full-batch runs.
 
 Records have the JAX package's keys: ``round, iter, loss, val_loss,
 examples, grad_norm, step_time_s``. Not ported yet (ROADMAP, Queue 1):
-several GPUs (``torch.distributed``), pipeline parallelism, and the
-gang, chaos, goodput, health and profiler hooks.
+meshes with axes other than ``dp``, pipeline parallelism, and the
+chaos, goodput, health and profiler hooks.
 """
 
 from __future__ import annotations
@@ -39,15 +53,24 @@ import copy
 import dataclasses
 import logging
 import time
-from typing import Any, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sparktorch_tpu_torch.inference import _resolve_device, torch_dtype
+from sparktorch_tpu_torch.parallel.launch import check_gang, notify_gang_step
+from sparktorch_tpu_torch.parallel.mesh import Mesh, build_mesh
 from sparktorch_tpu_torch.train.step import eval_step, train_step
 from sparktorch_tpu_torch.utils.checkpoint import CheckpointManager
-from sparktorch_tpu_torch.utils.data import DataBatch, handle_features
+from sparktorch_tpu_torch.utils.data import (
+    DataBatch,
+    handle_features,
+    pad_batch,
+    pad_to_multiple,
+    shard_batch,
+)
 from sparktorch_tpu_torch.utils.early_stopper import EarlyStopping
 from sparktorch_tpu_torch.utils.metrics import MetricsRecorder
 from sparktorch_tpu_torch.utils.serde import (
@@ -119,24 +142,37 @@ def _open_checkpoint(checkpoint_dir: Optional[str], resume: bool,
 
 
 def _save_if_due(ckpt, module, optimizer, step: int, last_ckpt_step: int,
-                 every: int) -> int:
+                 every: int, mesh: Optional[Mesh] = None) -> int:
     """Save on the first chunk boundary at or past the cadence (a chunk
     that strides over the exact multiple must not skip the save).
-    Returns the (possibly advanced) last-saved step."""
+    In a data-parallel world rank 0 writes and every rank then waits at
+    a barrier. Returns the (possibly advanced) last-saved step."""
     if ckpt is None or every <= 0 or step - last_ckpt_step < every:
         return last_ckpt_step
-    ckpt.save(step, _trainer_state(module, optimizer, step))
+    if mesh is None or mesh.rank == 0:
+        ckpt.save(step, _trainer_state(module, optimizer, step))
+    _barrier(mesh)
     return step
 
 
+def _barrier(mesh: Optional[Mesh]) -> None:
+    if mesh is not None and mesh.group is not None:
+        dist.barrier(group=mesh.group)
+
+
 def _finalize_checkpoint(ckpt, module, optimizer, step: int,
-                         completed: bool) -> None:
+                         completed: bool, mesh: Optional[Mesh] = None) -> None:
     """The final snapshot, on clean completion only (the periodic ones
-    already on disk keep a failed run resumable)."""
+    already on disk keep a failed run resumable); rank 0 decides and
+    writes, every rank waits for it."""
     if ckpt is None:
         return
-    if completed and ckpt.latest_step() != step:
-        ckpt.save(step, _trainer_state(module, optimizer, step), force=True)
+    if completed:
+        if ((mesh is None or mesh.rank == 0)
+                and ckpt.latest_step() != step):
+            ckpt.save(step, _trainer_state(module, optimizer, step),
+                      force=True)
+        _barrier(mesh)
     ckpt.wait()
     ckpt.close()
 
@@ -159,6 +195,72 @@ def _result(module: torch.nn.Module, spec: ModelSpec,
                        summary=recorder.summary())
 
 
+class _Shards:
+    """The training rows as this rank holds them on ``dev``.
+
+    Without a process group: the whole batch, shuffled on the device
+    from a ``torch.Generator`` seeded with ``seed + 1``. In a
+    data-parallel world: the whole (padded) batch stays on the host,
+    every rank draws the same permutation from a CPU generator seeded
+    with ``seed + 1``, and only the rank's contiguous shard goes to the
+    card. ``local`` batches (a rank's own partition) are one shard:
+    their shuffle permutes the rank's own rows."""
+
+    def __init__(self, batch: DataBatch, mesh: Mesh, dev, seed: int,
+                 local: bool = False):
+        self.dev = dev
+        if mesh.group is None:
+            self.host = None
+            self.batch = batch.to(dev)
+            self.gen = torch.Generator(device=dev).manual_seed(seed + 1)
+            return
+        self.rank, self.world = (0, 1) if local else (mesh.rank, mesh.dp)
+        self.host = pad_to_multiple(batch, self.world)
+        self.gen = torch.Generator().manual_seed(seed + 1)
+        self.batch = shard_batch(self.host, self.rank, self.world).to(dev)
+
+    def shuffle(self) -> None:
+        if self.host is None:
+            self.batch = _shuffle_batch(self.batch, self.gen)
+            return
+        perm = torch.randperm(self.host.size, generator=self.gen)
+        self.host = DataBatch(*(a[perm] for a in self.host))
+        self.batch = shard_batch(self.host, self.rank, self.world).to(self.dev)
+
+
+def _broadcast_module(module: torch.nn.Module, mesh: Mesh) -> None:
+    """Rank 0's weights and buffers on every rank (a lazily packaged
+    model initialises on each rank from its own generator)."""
+    if mesh.group is None:
+        return
+    src = dist.get_global_rank(mesh.group, 0)
+    with torch.no_grad():
+        for t in module.state_dict().values():
+            dist.broadcast(t, src=src, group=mesh.group)
+
+
+def _dp_trainer(torch_obj, spec: ModelSpec, mesh: Mesh, dev: torch.device,
+                checkpoint_dir: Optional[str] = None, resume: bool = False):
+    """The data-parallel set-up of a rank, shared by
+    :func:`train_distributed` and the bench: the module on ``dev`` with
+    its optimizer and loss, the newest snapshot restored where asked,
+    then rank 0's weights and buffers on every rank. Returns ``(module,
+    optimizer, loss_fn, checkpoint manager, restored step)``."""
+    module, optimizer, loss_fn = _build_trainer(torch_obj, spec, dev)
+    ckpt, step = _open_checkpoint(checkpoint_dir, resume, module, optimizer)
+    _broadcast_module(module, mesh)
+    return module, optimizer, loss_fn, ckpt, step
+
+
+def _dp_steps(n: int, module, loss_fn, optimizer, shards: "_Shards",
+              mesh: Mesh, mini_batch: Optional[int] = None,
+              generator: Optional[torch.Generator] = None) -> list:
+    """``n`` train steps on this rank's shard, queued back to back with
+    no read-back; each makes its all-reduce over the mesh's group."""
+    return [train_step(module, loss_fn, optimizer, shards.batch, mini_batch,
+                       generator, mesh.group) for _ in range(n)]
+
+
 def train_distributed(
     torch_obj: Union[str, ModelSpec],
     data: Any,
@@ -175,26 +277,39 @@ def train_distributed(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     resume: bool = False,
+    mesh: Optional[Mesh] = None,
+    metrics_hook: Optional[Callable[[dict], None]] = None,
+    pre_sharded: bool = False,
 ) -> TrainResult:
-    """Synchronous training of the packaged model on one device (CUDA
-    unless ``device`` says otherwise; raises when there is no card and
-    no device was asked for). ``data``/``labels`` as
+    """Synchronous training of the packaged model (device: CUDA unless
+    ``device`` says otherwise; raises when there is no card and no
+    device was asked for). ``data``/``labels`` as
     :func:`~sparktorch_tpu_torch.utils.data.handle_features` takes them;
     the other parameters as in the JAX package. ``mini_batch`` ≤ 0 or
-    None trains on the full batch each step."""
+    None trains on the full batch each step; in a data-parallel world it
+    is per shard, so a step takes ``mini_batch × world`` rows in all.
+    ``mesh`` defaults to :func:`build_mesh` (the default process group,
+    or a world of one). ``metrics_hook`` sees every step record.
+    ``pre_sharded``: ``data`` is this rank's own :class:`DataBatch`
+    (:func:`train_distributed_multihost`)."""
     dev = _resolve_device(device)
+    mesh = mesh or build_mesh()
+    group = mesh.group
     spec = deserialize_model(torch_obj)
-    train_batch, val_batch = handle_features(data, labels, validation_pct,
-                                             seed)
+    if pre_sharded:
+        train_batch, val_batch = data, None
+    else:
+        train_batch, val_batch = handle_features(data, labels,
+                                                 validation_pct, seed)
     if spec.input_shape is None:
         spec.input_shape = tuple(train_batch.x.shape[1:])
-    train_batch = train_batch.to(dev)
+    shards = _Shards(train_batch, mesh, dev, seed, local=pre_sharded)
     if val_batch is not None:
-        val_batch = val_batch.to(dev)
+        val_batch = (val_batch if group is None else
+                     shard_batch(val_batch, mesh.rank, mesh.dp)).to(dev)
 
-    module, optimizer, loss_fn = _build_trainer(torch_obj, spec, dev)
-    ckpt, global_step = _open_checkpoint(checkpoint_dir, resume, module,
-                                         optimizer)
+    module, optimizer, loss_fn, ckpt, global_step = _dp_trainer(
+        torch_obj, spec, mesh, dev, checkpoint_dir, resume)
     last_ckpt_step = global_step
 
     stopper = (EarlyStopping(patience=early_stop_patience)
@@ -205,26 +320,28 @@ def train_distributed(
         steps_per_call, min(iters, 32), iters, checkpoint_every,
         ckpt is not None)
     mini_batch = mini_batch if mini_batch is not None and mini_batch > 0 else None
-    shuffle_gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    sample_gen = torch.Generator().manual_seed(seed)
+    sample_gen = torch.Generator().manual_seed(seed + mesh.rank)
 
     recorder = MetricsRecorder()
     completed = False
     try:
         for shuffle_round in range(max(1, partition_shuffles)):
             if shuffle_round > 0 or mini_batch is not None:
-                train_batch = _shuffle_batch(train_batch, shuffle_gen)
+                shards.shuffle()
             stop = False
             i = 0
             while i < iters and not stop:
+                # A dead peer raises here, not inside the next collective.
+                check_gang()
+                notify_gang_step(i)
                 n = min(chunk, iters - i)
                 t0 = time.perf_counter()
-                steps = [train_step(module, loss_fn, optimizer, train_batch,
-                                    mini_batch, sample_gen) for _ in range(n)]
+                steps = _dp_steps(n, module, loss_fn, optimizer, shards, mesh,
+                                  mini_batch, sample_gen)
                 # The chunk's one read-back: (n, 3) loss, examples, grad norm.
                 host = torch.stack([torch.stack(m) for m in steps]).tolist()
                 dt = (time.perf_counter() - t0) / n
-                val_loss = (float(eval_step(module, loss_fn, val_batch))
+                val_loss = (float(eval_step(module, loss_fn, val_batch, group))
                             if val_batch is not None else None)
                 for loss, examples, gnorm in host:
                     record = {
@@ -237,6 +354,8 @@ def train_distributed(
                         "step_time_s": dt,
                     }
                     recorder.record(record)
+                    if metrics_hook is not None:
+                        metrics_hook(record)
                     global_step += 1
                     if verbose:
                         msg = (f"[sparktorch_tpu_torch] round {shuffle_round} "
@@ -244,6 +363,7 @@ def train_distributed(
                         if val_loss is not None:
                             msg += f" val_loss {val_loss:.6f}"
                         log.info(msg)
+                    # The loss is global, so every rank stops at one step.
                     if stopper is not None and stopper.step(
                             val_loss if val_loss is not None else loss):
                         stop = True
@@ -251,13 +371,105 @@ def train_distributed(
                     i += 1
                 last_ckpt_step = _save_if_due(ckpt, module, optimizer,
                                               global_step, last_ckpt_step,
-                                              checkpoint_every)
+                                              checkpoint_every, mesh)
             if stop:
                 break
         completed = True
     finally:
-        _finalize_checkpoint(ckpt, module, optimizer, global_step, completed)
+        _finalize_checkpoint(ckpt, module, optimizer, global_step,
+                             completed, mesh)
     return _result(module, spec, recorder)
+
+
+# Feature and label shapes travel in one fixed-width vector per rank:
+# [rows, x_rank, x_dims(8), y_rank, y_dims(8), x_dtype, y_dtype], with
+# y_rank -1 when the rank has no labels.
+_MAX_RANK = 8
+_DTYPES = [np.float32, np.float64, np.int32, np.int64, np.int8, np.uint8,
+           np.int16, np.uint16, np.uint32, np.uint64, np.bool_]
+
+
+def _dtype_code(dt) -> int:
+    for i, d in enumerate(_DTYPES):
+        if np.dtype(dt) == np.dtype(d):
+            return i
+    raise ValueError(f"unsupported multihost shard dtype {np.dtype(dt)}; use "
+                     f"one of {[np.dtype(d).name for d in _DTYPES]}")
+
+
+def _shape_vector(x: np.ndarray, y: Optional[np.ndarray]) -> np.ndarray:
+    if x.ndim - 1 > _MAX_RANK or (y is not None and y.ndim - 1 > _MAX_RANK):
+        raise ValueError(f"feature or label rank above {_MAX_RANK}")
+    vec = np.zeros((2 * _MAX_RANK + 4,), np.int64)
+    vec[0], vec[1] = x.shape[0], x.ndim - 1
+    vec[2:2 + x.ndim - 1] = x.shape[1:]
+    y_off = 2 + _MAX_RANK
+    vec[y_off] = -1 if y is None else y.ndim - 1
+    if y is not None:
+        vec[y_off + 1:y_off + y.ndim] = y.shape[1:]
+    vec[-2] = _dtype_code(x.dtype)
+    vec[-1] = -1 if y is None else _dtype_code(y.dtype)
+    return vec
+
+
+def _gather_shape_vectors(vec: np.ndarray, mesh: Mesh) -> np.ndarray:
+    """Every rank's shape vector, rank-ordered (one all-gather)."""
+    if mesh.group is None:
+        return vec[None]
+    on = "cuda" if dist.get_backend(mesh.group) == "nccl" else "cpu"
+    mine = torch.from_numpy(vec).to(on)
+    out = [torch.empty_like(mine) for _ in range(mesh.dp)]
+    dist.all_gather(out, mine, group=mesh.group)
+    return torch.stack(out).cpu().numpy()
+
+
+def train_distributed_multihost(
+    torch_obj: Union[str, ModelSpec],
+    local_x: np.ndarray,
+    local_y: Optional[np.ndarray] = None,
+    mesh: Optional[Mesh] = None,
+    **kwargs,
+) -> TrainResult:
+    """Data-parallel training where each rank brings ITS partition of
+    the data (the reference's executor-side partition iterator,
+    ``distributed.py:66-128``). The ranks agree on a common row count
+    by an all-gather of their shapes; shorter partitions pad with
+    weight-0 rows, and an empty one takes its feature and label shapes
+    and dtypes from a rank that has rows — so skewed and empty
+    partitions are absorbed exactly into the global weighted mean.
+    ``kwargs`` go to :func:`train_distributed` (no validation split:
+    as in the reference, the multihost path trains on every row)."""
+    mesh = mesh or build_mesh()
+    local_x = np.asarray(local_x)
+    if not np.issubdtype(local_x.dtype, np.integer):
+        local_x = local_x.astype(np.float32)
+    if local_x.ndim == 1:
+        local_x = (local_x.reshape(0, 1) if local_x.size == 0
+                   else local_x[:, None])
+    local_y = np.asarray(local_y) if local_y is not None else None
+
+    gathered = _gather_shape_vectors(_shape_vector(local_x, local_y), mesh)
+    if local_x.shape[0] == 0:
+        donors = gathered[gathered[:, 0] > 0]
+        if len(donors):
+            d = donors[0]
+            feat = tuple(int(v) for v in d[2:2 + int(d[1])])
+            local_x = np.zeros((0, *feat), _DTYPES[int(d[-2])])
+            if local_y is not None:
+                y_off = 2 + _MAX_RANK
+                y_feat = tuple(int(v) for v in
+                               d[y_off + 1:y_off + 1 + max(0, int(d[y_off]))])
+                y_code = int(d[-1])
+                local_y = np.zeros(
+                    (0, *y_feat),
+                    _DTYPES[y_code] if y_code >= 0 else local_y.dtype)
+    if local_y is None:
+        local_y = local_x  # label-free: the target is the input
+    per_rank = max(1, int(gathered[:, 0].max()))
+    batch, _ = handle_features(local_x, local_y)
+    batch = pad_batch(batch, per_rank)
+    return train_distributed(torch_obj, batch, mesh=mesh, pre_sharded=True,
+                             **kwargs)
 
 
 class _ChunkFeeder:
@@ -349,7 +561,14 @@ def train_distributed_streaming(
     step) and their losses come back in one read-back. Checkpoints are
     saved at chunk boundaries; ``resume`` continues from the newest
     one. Records have the reference's keys; ``grad_norm`` and
-    ``val_loss`` are None."""
+    ``val_loss`` are None. One rank only: in a data-parallel world of
+    more than one it raises, since each rank would train its own copy
+    on all the data and write to one ``checkpoint_dir``."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "train_distributed_streaming over a data-parallel world is not "
+            "ported yet (ROADMAP, Queue 1: several GPUs, item 4); run it in "
+            "one process, or train_distributed(mesh=...) on resident data")
     dev = _resolve_device(device)
     spec = deserialize_model(torch_obj)
     if isinstance(data, tuple) and len(data) == 2 and labels is None:

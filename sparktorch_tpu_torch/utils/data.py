@@ -110,6 +110,17 @@ def pad_to_multiple(batch: DataBatch, multiple: int) -> DataBatch:
     return pad_batch(batch, max(multiple, -(-n // multiple) * multiple))
 
 
+def shard_batch(batch: DataBatch, rank: int, world: int) -> DataBatch:
+    """Rank ``rank``'s shard of ``batch`` over a world of ``world``: the
+    batch padded to a multiple of ``world`` with weight-0 rows, then the
+    rank's contiguous slice — the layout of the JAX package's
+    ``prepare_sharded_batch`` (``sparktorch_tpu/train/sync.py:61-75``)
+    over a dp mesh, padding rows in the last shards."""
+    padded = pad_to_multiple(batch, world)
+    per = padded.size // world
+    return DataBatch(*(a[rank * per:(rank + 1) * per] for a in padded))
+
+
 def sample_minibatch(batch: DataBatch, generator: torch.Generator,
                      mini_batch: int) -> DataBatch:
     """A contiguous block of ``mini_batch`` rows at a uniform random

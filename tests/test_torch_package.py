@@ -33,7 +33,10 @@ def test_import_pulls_in_no_jax():
         "sparktorch_tpu_torch.net.transport, sparktorch_tpu_torch.utils.locks, "
         "sparktorch_tpu_torch.serve.param_server, "
         "sparktorch_tpu_torch.train.hogwild, "
-        "sparktorch_tpu_torch.utils.checkpoint\n"
+        "sparktorch_tpu_torch.utils.checkpoint, sparktorch_tpu_torch.bench, "
+        "sparktorch_tpu_torch.parallel, sparktorch_tpu_torch.parallel.launch, "
+        "sparktorch_tpu_torch.native, sparktorch_tpu_torch.native.gang, "
+        "sparktorch_tpu_torch.ops.roofline\n"
         "from sparktorch_tpu_torch import SparkTorch\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {NOT_ON_IMPORT!r}]\n"
         "assert not bad, bad\n"
