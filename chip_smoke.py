@@ -88,9 +88,27 @@ the CPU path):
    without a process group bit for bit, with the NCCL calls and kernels
    of a traced fit; (ii) two processes on the card under gloo with CUDA
    tensors, each rank's SGD parameters within 1e-5 × max|param| of the
-   world of one's (a correctness check: gloo stages through the host).
+   world of one's (a correctness check: gloo stages through the host);
+15. spark: BASELINE config 4's topology through the port's localspark
+   runtime (``sparktorch_tpu_torch.spark``, executors as processes): (a)
+   BERT-base fitted by ``SparkTorch(deployMode="barrier", partitions=1)``
+   in an executor on the card (128 × 128 ids, Adam 2e-5, 4 steps), its
+   parameters within 1e-6 × max|param| of the in-process fit's, and one
+   executor BERT step shipped through ``rdd.barrier().mapPartitions``
+   launching 12/12/12/0/0 with no jax imported there; (b) 2,000 rows
+   through the pandas UDF, 12 forward launches a UDF batch, argmaxes
+   equal to the estimator's on the same batches; (c) config 2's lazy
+   MnistCNN through the barrier path, its loss falling; (d) config 3's
+   ResNet-18 hogwild on two executor processes against the driver's
+   server (binary wire, bf16 pushes, 128 iterations each): applies ==
+   pushes, the loss falling; (e) a Pipeline holding (a)'s model saved and
+   loaded through the carrier, its predictions (b)'s bit for bit; (f)
+   ``setMesh`` on a world-of-one mesh bit for bit. Without pandas, (b),
+   (e) and (f) print that they are skipped.
 
-No kernel of KERNELS lies on phases 8, 11–14: each expects 0 launches.
+No kernel of KERNELS lies on phases 8, 11–14 and on 15 (c), (d): each
+expects 0 launches. Phase 15 runs after every kernel is built, so its
+executor processes load the built kernels.
 The total wall time prints before the last two lines.
 Snapshots, the Parquet file and traces go to ``.chip_smoke_tmp/`` beside
 the script and are deleted at the end.
@@ -99,12 +117,14 @@ The second-to-last line is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -165,10 +185,11 @@ CNN_ROWS, CNN_ITERS = 1024, 8
 # of each leg: (a) local, 1 worker (its rate is the bench's record, at
 # the JAX bench's 1,024); (b) the estimator, 4 workers, HW_EST_REPEATS
 # times (the median is reported); (c) binary HTTP wire, bf16 pushes, 2
-# workers; (d) sync steps.
+# workers; (d) sync steps. Before the spark phase joined the script,
+# (a) and (d) ran 512, (b) 256 three times and (c) 128.
 HW_ROWS, HW_MB, HW_PUSH = 2048, 256, 4
-HW_ITERS = dict(local=512, estimator=256, http=128, sync=512)
-HW_EST_REPEATS = 3
+HW_ITERS = dict(local=256, estimator=128, http=64, sync=256)
+HW_EST_REPEATS = 1
 # The DP checks: MnistMLP (BASELINE config 1's model and batch), full
 # batch, DP_STEPS steps; a rank's results must arrive within DP_JOIN_S.
 DP_ROWS, DP_STEPS, DP_JOIN_S = 1024, 5, 300
@@ -1215,15 +1236,21 @@ def quickstart_phase(torch):
                         cnn_examples_per_s=CNN_ROWS / cnn_ms * 1e3)
 
 
-def cifar_like(n, seed=0):
-    """CIFAR-10 shapes (NHWC 32x32x3, 10 classes): seeded noise plus a
-    fixed seeded pattern per class, so a few hundred steps learn."""
+def patterned_rows(n, shape, scale, seed=0):
+    """``n`` rows of ``shape`` in 10 classes: seeded noise plus ``scale``
+    times a fixed seeded pattern per class, so that training learns."""
     rng = np.random.default_rng(seed)
-    patterns = rng.normal(0, 1, (10, 32, 32, 3)).astype(np.float32)
+    patterns = rng.normal(0, 1, (10, *shape)).astype(np.float32)
     y = rng.integers(0, 10, n).astype(np.int32)
-    x = rng.normal(0, 1, (n, 32, 32, 3)).astype(np.float32)
-    x += 0.5 * patterns[y]
+    x = rng.normal(0, 1, (n, *shape)).astype(np.float32)
+    x += scale * patterns[y]
     return x, y
+
+
+def cifar_like(n, seed=0):
+    """CIFAR-10 shapes (NHWC 32x32x3, 10 classes) that a few hundred
+    steps learn."""
+    return patterned_rows(n, (32, 32, 3), 0.5, seed)
 
 
 def check_hogwild(leg, metrics, summary, falls):
@@ -1894,6 +1921,436 @@ def dp_phase(torch):
     return counts, dict(world_of_one=one, gloo_pair=dp_gloo_pair(torch, sgd))
 
 
+# The spark phase (BASELINE config 4's topology, the localspark runtime):
+# (a) BERT-base fitted through SparkTorch(deployMode="barrier",
+# partitions=1) on BERT_ROWS x BERT_SEQ ids for BERT_ITERS steps, (b)
+# SPARK_SERVE_ROWS rows through the pandas UDF, (c) the lazy MnistCNN (CNN_ROWS,
+# CNN_ITERS) and (d) ResNet-18 hogwild on 2 executors, SPARK_HW_ITERS
+# iterations each.
+SPARK_SERVE_ROWS, SPARK_HW_ITERS = 2000, 128
+
+
+def spark_session():
+    """The port's localspark session (its pyspark shim installed)."""
+    from sparktorch_tpu_torch.spark import localsession
+
+    if not localsession.install():
+        raise AssertionError("spark: a real pyspark is installed; the phase "
+                             "drives the port's localspark runtime")
+    return localsession.SparkSession.builder.master("local[1]").getOrCreate()
+
+
+def spark_frame(spark, x, y=None):
+    from sparktorch_tpu_torch.spark.localsession import DenseVector
+
+    if y is None:
+        return spark.createDataFrame([(DenseVector(r),) for r in x],
+                                     ["features"])
+    return spark.createDataFrame(
+        [(float(y[i]), DenseVector(x[i])) for i in range(len(x))],
+        ["label", "features"])
+
+
+def bert_ids(rows, seed, vocab):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, vocab, (rows, BERT_SEQ)).astype(np.float32),
+            rng.integers(0, 2, rows).astype(np.float32))
+
+
+def executor_bert_step(rows, seq, layers, seed):
+    """A closure for ``rdd.barrier().mapPartitions``: one BERT-base
+    training step in the executor process, returning its kernel launches
+    and whether jax or the JAX package was imported there. Self-contained:
+    its imports are its own (in the executor, ``__main__`` is the
+    executor's module)."""
+
+    def step(iterator):
+        import sys
+
+        import numpy as np
+        import torch
+
+        from sparktorch_tpu_torch.models import bert_base
+        from sparktorch_tpu_torch.ops.flash_attention import (
+            flash_attention,
+            flash_bwd_dkv,
+            flash_bwd_dq,
+        )
+        from sparktorch_tpu_torch.ops.fused_ce import (
+            fused_ce_backward,
+            fused_ce_forward,
+        )
+        from sparktorch_tpu_torch.train.step import train_step
+        from sparktorch_tpu_torch.utils.data import DataBatch
+        from sparktorch_tpu_torch.utils.losses import resolve_loss
+        from sparktorch_tpu_torch.utils.serde import resolve_optimizer
+
+        list(iterator)
+        torch.manual_seed(seed)
+        model = bert_base(attn_impl="flash", n_layers=layers).cuda().train()
+        rng = np.random.default_rng(seed)
+        ids = rng.integers(0, model.config.vocab_size, (rows, seq))
+        batch = DataBatch(torch.from_numpy(ids.astype(np.float32)),
+                          torch.from_numpy(rng.integers(0, 2, rows)),
+                          torch.ones(rows)).to("cuda")
+        optimizer = resolve_optimizer("adam", {"lr": 2e-5})(model.parameters())
+        wrappers = {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq,
+                    "flash_bwd_dkv": flash_bwd_dkv, "ce_fwd": fused_ce_forward,
+                    "ce_bwd": fused_ce_backward}
+        for fn in wrappers.values():
+            fn.launches = 0
+        metrics = train_step(model, resolve_loss("cross_entropy"), optimizer,
+                             batch)
+        torch.cuda.synchronize()
+        yield {"launches": {k: fn.launches for k, fn in wrappers.items()},
+               "loss": float(metrics.loss),
+               "foreign": sorted(m for m in sys.modules if m.split(".")[0]
+                                 in ("jax", "jaxlib", "flax",
+                                     "sparktorch_tpu"))}
+
+    return step
+
+
+def spark_bert_fit(torch, spark, rows=BERT_ROWS, iters=BERT_ITERS, layers=12):
+    """(a): BERT-base (flash) through ``SparkTorch(deployMode="barrier",
+    partitions=1, device="cuda")`` — one executor process trains on the
+    card — against the same fit in this process through
+    ``ml.estimator.SparkTorch``: every parameter within 1e-6 ×
+    max|param|. Each fit is timed with nothing beside it; the barrier fit
+    launches no kernel in this process. Returns (fitted model, counts by
+    path, numbers)."""
+    from sparktorch_tpu_torch import SparkTorch, serialize_torch_obj
+    from sparktorch_tpu_torch.models import bert_base
+    from sparktorch_tpu_torch.spark.torch_distributed import (
+        SparkTorch as BarrierSparkTorch,
+    )
+
+    torch.manual_seed(2)
+    model = bert_base(attn_impl="flash", n_layers=layers)
+    payload = serialize_torch_obj(model, criterion="cross_entropy",
+                                  optimizer="adam",
+                                  optimizer_params={"lr": 2e-5})
+    x, y = bert_ids(rows, 2, model.config.vocab_size)
+    del model
+    est = BarrierSparkTorch(inputCol="features", labelCol="label",
+                            torchObj=payload, iters=iters,
+                            deployMode="barrier", partitions=1, device="cuda")
+    frame = spark_frame(spark, x, y)
+    reset_counts()
+    t0 = time.perf_counter()
+    fitted = est.fit(frame)
+    fit_s = time.perf_counter() - t0
+    counts = {"spark_barrier_bert": read_counts()}
+    expect_counts("spark (a) driver during the barrier fit",
+                  counts["spark_barrier_bert"], NO_KERNELS)
+    losses = [r["loss"] for r in est._last_metrics]
+    if len(losses) != iters or not np.isfinite(losses).all():
+        raise AssertionError(f"spark (a): losses {losses}")
+
+    t0 = time.perf_counter()
+    reference = SparkTorch(inputCol="features", labelCol="label",
+                           torchObj=payload, iters=iters, device="cuda").fit(
+        {"features": list(x), "label": y})
+    ref_s = time.perf_counter() - t0
+    want = reference.getModel().params
+    got = fitted.getPytorchModel()["params"]
+    if set(got) != set(want):
+        raise AssertionError("spark (a): parameter names differ")
+    scale = max(float(v.abs().max()) for v in want.values())
+    worst = max(float((got[k].float() - v.float()).abs().max())
+                for k, v in want.items())
+    log(f"spark (a) barrier BERT-base fit (1 executor, {layers} layers): "
+        f"{iters} steps of {rows} x {BERT_SEQ} ids, losses "
+        f"{[round(v, 4) for v in losses]}; fit {fit_s:.2f} s (executor "
+        f"start, payload and result included) against the in-process fit's "
+        f"{ref_s:.2f} s; largest parameter difference {worst:.3e} (limit "
+        f"{1e-6 * scale:.3e})")
+    if not worst <= 1e-6 * scale:
+        raise AssertionError("spark (a): the barrier fit disagrees with the "
+                             "in-process fit")
+    return fitted, counts, dict(fit_s=fit_s, in_process_fit_s=ref_s,
+                                max_abs_diff=worst, limit=1e-6 * scale,
+                                losses=losses)
+
+
+def spark_executor_step(spark, rows=BERT_ROWS, layers=12):
+    """(a), the executor's launches: a chip_smoke closure shipped through
+    ``rdd.barrier().mapPartitions`` runs one BERT-base step in an
+    executor process and returns its launches (one forward, dq and dk/dv
+    a layer) and the jax modules it imported (none). Returns the
+    launches."""
+    t0 = time.perf_counter()
+    (probe,) = spark_frame(spark, np.zeros((1, 1), np.float32)).rdd.barrier(
+    ).mapPartitions(executor_bert_step(rows, BERT_SEQ, layers, 2)).collect()
+    probe_s = time.perf_counter() - t0
+    expect_counts("spark (a) executor BERT step", probe["launches"],
+                  dict(NO_KERNELS, flash_fwd=layers, flash_bwd_dq=layers,
+                       flash_bwd_dkv=layers))
+    if probe["foreign"] or not np.isfinite(probe["loss"]):
+        raise AssertionError(f"spark (a) executor: imported "
+                             f"{probe['foreign']}, loss {probe['loss']}")
+    log(f"spark (a) executor step: loss {probe['loss']:.4f}, no jax or JAX "
+        f"package module in the executor; {probe_s:.2f} s with its start")
+    return probe["launches"]
+
+
+def spark_carrier_round_trip(fitted, frame, out):
+    """(e)'s host work: a Pipeline holding ``fitted`` saved through the
+    carrier, loaded and unwrapped; the loaded pipeline, the seconds and
+    ``done`` go to ``out``."""
+    from sparktorch_tpu_torch import PysparkPipelineWrapper
+    from sparktorch_tpu_torch.spark.localsession import Pipeline, PipelineModel
+
+    path = os.path.join(SCRATCH, "spark_pipeline")
+    t0 = time.perf_counter()
+    Pipeline(stages=[fitted]).fit(frame).write().overwrite().save(path)
+    out["save_s"] = time.perf_counter() - t0
+    out["metadata_bytes"] = os.path.getsize(os.path.join(path,
+                                                         "metadata.json"))
+    t0 = time.perf_counter()
+    out["loaded"] = PysparkPipelineWrapper.unwrap(PipelineModel.load(path))
+    out["load_s"] = time.perf_counter() - t0
+    shutil.rmtree(path, ignore_errors=True)
+    out["done"] = True
+
+
+def spark_carrier_model(torch, spark, frame, layers=2):
+    """(e)'s model: a ``spark.torch_distributed.SparkTorchModel`` over a
+    seeded BERT-base-width model of ``layers`` layers, and its UDF
+    predictions and launches on ``frame``."""
+    from sparktorch_tpu_torch import serialize_torch_obj
+    from sparktorch_tpu_torch.ml.estimator import _encode_bundle
+    from sparktorch_tpu_torch.models import bert_base
+    from sparktorch_tpu_torch.spark.torch_distributed import SparkTorchModel
+    from sparktorch_tpu_torch.utils.serde import deserialize_model, meta_copy
+
+    torch.manual_seed(6)
+    module = bert_base(attn_impl="flash", n_layers=layers)
+    spec = deserialize_model(serialize_torch_obj(module,
+                                                 criterion="cross_entropy"))
+    # As a fit's bundle holds it: the module's structure without its
+    # weights, which travel once, as ``params``.
+    spec = dataclasses.replace(spec, module=meta_copy(module))
+    params = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    model = SparkTorchModel(inputCol="features",
+                            modStr=_encode_bundle(spec, params), device="cuda")
+    reset_counts()
+    preds = np.asarray([r["predictions"]
+                        for r in model.transform(frame).collect()])
+    counts = read_counts()
+    expect_counts(f"spark (e) {layers}-layer model before the save", counts,
+                  dict(NO_KERNELS, flash_fwd=2 * layers))
+    return model, preds, counts
+
+
+def spark_udf_serve(torch, spark, fitted, layers=12, rows=SPARK_SERVE_ROWS):
+    """(b): ``transform`` of ``rows`` rows through the pandas UDF in
+    this process; 12 forward launches (one a layer) for each UDF batch.
+    Its argmaxes must equal ``ml.estimator.SparkTorchModel.transform``'s
+    on the same bundle, run on the same batches (localspark evaluates a
+    UDF in two). Returns (the rows, their frame, predictions, the
+    estimator's model and its whole-frame predictions, counts,
+    numbers)."""
+    from sparktorch_tpu_torch.ml.estimator import SparkTorchModel
+    from sparktorch_tpu_torch.models.transformer import TransformerConfig
+
+    x, _ = bert_ids(rows, 4, TransformerConfig().vocab_size)
+    frame = spark_frame(spark, x)
+    batches = [b for b in np.array_split(np.arange(rows), 2) if len(b)]
+    reset_counts()
+    t0 = time.perf_counter()
+    preds = np.asarray([r["predictions"]
+                        for r in fitted.transform(frame).collect()])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("spark (b) UDF transform", counts,
+                  dict(NO_KERNELS, flash_fwd=layers * len(batches)))
+    plain = SparkTorchModel(inputCol="features",
+                            modStr=fitted.getOrDefault(fitted.modStr)
+                            ).setDevice("cuda")
+    want = np.concatenate([plain.transform({"features": x[b]})["predictions"]
+                           for b in batches])
+    whole = plain.transform({"features": x})["predictions"]
+    if preds.shape != (rows,) or not np.array_equal(preds, want):
+        raise AssertionError(f"spark (b): UDF argmaxes differ from the "
+                             f"estimator's on {int((preds != want).sum())} rows")
+    log(f"spark (b) UDF transform: {rows} rows x {BERT_SEQ} ids in "
+        f"{wall:.3f} s = {rows / wall:,.1f} rows/s (the broadcast bundle "
+        f"decoded and put on the card once, host clock); argmaxes equal the "
+        f"estimator's on the UDF's {len(batches)} batches, and "
+        f"{100 * float(np.mean(preds == whole)):.2f}% of its whole-frame "
+        f"transform's")
+    return x, frame, preds, plain, whole, counts, dict(rows_per_s=rows / wall,
+                                                       wall_s=wall)
+
+
+def spark_phase(torch):
+    """BASELINE config 4's topology through the port's localspark runtime
+    (``sparktorch_tpu_torch.spark``): (a) the barrier BERT-base fit and an
+    executor's launches, (b) 2,000 rows through the pandas UDF, (c) config
+    2's lazy MnistCNN through ``deployMode="barrier"``, (d) config 3's
+    ResNet-18 hogwild on two executor processes against the driver's
+    parameter server (binary wire, bf16 pushes), (e) a Pipeline holding
+    a 2-layer BERT-base-width model saved and loaded through the carrier,
+    (f) ``SparkTorchModel.setMesh`` on a world-of-one mesh. Without
+    pandas (b), (e) and (f) are skipped with a printed reason."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    spark = spark_session()  # before the adapter's import: it needs pyspark
+
+    from sparktorch_tpu_torch import serialize_torch_obj, serialize_torch_obj_lazy
+    from sparktorch_tpu_torch.models import MnistCNN, resnet18
+    from sparktorch_tpu_torch.parallel.mesh import build_mesh
+    from sparktorch_tpu_torch.spark.torch_distributed import SparkTorch
+
+    out = {}
+    try:
+        fitted, counts, out["barrier_bert"] = spark_bert_fit(torch, spark)
+        pandas = importlib.util.find_spec("pandas") is not None
+        if pandas:
+            import pandas as pd
+
+            log(f"spark: pandas {pd.__version__}")
+            (x_serve, frame, _, model, plain, counts["spark_udf_serve"],
+             out["udf_serve"]) = spark_udf_serve(torch, spark, fitted)
+        else:
+            log("spark: pandas is not installed on this machine: (b) the UDF "
+                "transform, (e) pipeline persistence and (f) setMesh are "
+                "skipped (localspark's withColumn needs pandas)")
+            out["skipped"] = ["b", "e", "f"]
+
+        # Learnable rows: on noise labels 8 steps from a lazy model's
+        # unseeded init need not lower the loss.
+        xc, yc = patterned_rows(CNN_ROWS, (784,), 1.0, seed=5)
+        cnn = SparkTorch(
+            inputCol="features", labelCol="label",
+            torchObj=serialize_torch_obj_lazy(
+                MnistCNN, criterion="cross_entropy", optimizer="adam",
+                optimizer_params={"lr": 1e-3}, input_shape=(784,)),
+            iters=CNN_ITERS, deployMode="barrier", partitions=1,
+            device="cuda")
+        cnn_frame = spark_frame(spark, xc, yc.astype(np.float32))
+        # (a)'s executor step runs on a thread beside (c), whose fit wall
+        # is therefore not the layer metric ((a)'s is, timed alone).
+        probe = {}
+        step = threading.Thread(target=lambda: probe.update(
+            launches=spark_executor_step(spark)), daemon=True)
+        reset_counts()
+        step.start()
+        t0 = time.perf_counter()
+        cnn.fit(cnn_frame)
+        cnn_s = time.perf_counter() - t0
+        step.join()
+        counts["spark_barrier_cnn"] = add_counts(
+            {}, "spark (c) lazy MnistCNN and (a)'s executor step, driver")
+        if "launches" not in probe:
+            raise AssertionError("spark (a): the executor step failed (its "
+                                 "traceback is above)")
+        counts["spark_executor_bert_step"] = probe["launches"]
+        losses = [r["loss"] for r in cnn._last_metrics]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"spark (c): losses {losses}")
+        log(f"spark (c) lazy MnistCNN through deployMode='barrier': "
+            f"{CNN_ITERS} steps of {CNN_ROWS} rows, losses "
+            f"{[round(v, 4) for v in losses]}; fit {cnn_s:.2f} s (beside the "
+            f"executor step)")
+        out["barrier_cnn"] = dict(losses=losses, fit_s=cnn_s)
+
+        x, y = cifar_like(HW_ROWS)
+        torch.manual_seed(3)
+        hw = SparkTorch(
+            inputCol="features", labelCol="label",
+            torchObj=serialize_torch_obj(
+                resnet18(num_classes=10, input_hw=(32, 32, 3)),
+                criterion="cross_entropy", optimizer="sgd",
+                optimizer_params={"lr": 1e-2}, input_shape=(32 * 32 * 3,)),
+            iters=SPARK_HW_ITERS, mode="hogwild", deployMode="barrier",
+            partitions=2, miniBatch=HW_MB, pushEvery=HW_PUSH, compress=True,
+            wire="binary", device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        hw.fit(spark_frame(spark, x.reshape(HW_ROWS, -1), y))
+        hw_s = time.perf_counter() - t0
+        counts["spark_hogwild_executors"] = add_counts(
+            {}, "spark (d) hogwild executors")
+        summaries = hw._last_hogwild_summaries
+        pushes = sum(s["pushes"] for s in summaries)
+        applied = hw._last_hogwild_applied
+        window = 2 * HW_PUSH
+        all_losses = [v for s in summaries for v in s["losses"]]
+        first = float(np.mean([v for s in summaries
+                               for v in s["losses"][:window]]))
+        last = float(np.mean([v for s in summaries
+                              for v in s["losses"][-window:]]))
+        rate = (sum(s["examples"] for s in summaries)
+                / max(s["loop_s"] for s in summaries))
+        log(f"spark (d) ResNet-18 hogwild, 2 executor processes on the card "
+            f"against the driver's server (binary wire, bf16 pushes): "
+            f"{len(all_losses)} iterations, {applied} applies == {pushes} "
+            f"pushes, loss {first:.4f} -> {last:.4f} (first and last "
+            f"{window}-iteration windows of each worker); {rate:,.0f} "
+            f"examples/s over both workers' loops; fit {hw_s:.2f} s")
+        if (len(summaries) != 2 or applied != pushes
+                or not np.isfinite(all_losses).all() or not last < first):
+            raise AssertionError("spark (d): hogwild executors failed their "
+                                 "checks")
+        out["hogwild_executors"] = dict(
+            applies=applied, pushes=pushes, first_loss=first,
+            last_loss=last, examples_per_s=rate, fit_s=hw_s)
+
+        if pandas:
+            # (e) carries a BERT-base-width model cut to 2 layers
+            # (spark_costs.py times the carrier of a 12-layer one); its
+            # save and load run on a thread beside (f), which is not timed.
+            small, small_preds, counts["spark_pipeline"] = spark_carrier_model(
+                torch, spark, frame)
+            carried = {}
+            carrier = threading.Thread(target=spark_carrier_round_trip,
+                                       args=(small, frame, carried),
+                                       daemon=True)
+            carrier.start()
+            mesh = build_mesh()
+            reset_counts()
+            meshed = model.setMesh(mesh).transform(
+                {"features": x_serve})["predictions"]
+            counts["spark_set_mesh"] = read_counts()
+            expect_counts("spark (f) setMesh", counts["spark_set_mesh"],
+                          dict(NO_KERNELS, flash_fwd=12 * -(
+                              -SPARK_SERVE_ROWS // CHUNK)))
+            if mesh.dp != 1 or not np.array_equal(meshed, plain):
+                raise AssertionError("spark (f): setMesh on a world of one "
+                                     "differs from the plain transform")
+            log(f"spark (f) setMesh (dp {mesh.dp}): {len(meshed)} predictions "
+                f"equal the plain transform's bit for bit")
+            carrier.join()
+            if not carried.get("done"):
+                raise AssertionError("spark (e): the carrier round trip "
+                                     "failed (its traceback is above)")
+            reset_counts()
+            again = np.asarray([r["predictions"] for r in
+                                carried.pop("loaded").transform(frame)
+                                .collect()])
+            expect_counts("spark (e) loaded pipeline", read_counts(),
+                          counts["spark_pipeline"])
+            if not np.array_equal(again, small_preds):
+                raise AssertionError("spark (e): the loaded pipeline's "
+                                     "predictions differ")
+            log(f"spark (e) pipeline through the carrier (BERT-base width, 2 "
+                f"layers): saved in {carried['save_s']:.2f} s "
+                f"({carried['metadata_bytes'] / 2**20:,.1f} MiB of "
+                f"metadata), loaded and unwrapped in {carried['load_s']:.2f} "
+                f"s (beside (f)); predictions equal the model's before the "
+                f"save bit for bit")
+            out["pipeline"] = {k: carried[k] for k in
+                               ("save_s", "load_s", "metadata_bytes")}
+    finally:
+        spark.stop()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"spark phase: {out['wall_s']:.1f} s")
+    return counts, out
+
+
 START = time.perf_counter()
 
 
@@ -1934,24 +2391,40 @@ def main() -> int:
 
 
 def run_phases(torch) -> int:
+    marks = [time.perf_counter()]
+
+    def done(name):
+        marks.append(time.perf_counter())
+        log(f"phase {name}: {marks[-1] - marks[-2]:.1f} s")
+
     fwd_cases = kernel_phase(torch)
     bwd_cases = bwd_kernel_phase(torch)
     ce_cases = ce_kernel_phase(torch)
+    done("kernels")
     serve_counts, rows_per_s = slice_phase(torch)
+    done("slice")
     lm_counts, lm = train_lm_phase(torch)
     parity = train_parity_phase(torch)
+    done("train_lm and parity")
     bench_counts_by_path, bench = bench_phase(torch)
+    done("bench")
     bert_counts, bert = train_bert_phase(torch, bench["bert_dp"])
     quick_counts, quick = quickstart_phase(torch)
     stream_counts, lm_stream = train_lm_streaming_phase(
         torch, lm["tokens_per_s"])
     resume_counts, lm_resume = train_lm_resume_phase(torch)
+    done("train_bert, quickstart, streaming and resume")
     hogwild_counts, hogwild = hogwild_phase(torch,
                                             bench["resnet18_hogwild"])
+    done("hogwild")
     r50_counts, resnet50_serve = serve_resnet50_phase(torch)
     r50_stream_counts, resnet50_stream = serve_resnet50_stream_phase(
         torch, resnet50_serve["rows_per_s"])
+    done("resnet50 serve and stream")
     dp_counts, dp = dp_phase(torch)
+    done("dp")
+    spark_counts, spark = spark_phase(torch)
+    done("spark")
 
     # Each kernel's numbers at its main path's shape: the serving chunk
     # for the forward, the LM training step for the other four.
@@ -1969,6 +2442,7 @@ def run_phases(torch) -> int:
                    "serve_resnet50": r50_counts[name],
                    "serve_resnet50_stream": r50_stream_counts[name],
                    "dp": dp_counts[name],
+                   **{path: c[name] for path, c in spark_counts.items()},
                    **{path: c[name]
                       for path, c in bench_counts_by_path.items()}}
         cases = main_cases[name]
@@ -1991,7 +2465,7 @@ def run_phases(torch) -> int:
                     "train_lm_resume": lm_resume, "quickstart": quick,
                     "hogwild": hogwild, "serve_resnet50": resnet50_serve,
                     "serve_resnet50_stream": resnet50_stream,
-                    "bench": bench, "dp": dp}))
+                    "bench": bench, "dp": dp, "spark": spark}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,6 +24,7 @@ from typing import Callable, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sparktorch_tpu_torch.ml.estimator import SparkTorchModel, _encode_bundle
 from sparktorch_tpu_torch.ml.pipeline import PipelineModel
@@ -47,11 +48,18 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 class BatchPredictor:
-    """Chunked batch inference on one device.
+    """Chunked batch inference on one device, or sharded over a mesh.
 
     Every forward sees one input shape: rows go in ``chunk``-row
     pieces, and when there is more than one chunk the last is
     zero-padded to ``chunk`` rows (the padding is cut from the output).
+    With a ``mesh`` of dp size n > 1, every rank of its group calls
+    ``predict`` with the same rows: the chunk is rounded up to a
+    multiple of n (a lone short chunk pads to one), each rank runs the
+    forward on its contiguous n-th of every chunk, and one
+    ``all_gather`` gives every rank all the rows, in order — as the JAX
+    package's sharded forward returns them. A mesh of one makes no
+    collective.
     On CUDA the host→device copy of chunk i+1 is enqueued from pinned
     memory before chunk i's result is read back, so the copy overlaps
     the readback; device memory holds about two chunks. Input already on
@@ -62,19 +70,23 @@ class BatchPredictor:
                  params: Optional[Mapping[str, torch.Tensor]] = None,
                  device=None, chunk: int = 1024,
                  preprocess: Optional[Callable] = None,
-                 postprocess: Optional[Callable] = None):
+                 postprocess: Optional[Callable] = None, mesh=None):
         """``params`` (optional) is a ``state_dict`` to load into
         ``module`` first (buffers included: torch has no separate
         model state). ``preprocess`` maps each device chunk before the
         module (e.g. ``lambda x: x.float() / 255`` on uint8 pixels: a
         quarter of float32's host→device bytes); ``postprocess`` maps
         the module's output (e.g. ``lambda y: y.argmax(-1)``: one value
-        a row read back instead of the logits)."""
+        a row read back instead of the logits). ``mesh``: a
+        :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` mesh."""
         self.device = _resolve_device(device)
         if params is not None:
             module.load_state_dict(params)
         self.module = module.to(self.device).eval()
-        self.chunk = max(1, int(chunk))
+        self.mesh = mesh
+        self._shards = mesh.dp if mesh is not None else 1
+        c = max(1, int(chunk), self._shards)
+        self.chunk = -(-c // self._shards) * self._shards
         self.preprocess = preprocess
         self.postprocess = postprocess
 
@@ -88,21 +100,28 @@ class BatchPredictor:
         self.module = fresh.eval()
 
     def _chunks(self, x, n: int):
-        """Yield (padded_part, real_rows) chunks of one shape."""
+        """Yield (padded_part, real_rows) chunks of one shape (a lone
+        short chunk pads only to a multiple of the mesh's dp size)."""
         for start in range(0, n, self.chunk):
             part = x[start : start + self.chunk]
             real = part.shape[0]
-            if real < self.chunk and n > self.chunk:
+            target = (self.chunk if n > self.chunk
+                      else -(-real // self._shards) * self._shards)
+            if real < target:
                 if isinstance(part, torch.Tensor):
-                    pad = part.new_zeros((self.chunk - real, *part.shape[1:]))
+                    pad = part.new_zeros((target - real, *part.shape[1:]))
                     part = torch.cat([part, pad])
                 else:
-                    pad = np.zeros((self.chunk - real, *part.shape[1:]),
+                    pad = np.zeros((target - real, *part.shape[1:]),
                                    part.dtype)
                     part = np.concatenate([part, pad])
             yield part, real
 
     def _put(self, part) -> torch.Tensor:
+        """This rank's share of a chunk, on the device."""
+        if self._shards > 1:
+            per = part.shape[0] // self._shards
+            part = part[self.mesh.rank * per:(self.mesh.rank + 1) * per]
         if isinstance(part, torch.Tensor):
             if part.device.type != "cpu":
                 return part.to(self.device)  # on the card already
@@ -123,14 +142,21 @@ class BatchPredictor:
             out = module(x)
             if self.postprocess is not None:
                 out = self.postprocess(out)
+            if self._shards > 1:
+                out = out.contiguous()
+                parts = [torch.empty_like(out) for _ in range(self._shards)]
+                dist.all_gather(parts, out, group=self.mesh.group)
+                out = torch.cat(parts)
             return out
 
     def _probe(self, x) -> torch.Tensor:
-        """The output of one zero row, for the shape of an empty result."""
+        """The output of one zero row a rank, for the shape of an empty
+        result."""
+        shape = (self._shards, *x.shape[1:])
         if isinstance(x, torch.Tensor):
-            probe = x.new_zeros((1, *x.shape[1:]))
+            probe = x.new_zeros(shape)
         else:
-            probe = np.zeros((1, *x.shape[1:]), x.dtype)
+            probe = np.zeros(shape, x.dtype)
         return self._fwd(self._put(probe))[:0]
 
     def predict(self, x) -> np.ndarray:

@@ -19,6 +19,8 @@ argmax (multi-output), the scalar (single output) or, with
 
 The model runs on CUDA unless ``setDevice("cpu")`` says otherwise; with
 no device set and no CUDA device present, ``transform`` raises.
+``setMesh`` shards each chunk over the ranks of a data-parallel mesh
+(every rank transforms the same frame and gets every row).
 """
 
 from __future__ import annotations
@@ -84,13 +86,16 @@ class SparkTorchModel(Model):
         self._bundle_cache = None
         self._forward_cache = None
         self._device: Optional[str] = None
+        self._mesh = None
 
     def __getstate__(self):
         # Pipeline save dill-dumps the stage: ship the params, not the
-        # decoded module or the device-resident predictor.
+        # decoded module, the device-resident predictor or the mesh
+        # (its process group belongs to this process).
         state = dict(self.__dict__)
         state["_bundle_cache"] = None
         state["_forward_cache"] = None
+        state["_mesh"] = None
         return state
 
     def copy(self, extra=None):
@@ -110,6 +115,17 @@ class SparkTorchModel(Model):
 
     def getDevice(self) -> Optional[str]:
         return self._device
+
+    def setMesh(self, mesh):
+        """Mesh-parallel inference (``sparktorch_tpu/ml/estimator.py:90-96``):
+        each chunk is split over the dp ranks of ``mesh`` (a
+        :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` mesh or a
+        ``MeshConfig``), every rank runs its share on its device, and
+        one all-gather gives every rank all the rows. Every rank must
+        call ``transform`` with the same frame."""
+        self._mesh = mesh
+        self._forward_cache = None
+        return self
 
     def getModStr(self) -> str:
         return self.getOrDefault(self.modStr)
@@ -136,9 +152,14 @@ class SparkTorchModel(Model):
         if self._forward_cache is None:
             from sparktorch_tpu_torch.inference import BatchPredictor
 
+            from sparktorch_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+            mesh = self._mesh
+            if isinstance(mesh, MeshConfig):
+                mesh = build_mesh(mesh)
             self._forward_cache = BatchPredictor(
                 self.getModel().module, device=self._device,
-                chunk=_INFER_CHUNK,
+                chunk=_INFER_CHUNK, mesh=mesh,
             )
         return self._forward_cache
 

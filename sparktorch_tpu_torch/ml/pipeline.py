@@ -12,8 +12,8 @@ Without a JVM none of that contortion is needed: stages persist as
 dill blobs in a versioned directory with a JSON manifest. The format is
 the JAX package's, with ``"framework": "sparktorch_tpu_torch"`` in the
 manifest. :class:`PysparkPipelineWrapper` keeps the ``unwrap``
-entrypoint; the Spark carrier adapter is not ported yet, so ``unwrap``
-returns what it is given.
+entrypoint: native pipelines come back as they are, Spark pipelines go
+to the carrier adapter (:mod:`sparktorch_tpu_torch.spark.pipeline_util`).
 """
 
 from __future__ import annotations
@@ -143,9 +143,19 @@ class PipelineModel(Model):
 
 
 class PysparkPipelineWrapper:
-    """Parity shim for ``PysparkPipelineWrapper.unwrap``: native
-    pipelines need no carrier decoding, so unwrap is identity."""
+    """Parity shim for ``PysparkPipelineWrapper.unwrap``
+    (``pipeline_util.py:49-77``). Native pipelines need no carrier
+    decoding, so unwrap is identity; a *pyspark* pipeline (carrier
+    stages present) goes to the Spark adapter."""
 
     @staticmethod
     def unwrap(pipeline):
-        return pipeline
+        if isinstance(pipeline, (Pipeline, PipelineModel)):
+            return pipeline
+        try:  # pyspark object? delegate to the adapter.
+            from sparktorch_tpu_torch.spark.pipeline_util import (
+                unwrap_spark_pipeline,
+            )
+        except ImportError:
+            return pipeline
+        return unwrap_spark_pipeline(pipeline)

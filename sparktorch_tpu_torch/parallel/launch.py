@@ -84,6 +84,7 @@ def bringup_multihost(
     ft_policy=None,
     telemetry=None,
     controller=None,
+    backend: Optional[str] = None,
 ):
     """Rendezvous the gang and join the process group.
 
@@ -92,7 +93,8 @@ def bringup_multihost(
     ``close()`` both at the end. Rank 0 hosts the coordinator unless
     ``start_coordinator`` says otherwise (an external process already
     runs one). ``dist_port`` is where rank 0 serves the process group's
-    TCP store (NCCL with a card, gloo without).
+    TCP store (NCCL with a card, gloo without, unless ``backend``
+    names one).
     """
     if ft_policy is not None or controller:
         raise _not_ported("ft_policy and controller",
@@ -125,6 +127,6 @@ def bringup_multihost(
     worker.barrier(0)  # the whole gang is here
     peers = worker.world()
     initialize_distributed(peers[0], num_processes=world_size,
-                           process_id=rank)
+                           process_id=rank, backend=backend)
     register_gang_worker(worker)
     return coord, worker

@@ -97,13 +97,15 @@ def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
-                           process_id: Optional[int] = None) -> None:
+                           process_id: Optional[int] = None,
+                           backend: Optional[str] = None) -> None:
     """Join the process group: ``init_process_group`` over
     ``tcp://<coordinator_address>`` (``host:port``; default from
-    ``$SPARKTORCH_TPU_COORDINATOR``). NCCL when a CUDA device is
-    present, each process on the card ``process_id % device_count``;
-    gloo otherwise. No-op when a group is already initialized or no
-    coordinator is named (single process)."""
+    ``$SPARKTORCH_TPU_COORDINATOR``). ``backend`` defaults to NCCL when a
+    CUDA device is present, each process on the card ``process_id %
+    device_count``, and to gloo otherwise (pass ``"gloo"`` for CPU
+    tensors on a machine with cards). No-op when a group is already
+    initialized or no coordinator is named (single process)."""
     if dist.is_initialized():
         return
     coordinator_address = (coordinator_address
@@ -113,7 +115,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     if num_processes is None or process_id is None:
         raise ValueError("num_processes and process_id are required with a "
                          "coordinator address")
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
     if backend == "nccl":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",

@@ -27,16 +27,23 @@ Minibatch offsets come from a host ``torch.Generator`` seeded per worker
 and round (the JAX worker draws them from a ``jax.random`` key), so the
 two packages agree step for step only on full batches.
 
+:func:`run_hogwild_worker` is one worker as a process of its own (a
+Spark executor, or any process given the server's URL).
+
 Not ported yet (ROADMAP, Queue 1): ``shards>1`` and ``pull_quant`` (the
-sharded fleet), ``supervise``/``ft_policy``, ``telemetry``,
-``profile_dir``, and the Spark-executor worker ``run_hogwild_worker``.
+sharded fleet), ``supervise``/``ft_policy``, ``telemetry`` and
+``profile_dir``, and ``run_hogwild_worker``'s heartbeat, cancel and
+telemetry context.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import json
 import logging
+import os
+import tempfile
 import threading
 import time
 import urllib.error
@@ -66,7 +73,11 @@ from sparktorch_tpu_torch.utils.data import (
     handle_features,
     sample_minibatch,
 )
-from sparktorch_tpu_torch.utils.serde import deserialize_model, meta_copy
+from sparktorch_tpu_torch.utils.serde import (
+    ModelSpec,
+    deserialize_model,
+    meta_copy,
+)
 
 log = logging.getLogger("sparktorch_tpu_torch.train.hogwild")
 
@@ -346,6 +357,19 @@ def _budget(phase_stats: List[dict]) -> dict:
     return tot
 
 
+def final_result(server: ParameterServer, spec: ModelSpec,
+                 template: torch.nn.Module):
+    """``(spec, state_dict)`` once the server's pending applies are
+    done: its parameters and model state on the CPU in ``template``'s
+    order, and the spec with an eager module made weight-free."""
+    params, model_state = server.final_state()
+    state = {**params, **model_state}
+    state = {k: state[k].detach().cpu() for k in template.state_dict()}
+    if spec.module is not None:
+        spec = dataclasses.replace(spec, module=meta_copy(template))
+    return spec, state
+
+
 def train_async(
     torch_obj,
     data: Any,
@@ -487,17 +511,13 @@ def train_async(
             if server.should_stop:
                 break
 
-        params, model_state = server.final_state()
-        state = {**params, **model_state}
-        state = {k: state[k].detach().cpu() for k in template.state_dict()}
+        spec, state = final_result(server, spec, template)
         summary = None
         if phase_stats:
             summary = {"hogwild_phases": phase_stats,
                        "hogwild_budget": _budget(phase_stats),
                        "server_applied": server.applied_updates,
                        "server_apply_s": server.apply_s}
-        if spec.module is not None:
-            spec = dataclasses.replace(spec, module=meta_copy(template))
         return TrainResult(params=state, metrics=records, spec=spec,
                            summary=summary)
     finally:
@@ -508,3 +528,101 @@ def train_async(
         if http is not None:
             http.stop()
         server.stop()
+
+
+# ---------------------------------------------------------------------------
+# Process entry point
+# ---------------------------------------------------------------------------
+
+
+def run_hogwild_worker(torch_obj, url: str, data, labels=None,
+                       iters: int = 10, mini_batch: Optional[int] = None,
+                       push_every: int = 1, seed: int = 0,
+                       worker_id: int = 0, wire: str = "binary",
+                       quant: Optional[str] = None, compress: bool = True,
+                       records_path: Optional[str] = None, ctx=None,
+                       device=None, validation_pct: float = 0.0,
+                       verbose: int = 0, early_stop: bool = False,
+                       model_seed: Optional[int] = None) -> dict:
+    """ONE hogwild worker in its own process: pull/push against the
+    parameter server at ``url`` on ``device`` (CUDA unless the caller
+    asks for the CPU), with its own interpreter and device context.
+
+    ``data`` is the worker's shard: arrays, an ``(x, y)`` tuple, or the
+    path of an ``.npz`` holding ``x`` and ``y``; ``validation_pct`` of
+    it is held out (split under ``seed``) for the early stop. Its model
+    state (buffers) is the spec's module built under ``model_seed``
+    (default ``seed``); its parameters come with each pull. ``wire``
+    and ``quant`` as in :func:`train_async`. The step records are
+    written to ``records_path`` at completion as JSON lines, atomically
+    (a temporary file, then ``os.replace``): a killed attempt publishes
+    nothing. A ``ctx`` carrying a heartbeat, a cancel event or
+    telemetry is not ported yet and raises.
+
+    Returns the worker's summary: its losses and pulled versions, the
+    examples it trained on, its pushes and its loop's seconds."""
+    if ctx is not None:
+        for attr, item in (("heartbeat", "the ft supervisor and ctl/, "
+                            "item 9"),
+                           ("cancel", "the ft supervisor and ctl/, item 9"),
+                           ("telemetry", "the obs hooks, item 10")):
+            if getattr(ctx, attr, None) is not None:
+                raise _not_ported(f"run_hogwild_worker's ctx.{attr}", item)
+    if wire not in ("binary", "dill"):
+        raise ValueError(f"unknown wire {wire!r}; use 'binary' or 'dill'")
+    if isinstance(data, str):
+        loaded = np.load(data)
+        x, y = loaded["x"], loaded["y"]
+    elif isinstance(data, tuple) and labels is None:
+        x, y = data
+    else:
+        x, y = data, labels
+    dev = _resolve_device(device)
+    spec = deserialize_model(torch_obj)
+    if spec.input_shape is None:
+        spec.input_shape = tuple(np.asarray(x).shape[1:])
+    module = build_module(spec, seed if model_seed is None
+                          else model_seed).to(dev).eval()
+    loss_fn = spec.loss_fn()
+    shard, val_shard = handle_features(x, y, validation_pct, seed=seed)
+    if wire == "binary":
+        transport = BinaryTransport(
+            url, quant=quant if quant else ("bf16" if compress else None))
+    else:
+        transport = HttpTransport(url, compress=compress)
+    records: List[dict] = []
+    errors: List[BaseException] = []
+    phases: List[dict] = []
+    try:
+        if not transport.alive():  # GET / (hogwild.py:60-62)
+            raise RuntimeError(f"parameter server at {url} is down")
+        _worker_loop(worker_id, transport, module,
+                     make_grad_step(loss_fn, mini_batch), shard.to(dev),
+                     val_shard.to(dev) if val_shard is not None else None,
+                     iters, verbose, early_stop, seed, records, errors,
+                     push_every,
+                     make_eval_loss(loss_fn) if val_shard is not None
+                     else None,
+                     make_grad_windows(loss_fn, mini_batch, push_every,
+                                       iters),
+                     phases)
+    finally:
+        close = getattr(transport, "close", None)
+        if close is not None:
+            close()
+    if errors:
+        raise errors[0]
+    if records_path:
+        fd, tmp = tempfile.mkstemp(prefix=".hogwild_records.",
+                                   suffix=".jsonl",
+                                   dir=os.path.dirname(records_path) or ".")
+        with os.fdopen(fd, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in records)
+        os.replace(tmp, records_path)
+    return {"worker_id": worker_id, "iters": iters, "records": len(records),
+            "final_loss": records[-1]["loss"] if records else None,
+            "losses": [r["loss"] for r in records],
+            "versions": [r["version"] for r in records],
+            "examples": len(records) * (mini_batch or shard.size),
+            "pushes": int(phases[0]["pushes"]),
+            "loop_s": phases[0]["loop_s"]}

@@ -36,8 +36,13 @@ def test_import_pulls_in_no_jax():
         "sparktorch_tpu_torch.utils.checkpoint, sparktorch_tpu_torch.bench, "
         "sparktorch_tpu_torch.parallel, sparktorch_tpu_torch.parallel.launch, "
         "sparktorch_tpu_torch.native, sparktorch_tpu_torch.native.gang, "
-        "sparktorch_tpu_torch.ops.roofline\n"
+        "sparktorch_tpu_torch.ops.roofline, sparktorch_tpu_torch.native.rowpack\n"
         "from sparktorch_tpu_torch import SparkTorch\n"
+        "from sparktorch_tpu_torch.spark import localsession\n"
+        "assert localsession.install()\n"
+        "import sparktorch_tpu_torch.spark.torch_distributed, "
+        "sparktorch_tpu_torch.spark.pipeline_util, "
+        "sparktorch_tpu_torch.spark._executor\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {NOT_ON_IMPORT!r}]\n"
         "assert not bad, bad\n"
     )
