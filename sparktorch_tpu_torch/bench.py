@@ -10,8 +10,9 @@ Configs (each keeps the JAX config's sizes, seeds and record keys):
 5. ``resnet50_inference`` — ResNet-50 batch inference, device-resident and
    over a Parquet stream
 
-plus ``mnist_cnn_sync`` (the headline's workload) and ``long_context_lm``
-(the flash kernels at s = 8192). Weights are seeded, never pretrained.
+plus ``mnist_cnn_sync`` (the headline's workload), ``long_context_lm``
+(the flash kernels at s = 8192) and ``moe_lm`` (an 8-expert switch
+causal LM beside its dense twin). Weights are seeded, never pretrained.
 
 The sync configs run :func:`_sync_epoch_bench`: data-parallel over the
 mesh of :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` (the
@@ -31,9 +32,14 @@ Where the records differ from the JAX package's (``RECORD_KEYS`` below):
   989 TFLOP/s dense bf16 (:mod:`sparktorch_tpu_torch.ops.roofline`).
 - ``bert_dp`` runs the port's flash-attention kernels (the JAX config runs
   XLA's dense attention, which has no Pallas kernel).
-- ``steps_run`` (train steps the harness ran) joins every sync record, and
-  ``long_context_lm`` adds its 2k legs' ``steps_run_at_2k``: with the
-  kernels' launch counts they give the launches per step.
+- ``steps_run`` (train steps the harness ran) joins every sync record,
+  ``long_context_lm`` adds its 2k legs' ``steps_run_at_2k`` and ``moe_lm``
+  its dense twin's ``steps_run_dense``: with the kernels' launch counts
+  they give the launches per step.
+- ``moe_lm`` leaves out the JAX record's trace keys (``comm_budget`` with
+  its ``comm_s``, ``comm_fraction``, ``overlap_fraction``, ``comm_drift``):
+  they come from an analysed XLA capture, which waits for the profiler
+  port (ROADMAP, Queue 1, item 10).
 - Left out: ``resnet50_inference``'s ``measured_run_*`` (long-haul runs
   logged on the TPU rig), the headline's append to ``benchmarks/`` (the
   port writes only where ``--log`` says), ``--telemetry-dump`` (ROADMAP,
@@ -125,6 +131,12 @@ RECORD_KEYS = {
         {"config", "unit", "seq_len", "tokens_per_sec_per_chip",
          "flash_vs_dense_step_ratio_at_2k", *_SYNC_KEYS}, set(),
         {"steps_run", "steps_run_at_2k"}),
+    "moe_lm": (
+        {"config", "unit", "n_experts", "seq_len", "tokens_per_sec_per_chip",
+         "moe_vs_dense_step_ratio", *_SYNC_KEYS, "comm_budget",
+         "comm_fraction", "overlap_fraction", "comm_drift"},
+        {"comm_budget", "comm_fraction", "overlap_fraction", "comm_drift"},
+        {"steps_run", "steps_run_dense"}),
 }
 
 
@@ -428,13 +440,14 @@ def bench_lazy_cnn_sync(device=None) -> dict:
             "lazy_materialize_s": round(lazy_materialize_s, 4), **out}
 
 
-def bench_resnet18_hogwild(device=None) -> dict:
+def bench_resnet18_hogwild(device=None, iters: int = 1024,
+                           repeats: int = 5) -> dict:
     """BASELINE config 3: ResNet-18 on CIFAR-10 shapes through the
-    parameter server, 5 runs of 1,024 iterations per worker (256 push
-    windows; the median is reported), a leg over the HTTP transport,
-    and a sync
-    ResNet-18 leg at the same minibatch per chip, so the async
-    efficiency (hogwild rate / sync rate) is measured."""
+    parameter server, ``repeats`` runs of ``iters`` iterations per worker
+    (the JAX bench's 5 of 1,024: 256 push windows; the median is
+    reported), a leg over the HTTP transport of ``max(64, iters // 4)``,
+    and a sync ResNet-18 leg at the same minibatch per chip, so the
+    async efficiency (hogwild rate / sync rate) is measured."""
     from sparktorch_tpu_torch.models import resnet18
     from sparktorch_tpu_torch.parallel.mesh import build_mesh
     from sparktorch_tpu_torch.train.hogwild import train_async
@@ -449,7 +462,6 @@ def bench_resnet18_hogwild(device=None) -> dict:
         torch.manual_seed(0)
         spec = _spec(resnet18(num_classes=10), optimizer="sgd",
                      optimizer_params={"lr": 1e-2}, input_shape=(32, 32, 3))
-    iters = 1024
     with _Phase(dev) as p_warm:
         train_async(spec, x, labels=y, iters=8, mini_batch=mb, push_every=4,
                     device=dev)
@@ -472,7 +484,7 @@ def bench_resnet18_hogwild(device=None) -> dict:
                         "final_loss": result.metrics[-1]["loss"]}, budget
 
     with _Phase(dev) as p_measure:
-        runs = sorted([_one_run() for _ in range(5)],
+        runs = sorted([_one_run() for _ in range(max(1, repeats))],
                       key=lambda r: r[0])
         rates = [r[0] for r in runs]
         per_chip, info, budget = runs[len(runs) // 2]
@@ -696,11 +708,12 @@ def bench_resnet50_inference(device=None) -> dict:
     }
 
 
-def bench_long_context_lm(device=None) -> dict:
+def bench_long_context_lm(device=None, repeats: int = 5) -> dict:
     """Causal-LM training at s = 8192 through the flash kernels and the
     fused cross-entropy (no (s, s) logits and no softmax over the
     vocabulary in HBM), plus a dense-vs-flash step-time comparison at a
-    length dense attention can hold (s = 2048)."""
+    length dense attention can hold (s = 2048). ``repeats``: slope
+    samples of each leg (the JAX bench's 5)."""
     from sparktorch_tpu_torch.models import CausalLM
     from sparktorch_tpu_torch.models.transformer import TransformerConfig
 
@@ -718,7 +731,8 @@ def bench_long_context_lm(device=None) -> dict:
 
     ids = rng.integers(0, vocab, (batch, seq + 1)).astype(np.int32)
     out = _sync_epoch_bench(spec_for("flash", seq), ids[:, :-1], ids[:, 1:],
-                            batch, iters=6, warmup=2, chunks=2, device=device)
+                            batch, iters=6, warmup=2, chunks=2,
+                            repeats=repeats, device=device)
     tokens_per_sec = out["examples_per_sec_per_chip"] * seq
 
     cmp_seq = 2048
@@ -727,7 +741,7 @@ def bench_long_context_lm(device=None) -> dict:
     for attn in ("dense", "flash"):
         r = _sync_epoch_bench(spec_for(attn, cmp_seq), ids_c[:, :-1],
                               ids_c[:, 1:], batch, iters=6, warmup=2,
-                              chunks=2, device=device)
+                              chunks=2, repeats=repeats, device=device)
         cmp[attn] = r["step_time_p50_s"]
         cmp_steps[attn] = r["steps_run"]
     return {
@@ -741,6 +755,47 @@ def bench_long_context_lm(device=None) -> dict:
     }
 
 
+def bench_moe_lm(device=None, repeats: int = 5) -> dict:
+    """The JAX bench's ``moe_lm``: a switch-style (top-1) MoE causal LM
+    on one card — vocab 32,768, d 512, 8 heads, 4 layers, d_ff 2,048, 8
+    experts on every second layer, s = 1,024, batch 8, dense attention,
+    AdamW 3e-4 — and its dense twin (``n_experts=0``): tokens/s and the
+    MoE/dense step-time ratio. Both legs take the fused cross-entropy.
+    ``repeats``: slope samples of each leg (the JAX bench's 5)."""
+    from sparktorch_tpu_torch.models import CausalLM
+    from sparktorch_tpu_torch.models.transformer import TransformerConfig
+
+    _resolve_device(device)
+    rng = np.random.default_rng(0)
+    vocab, batch, seq = 32768, 8, 1024
+
+    def spec_for(n_experts: int):
+        cfg = TransformerConfig(vocab_size=vocab, d_model=512, n_heads=8,
+                                n_layers=4, d_ff=2048, max_len=seq,
+                                n_experts=n_experts, moe_every=2)
+        torch.manual_seed(0)
+        return _spec(CausalLM(cfg), optimizer="adamw",
+                     optimizer_params={"lr": 3e-4})
+
+    ids = rng.integers(0, vocab, (batch, seq + 1)).astype(np.int32)
+    moe = _sync_epoch_bench(spec_for(8), ids[:, :-1], ids[:, 1:], batch,
+                            iters=6, warmup=2, chunks=2, repeats=repeats,
+                            device=device)
+    dense = _sync_epoch_bench(spec_for(0), ids[:, :-1], ids[:, 1:], batch,
+                              iters=6, warmup=2, chunks=2, repeats=repeats,
+                              device=device)
+    return {
+        "config": "moe_lm", "unit": "tokens/sec/chip",
+        "n_experts": 8, "seq_len": seq,
+        "tokens_per_sec_per_chip": round(
+            moe["examples_per_sec_per_chip"] * seq, 1),
+        "moe_vs_dense_step_ratio": round(
+            moe["step_time_p50_s"] / dense["step_time_p50_s"], 3),
+        "steps_run_dense": dense["steps_run"],
+        **moe,
+    }
+
+
 CONFIGS: Dict[str, Callable[[], dict]] = {
     "mnist_mlp_sync": bench_mnist_mlp_sync,
     "mnist_cnn_sync": bench_mnist_cnn_sync,
@@ -749,6 +804,7 @@ CONFIGS: Dict[str, Callable[[], dict]] = {
     "bert_dp": bench_bert_dp,
     "resnet50_inference": bench_resnet50_inference,
     "long_context_lm": bench_long_context_lm,
+    "moe_lm": bench_moe_lm,
 }
 
 

@@ -14,7 +14,14 @@ whose submodules carry the Flax names. The layouts:
 - LayerNorm and BatchNorm ``scale``/``bias`` → ``weight``/``bias``;
 - ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``;
 - ``embedding`` → ``weight``; ``pos_embed`` as it is;
-- ``layer_<i>`` → ``layers.<i>``.
+- ``layer_<i>`` → ``layers.<i>``;
+- an MoE layer's ``router`` kernel as every Dense kernel; its
+  ``moe_w_in``, ``moe_b_in``, ``moe_w_out`` and ``moe_b_out`` (no
+  ``kernel`` leaves) as they are.
+
+The write-only collections an MoE model sows (``losses``,
+``moe_metrics``; ``init`` returns them) hold no weights and are left
+out.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, Any]:
 
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_SOWN = ("losses", "moe_metrics", "intermediates")
 
 
 def _convert_leaf(collection: str, path: tuple, value) -> tuple:
@@ -88,6 +96,8 @@ def state_dict_from_flax(variables: Mapping, target: Union[
     expected = {k: tuple(v.shape) for k, v in target.state_dict().items()}
     out = {}
     for collection, tree in variables.items():
+        if collection in _SOWN:
+            continue
         for path, value in _flatten(tree).items():
             key, arr = _convert_leaf(collection, path, value)
             if key not in expected:

@@ -56,6 +56,7 @@ import torch
 
 from sparktorch_tpu_torch.inference import _resolve_device
 from sparktorch_tpu_torch.ml.estimator import _not_ported
+from sparktorch_tpu_torch.models.transformer import collect_moe
 from sparktorch_tpu_torch.net.transport import (
     BinaryTransport,
     new_phase_stats,
@@ -67,6 +68,7 @@ from sparktorch_tpu_torch.serve.param_server import (
     as_tensor,
     build_module,
 )
+from sparktorch_tpu_torch.train.step import forward
 from sparktorch_tpu_torch.train.sync import TrainResult
 from sparktorch_tpu_torch.utils.data import (
     DataBatch,
@@ -204,8 +206,10 @@ def make_grad_window(loss_fn: Callable, mini_batch: Optional[int], k: int):
     minibatch gradient steps (each a contiguous block at a random
     offset when ``mini_batch`` is below the shard size) on the same
     parameters, the mean of their weighted-mean gradients, and the k
-    losses. The grads are new tensors the worker never touches again,
-    so they may sit in the server's queue."""
+    losses. Each loss holds an MoE model's load-balance loss, and the
+    batch's weights mask its weight-0 rows out of routing. The grads are
+    new tensors the worker never touches again, so they may sit in the
+    server's queue."""
 
     def grad_window(module, shard: DataBatch, generator):
         module.zero_grad(set_to_none=True)
@@ -214,8 +218,13 @@ def make_grad_window(loss_fn: Callable, mini_batch: Optional[int], k: int):
             batch = shard
             if mini_batch and 0 < mini_batch < shard.size:
                 batch = sample_minibatch(shard, generator, mini_batch)
-            per = loss_fn(module(batch.x), batch.y)
+            with collect_moe() as moe:
+                preds = forward(module, batch.x, batch.w)
+            per = loss_fn(preds, batch.y)
             loss = (per * batch.w).sum() / batch.w.sum().clamp_min(1.0)
+            aux = moe.aux_total()  # MoE load balance, as the sync step
+            if aux is not None:
+                loss = loss + aux.to(loss.dtype)
             loss.backward()  # accumulates into .grad
             losses.append(loss.detach())
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))

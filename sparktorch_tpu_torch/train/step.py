@@ -21,16 +21,27 @@ optimizers that act without a gradient (AdamW's decay) act on it as
 optax does, and every rank reduces the same layout. Nothing here reads
 a value back to the host: the step returns its metrics as device
 scalars.
+
+Mixture-of-experts models: a module whose ``forward`` takes
+``example_w`` gets the batch's weights (MoE routing masks the weight-0
+rows out), and the forward runs inside
+:func:`~sparktorch_tpu_torch.models.transformer.collect_moe`. The
+layers' load-balance losses join the objective as the JAX step adds its
+sown losses, ``num = Σ w·ℓ + aux·den``, and their (dropped, routed)
+counts ride in the same all-reduce; ``drop_fraction`` is dropped /
+max(routed, 1), None for a model without MoE layers.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from sparktorch_tpu_torch.models.transformer import collect_moe
 from sparktorch_tpu_torch.utils.data import DataBatch, sample_minibatch
 
 
@@ -38,6 +49,23 @@ class StepMetrics(NamedTuple):
     loss: torch.Tensor       # weighted-mean train loss
     examples: torch.Tensor   # real (weight > 0 sum) examples this step
     grad_norm: torch.Tensor  # global L2 norm of the averaged gradients
+    # dropped / routed MoE token-choices; None without MoE layers
+    drop_fraction: Optional[torch.Tensor] = None
+
+
+def accepts_example_w(module: nn.Module) -> bool:
+    """Whether ``module.forward`` takes per-example weights
+    (``example_w``), the hook MoE models use to mask weight-0 rows out
+    of routing (the JAX step's ``_accepts_example_w``)."""
+    try:
+        return "example_w" in inspect.signature(module.forward).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def forward(module: nn.Module, x: torch.Tensor, w: torch.Tensor):
+    """``module(x)``, with ``example_w=w`` where the module takes it."""
+    return module(x, example_w=w) if accepts_example_w(module) else module(x)
 
 
 def batchnorm_stats(module: nn.Module) -> List[torch.Tensor]:
@@ -72,9 +100,16 @@ def train_step(module: nn.Module, loss_fn: Callable,
     if mini_batch is not None and mini_batch < batch.size:
         mb = sample_minibatch(batch, generator, mini_batch)
     optimizer.zero_grad(set_to_none=True)
-    per = loss_fn(module(mb.x), mb.y)
-    num = (per * mb.w).sum()
+    # The block closes before the backward, so a remat layer recomputed
+    # there records nothing a second time.
+    with collect_moe() as moe:
+        preds = forward(module, mb.x, mb.w)
+    per = loss_fn(preds, mb.y)
     den = mb.w.sum()
+    num = (per * mb.w).sum()
+    aux = moe.aux_total()
+    if aux is not None:
+        num = num + aux.to(num.dtype) * den
     num.backward()
 
     grads = []
@@ -85,10 +120,12 @@ def train_step(module: nn.Module, loss_fn: Callable,
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
     num = num.detach()
+    counts = moe.counts()  # (dropped, routed), f32
     if group is not None:
         sums = torch.stack([num, den.to(num.dtype)])
         stats = batchnorm_stats(module) if module.training else []
-        all_reduce_sums([sums, *grads, *stats], group)
+        extra = [] if counts is None else [counts]
+        all_reduce_sums([sums, *extra, *grads, *stats], group)
         num, den = sums[0], sums[1].to(den.dtype)
         if stats:
             torch._foreach_div_(stats, float(dist.get_world_size(group)))
@@ -96,8 +133,10 @@ def train_step(module: nn.Module, loss_fn: Callable,
     torch._foreach_div_(grads, safe_den)
     grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     optimizer.step()
-    return StepMetrics(loss=num / safe_den, examples=den,
-                       grad_norm=grad_norm)
+    return StepMetrics(
+        loss=num / safe_den, examples=den, grad_norm=grad_norm,
+        drop_fraction=None if counts is None
+        else counts[0] / counts[1].clamp_min(1.0))
 
 
 @torch.no_grad()
@@ -109,7 +148,8 @@ def eval_step(module: nn.Module, loss_fn: Callable,
     was_training = module.training
     module.eval()
     try:
-        per = loss_fn(module(batch.x), batch.y)
+        # Weight-0 rows stay out of MoE routing; no aux loss is added.
+        per = loss_fn(forward(module, batch.x, batch.w), batch.y)
     finally:
         module.train(was_training)
     num = (per * batch.w).sum()

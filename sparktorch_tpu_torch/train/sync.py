@@ -42,9 +42,11 @@ their seeds, as the reference's do, so a resumed run equals the
 straight one on full-batch runs.
 
 Records have the JAX package's keys: ``round, iter, loss, val_loss,
-examples, grad_norm, step_time_s``. Not ported yet (ROADMAP, Queue 1):
-meshes with axes other than ``dp``, pipeline parallelism, and the
-chaos, goodput, health and profiler hooks.
+examples, grad_norm, step_time_s``, and ``moe_drop_fraction`` for a
+model with MoE layers (not in the streaming trainer's records, as in the
+JAX package; its loss holds the aux loss all the same). Not ported yet
+(ROADMAP, Queue 1): meshes with axes other than ``dp``, pipeline
+parallelism, and the chaos, goodput, health and profiler hooks.
 """
 
 from __future__ import annotations
@@ -338,12 +340,14 @@ def train_distributed(
                 t0 = time.perf_counter()
                 steps = _dp_steps(n, module, loss_fn, optimizer, shards, mesh,
                                   mini_batch, sample_gen)
-                # The chunk's one read-back: (n, 3) loss, examples, grad norm.
-                host = torch.stack([torch.stack(m) for m in steps]).tolist()
+                # The chunk's one read-back: (n, 3) loss, examples, grad
+                # norm, and the MoE drop fraction where the model has one.
+                host = torch.stack([torch.stack([v for v in m if v is not None])
+                                    for m in steps]).tolist()
                 dt = (time.perf_counter() - t0) / n
                 val_loss = (float(eval_step(module, loss_fn, val_batch, group))
                             if val_batch is not None else None)
-                for loss, examples, gnorm in host:
+                for loss, examples, gnorm, *drop in host:
                     record = {
                         "round": shuffle_round,
                         "iter": i,
@@ -353,6 +357,8 @@ def train_distributed(
                         "grad_norm": gnorm,
                         "step_time_s": dt,
                     }
+                    if drop:
+                        record["moe_drop_fraction"] = drop[0]
                     recorder.record(record)
                     if metrics_hook is not None:
                         metrics_hook(record)

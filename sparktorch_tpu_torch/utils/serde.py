@@ -89,12 +89,20 @@ def _adagrad(params, learning_rate, **kw):
     return optim.Adagrad(params, lr=learning_rate, **kw)
 
 
-def _not_ported(name: str):
-    def build(params, **kw):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP, Queue 1: the "
-            "optax-only optimizers adafactor, lamb and lion)")
-    return build
+def _adafactor(params, learning_rate=None, **kw):
+    # optax's adafactor takes no learning rate by default (the update is
+    # then scaled by the parameter's RMS alone).
+    return optim.Adafactor(params, lr=learning_rate, **kw)
+
+
+# lamb and lion have no torch.optim default learning rate: a missing one
+# raises a TypeError, as optax's constructors do.
+def _lamb(params, learning_rate, **kw):
+    return optim.Lamb(params, lr=learning_rate, **kw)
+
+
+def _lion(params, learning_rate, **kw):
+    return optim.Lion(params, lr=learning_rate, **kw)
 
 
 OPTIMIZER_REGISTRY: dict[str, Callable[..., torch.optim.Optimizer]] = {
@@ -103,9 +111,9 @@ OPTIMIZER_REGISTRY: dict[str, Callable[..., torch.optim.Optimizer]] = {
     "adamw": _adamw,
     "rmsprop": _rmsprop,
     "adagrad": _adagrad,
-    "adafactor": _not_ported("adafactor"),
-    "lamb": _not_ported("lamb"),
-    "lion": _not_ported("lion"),
+    "adafactor": _adafactor,
+    "lamb": _lamb,
+    "lion": _lion,
     # torch.optim class-name spellings.
     "SGD": _sgd,
     "Adam": _adam,

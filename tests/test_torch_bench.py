@@ -134,9 +134,9 @@ def test_config_choices_and_unported_options():
     assert set(bench.CONFIGS) == set(bench.RECORD_KEYS) == {
         "mnist_mlp_sync", "mnist_cnn_sync", "lazy_cnn_sync",
         "resnet18_hogwild", "bert_dp", "resnet50_inference",
-        "long_context_lm"}
+        "long_context_lm", "moe_lm"}
     with pytest.raises(SystemExit):
-        bench.main(["--config", "moe_lm"])
+        bench.main(["--config", "moe_a2a"])  # needs an ep mesh axis
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
         bench.main(["--config", "all", "--telemetry-dump", "x.jsonl"])
     assert bench.mfu_honest(98.9) == pytest.approx(0.1)

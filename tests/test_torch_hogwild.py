@@ -94,6 +94,44 @@ def test_single_worker_matches_jax(kind, optimizer, params, tol):
                                    atol=tol, rtol=tol, err_msg=key)
 
 
+def test_single_worker_moe_lm_matches_jax():
+    # An MoE LM through the parameter server: each worker loss holds the
+    # layers' load-balance loss, and the batch's weights reach the
+    # routing, as the JAX worker's grad step has them.
+    from sparktorch_tpu.models import transformer as jax_tf
+    from sparktorch_tpu_torch.models import transformer as torch_tf
+
+    cfg = dict(vocab_size=128, d_model=32, n_heads=2, n_layers=2, d_ff=64,
+               max_len=32, n_experts=4, moe_every=2, dtype="float32",
+               moe_group_size=24, moe_top_k=2, moe_aux_weight=0.1)
+    jax_model = jax_tf.CausalLM(jax_tf.TransformerConfig(**cfg))
+    variables = jax.device_get(jax_model.init(jax.random.key(0),
+                                              jnp.zeros((1, 16))))
+    module = torch_tf.CausalLM(torch_tf.TransformerConfig(**cfg))
+    module.load_state_dict(state_dict_from_flax(variables, module))
+    kw = dict(criterion="cross_entropy", optimizer="sgd",
+              optimizer_params={"lr": 0.5}, input_shape=(16,))
+    ids = np.random.default_rng(2).integers(0, 128, (6, 17))
+    x, y = ids[:, :-1].astype(np.float32), ids[:, 1:].astype(np.int32)
+    want = jax_train_async(jax_pkg.serialize_torch_obj(jax_model, **kw), x,
+                           labels=y, iters=4, partitions=1)
+    got = train_async(port.serialize_torch_obj(module, **kw), x, labels=y,
+                      iters=4, partitions=1, device="cpu")
+    # The JAX server keeps the aux loss its init sowed in the model
+    # state it hands the workers (serve/param_server.py:90-93), so each
+    # JAX worker loss carries that constant too; it has no gradient.
+    stale = float(sum(np.sum(v) for v in
+                      jax.tree.leaves(variables["losses"])))
+    assert stale > 0
+    np.testing.assert_allclose([r["loss"] + stale for r in got.metrics],
+                               [r["loss"] for r in want.metrics],
+                               atol=1e-5, rtol=1e-5)
+    expected = state_dict_from_flax(_flax_state(want), module)
+    for key, value in got.params.items():
+        np.testing.assert_allclose(value.numpy(), expected[key].numpy(),
+                                   atol=2e-5, rtol=2e-5, err_msg=key)
+
+
 def _mean(records, first, last):
     losses = [r["loss"] for r in sorted(records, key=lambda r: r["t"])]
     return np.mean(losses[:first]), np.mean(losses[-last:])

@@ -89,5 +89,19 @@ def test_convert_rejects_bad_params(fault):
 
 
 def test_moe_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_tf.SequenceClassifier(torch_tf.tiny_transformer(n_experts=4))
+    # Ported now: an MoE classifier (4 experts on every second layer)
+    # builds, takes the JAX weights whole (``init``'s sown collections
+    # included) and gives the JAX logits with flash attention.
+    cfg = dict(n_experts=4, dtype="float32", attn_impl="flash")
+    jax_model = jax_tf.SequenceClassifier(jax_tf.tiny_transformer(**cfg))
+    ids = np.random.default_rng(1).integers(0, 256, (2, 128)).astype(np.int32)
+    variables = jax.device_get(jax_model.init(jax.random.key(0),
+                                              jnp.asarray(ids)))
+    assert "losses" in variables
+    model = torch_tf.SequenceClassifier(torch_tf.tiny_transformer(**cfg))
+    model.load_state_dict(state_dict_from_flax(variables, model))
+    want = np.asarray(jax_model.apply({"params": variables["params"]},
+                                      jnp.asarray(ids)))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
