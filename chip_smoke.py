@@ -13,7 +13,8 @@ the CPU path):
 2. build: every kernel under ``sparktorch_tpu_torch/ops/csrc`` built with
    ``nvcc`` from the checkout's sources, all sources at once;
 3. kernels: each kernel against its plain PyTorch version on the same
-   seeded inputs, at the shapes its paths give it and a few more, with
+   seeded inputs, at the shapes its paths give it (the forward also at
+   the serving tier's buckets of 1, 8 and 32 rows) and a few more, with
    its time beside the plain version's, the library call's and the
    bound (the least time the card could take): the flash forward
    (library: SDPA), the flash backward's dq and dk/dv kernels (library:
@@ -119,10 +120,26 @@ the CPU path):
    pushes, the loss falling; (e) a Pipeline holding (a)'s model saved and
    loaded through the carrier, its predictions (b)'s bit for bit; (f)
    ``setMesh`` on a world-of-one mesh bit for bit. Without pandas, (b),
-   (e) and (f) print that they are skipped.
+   (e) and (f) print that they are skipped;
+16. serve_online: the online serving tier — (a) the bench's
+   ``serve_online`` (``bench.CONFIGS``, the JAX depth: 300 Poisson
+   requests a leg, legs twice, the replica kill, the weight push) with
+   every gate holding, its drift ``no_prior_record``; (b) BERT-base
+   (flash, bf16 compute, seeded) behind ``InferenceTier(n_replicas=2)``
+   with buckets (1, 8, 32): 300 open-loop single-row requests of 128
+   ids at twice the serial capacity of ``BatchPredictor``, the same
+   schedule for the serial leg, every request completed, rows within
+   5e-2·max(1, max|logit|) of dense attention and 2e-2·max(1,
+   max|logit|) of ``BatchPredictor.predict``, 12 forward launches a
+   batch exactly, one batch of each bucket under torch.profiler; (c) a
+   weight push from a ``ParameterServer`` over ``ParamServerHttp`` to
+   both replicas' ``WeightPuller``s (poll 0.05 s) under a background
+   load: staleness within 20 polls + 1 s, each replica at the server's
+   version and serving its newest weights within 2e-2·max(1,
+   max|logit|), the swaps' ``install_params`` seconds printed.
 
-No kernel of KERNELS lies on phases 8, 11–14, on 15 (c), (d) and on
-the moe phase's (d): each expects 0 launches. Phase 15 runs after every kernel is built, so its
+No kernel of KERNELS lies on phases 8, 11–14, on 15 (c), (d), on 16
+(a) and on the moe phase's (d): each expects 0 launches. Phase 15 runs after every kernel is built, so its
 executor processes load the built kernels.
 The total wall time prints before the last two lines.
 Snapshots, the Parquet file and traces go to ``.chip_smoke_tmp/`` beside
@@ -244,6 +261,12 @@ MOE_OPTIMIZERS = [("adafactor", {}), ("lamb", {"lr": 1e-3}),
 BENCH_DEPTH = {"resnet18_hogwild": dict(iters=256, repeats=3),
                "long_context_lm": dict(repeats=2),
                "moe_lm": dict(repeats=2)}
+# The serving tier's phase: BERT-base (flash, bf16 compute) behind an
+# InferenceTier of SERVE_REPLICAS replicas with buckets SERVE_BUCKETS,
+# SERVE_REQUESTS open-loop single-row requests of SERVE_SEQ ids at twice
+# the serial capacity; the weight push's pullers poll every SERVE_POLL_S.
+SERVE_REPLICAS, SERVE_BUCKETS, SERVE_SEQ = 2, (1, 8, 32), 128
+SERVE_REQUESTS, SERVE_POLL_S = 300, 0.05
 # Snapshots, the Parquet file and traces, deleted when each phase ends.
 SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        ".chip_smoke_tmp")
@@ -379,6 +402,10 @@ def kernel_phase(torch):
         ("LM training forward", LM_BATCH, LM_SEQ, 8, 64, True, bf16, True,
          True),
         ("slice b=8", 8, 128, 12, 64, False, bf16, False, False),
+        # The serving tier's buckets: a batch of 1, 8 or 32 rows.
+        ("bucket b=1", 1, SERVE_SEQ, 12, 64, False, bf16, False, True),
+        ("bucket b=8", 8, SERVE_SEQ, 12, 64, False, bf16, False, True),
+        ("bucket b=32", 32, SERVE_SEQ, 12, 64, False, bf16, False, True),
         ("max_len pass", 256, 512, 12, 64, False, bf16, False, True),
         ("long causal lse", 2, 2048, 16, 128, True, bf16, True, False),
         ("ragged causal", 4, 1000, 12, 64, True, bf16, False, False),
@@ -1765,15 +1792,17 @@ def bench_counts(name, rec):
 
 def bench_phase(torch):
     """The configs of ``bench.CONFIGS`` (the port's benchmark entry; those
-    of BENCH_DEPTH at a cut depth), each record printed on a line of its
-    own and held to the JAX config's keys less the documented omissions,
-    with the launches it made."""
+    of BENCH_DEPTH at a cut depth) but ``serve_online``, which its own
+    phase runs, each record printed on a line of its own and held to the
+    JAX config's keys less the documented omissions, with the launches
+    it made."""
     import gc
 
     from sparktorch_tpu_torch import bench
 
     records, counts = {}, {}
-    for i, (name, config) in enumerate(bench.CONFIGS.items()):
+    configs = {k: v for k, v in bench.CONFIGS.items() if k != "serve_online"}
+    for i, (name, config) in enumerate(configs.items()):
         if i:
             gc.collect()
             torch.cuda.empty_cache()
@@ -2763,6 +2792,264 @@ def spark_phase(torch):
     return counts, out
 
 
+def serve_online_phase(torch):
+    """The online serving tier: (a) the bench's ``serve_online`` at the
+    JAX depth, every gate holding; (b) BERT-base through an
+    ``InferenceTier`` of 2 replicas under open-loop Poisson load at twice
+    the serial capacity, against the serial ``BatchPredictor`` on the
+    same schedule, one batch of each bucket profiled; (c) a weight push
+    from a ``ParameterServer`` over ``ParamServerHttp`` reaching both
+    replicas' pullers within the staleness bound."""
+    from sparktorch_tpu_torch import bench
+    from sparktorch_tpu_torch.inference import BatchPredictor
+    from sparktorch_tpu_torch.models import bert_base
+    from sparktorch_tpu_torch.net.transport import BinaryTransport
+    from sparktorch_tpu_torch.obs import Telemetry
+    from sparktorch_tpu_torch.serve.param_server import (
+        ParameterServer,
+        ParamServerHttp,
+    )
+    from sparktorch_tpu_torch.serve.router import InferenceTier
+    from sparktorch_tpu_torch.utils.serde import ModelSpec
+
+    t_phase = time.perf_counter()
+    counts, out = {}, {}
+
+    # (a) the bench's serve_online at the JAX depth: no kernel runs.
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = bench.CONFIGS["serve_online"]()
+    wall = time.perf_counter() - t0
+    counts["serve_online_bench"] = read_counts()
+    log(json.dumps(rec))
+    expect_counts("serve_online (a) bench", counts["serve_online_bench"],
+                  NO_KERNELS)
+    jax_keys, omitted, added = bench.RECORD_KEYS["serve_online"]
+    if set(rec) != (jax_keys - omitted) | added:
+        raise AssertionError(f"serve_online (a): keys {sorted(rec)}")
+    if rec["serve_drift"]["status"] != "no_prior_record":
+        raise AssertionError(f"serve_online (a): drift {rec['serve_drift']}")
+    log(f"serve_online (a) bench: throughput x{rec['throughput_ratio']} "
+        f"({rec['continuous']['rows_per_s']} vs {rec['baseline']['rows_per_s']}"
+        f" rows/s), p99 x{rec['p99_ratio']} ({rec['continuous']['p99_ms']} vs "
+        f"{rec['baseline']['p99_ms']} ms), serial {rec['serial_service_ms']} "
+        f"ms, staleness {rec['weight_push']['staleness_s']} s; {wall:.1f} s")
+    out["bench"] = rec
+
+    # (b) BERT-base behind a tier of two replicas on the card.
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        module = bert_base(attn_impl="flash")
+        dense = bert_base(attn_impl="dense")
+    dense.load_state_dict(module.state_dict())
+    cfg = module.config
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size,
+                       (SERVE_REQUESTS, SERVE_SEQ)).astype(np.int64)
+    serial = BatchPredictor(module, device="cuda", chunk=SERVE_BUCKETS[-1],
+                            telemetry=Telemetry(run_id="serve_serial"))
+    serial.predict(ids[:1])
+    svc = []
+    for i in range(30):
+        t0 = time.perf_counter()
+        serial.predict(ids[i:i + 1])
+        svc.append(time.perf_counter() - t0)
+    svc_s = float(np.median(svc))
+    arrivals = np.cumsum(rng.exponential(svc_s / 2.0, SERVE_REQUESTS))
+    lock = threading.Lock()
+
+    def serial_submit(x):
+        with lock:
+            return serial.predict(x)
+
+    serial_leg = bench.poisson_leg(serial_submit, ids, arrivals)
+
+    tele = Telemetry(run_id="serve_tier")
+    t0 = time.perf_counter()
+    tier = InferenceTier(module, n_replicas=SERVE_REPLICAS,
+                         telemetry=tele, buckets=SERVE_BUCKETS,
+                         max_queue_rows=1024, warm_input=ids[:1],
+                         probe_interval_s=0.05, device="cuda")
+    build_s = time.perf_counter() - t0
+
+    def batches():
+        return sum(tele.counter_value("serve.batches_total", {"replica": r})
+                   for r in tier.replicas)
+
+    try:
+        outs = [None] * SERVE_REQUESTS
+        reset_counts()
+        tier_leg = bench.poisson_leg(
+            lambda x: tier.submit(x, deadline_s=60.0), ids, arrivals, outs)
+        counts["serve_online_tier"] = read_counts()
+        n_batches = batches()
+        expect_counts("serve_online (b) tier", counts["serve_online_tier"],
+                      dict(NO_KERNELS, flash_fwd=cfg.n_layers * int(n_batches)))
+        for name, leg in (("serial", serial_leg), ("tier", tier_leg)):
+            if leg["errors"] or leg["completed"] != SERVE_REQUESTS:
+                raise AssertionError(
+                    f"serve_online (b) {name} leg: {leg['completed']}/"
+                    f"{SERVE_REQUESTS} completed, {leg['errors']} errors "
+                    f"{leg['error_samples']}")
+        got = np.concatenate(outs)
+        want_dense = BatchPredictor(dense, device="cuda", chunk=CHUNK
+                                    ).predict(ids)
+        want_serial = serial.predict(ids)
+        if got.shape != want_dense.shape or not np.isfinite(got).all():
+            raise AssertionError(f"serve_online (b): logits {got.shape}")
+        diffs = {}
+        for name, want, tol in (("dense attention", want_dense, 5e-2),
+                                ("BatchPredictor", want_serial, 2e-2)):
+            diff = float(np.abs(got - want).max())
+            limit = tol * max(1.0, float(np.abs(want).max()))
+            diffs[name] = (diff, limit)
+            log(f"serve_online (b): {SERVE_REQUESTS} served rows vs {name}: "
+                f"max abs diff {diff:.3e} (limit {limit:.3e})")
+            if not diff <= limit:
+                raise AssertionError(f"serve_online (b): rows disagree with "
+                                     f"{name}")
+        fills = [tele.histogram("serve.batch_fill", {"replica": r})["p50"]
+                 for r in tier.replicas]
+        depths = [tele.histogram("serve.queue_depth", {"replica": r})["p99"]
+                  for r in tier.replicas]
+        log(f"serve_online (b) BERT-base, {SERVE_REPLICAS} replicas, buckets "
+            f"{SERVE_BUCKETS}, {SERVE_REQUESTS} requests of {SERVE_SEQ} ids "
+            f"at {2 / svc_s:,.1f}/s (serial one-row predict "
+            f"{svc_s * 1e3:.3f} ms): tier {tier_leg['rows_per_s']:,.1f} rows/s,"
+            f" p50 {tier_leg['p50_ms']:.2f} ms, p99 {tier_leg['p99_ms']:.2f} "
+            f"ms; serial {serial_leg['rows_per_s']:,.1f} rows/s, p50 "
+            f"{serial_leg['p50_ms']:.2f} ms, p99 {serial_leg['p99_ms']:.2f} ms;"
+            f" {int(n_batches)} batches, serve.batch_fill p50 by replica "
+            f"{fills}, serve.queue_depth p99 by replica {depths}; tier built "
+            f"and warmed in {build_s:.2f} s")
+        out["tier"] = dict(serial_ms=svc_s * 1e3, serial=serial_leg,
+                           tier=tier_leg, batches=n_batches,
+                           batch_fill_p50=fills, queue_depth_p99=depths,
+                           diffs=diffs, build_s=build_s)
+
+        # One batch of each bucket under the profiler (idle replicas: a
+        # request of b rows is one batch of bucket b).
+        replica = tier.replicas["0"]
+        out["profile"] = {}
+        for b in SERVE_BUCKETS:
+            out["profile"][b] = profile_pass(
+                torch, f"serve_online one batch of bucket {b}",
+                lambda: replica.infer(ids[:b]))
+
+        # (c) a weight push from a parameter server over the wire.
+        torch.manual_seed(1)
+        with torch.device("cuda"):
+            newer = bert_base(attn_impl="flash")
+        server = ParameterServer(ModelSpec(
+            module=newer, loss="cross_entropy", optimizer="sgd",
+            optimizer_params={"lr": 1e-3}, input_shape=(SERVE_SEQ,)),
+            device="cuda")
+        http = ParamServerHttp(server, port=0).start()
+        try:
+            t0 = time.perf_counter()
+            tier.start_pullers(lambda: BinaryTransport(http.url, quant=None),
+                               poll_s=SERVE_POLL_S)
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline and any(
+                    tele.counter_value("serve.weight_updates_total",
+                                       {"replica": r}) < 1
+                    for r in tier.replicas):
+                time.sleep(0.01)
+            first_sync_s = time.perf_counter() - t0
+            stop_load = threading.Event()
+            load_errors = []
+
+            def background_load():
+                i = 0
+                while not stop_load.is_set():
+                    try:
+                        tier.submit(ids[i % SERVE_REQUESTS][None], 30.0)
+                    except Exception as e:  # noqa: BLE001 - checked below
+                        load_errors.append(repr(e))
+                    i += 1
+                    time.sleep(0.005)
+
+            reset_counts()
+            b0 = batches()
+            loader = threading.Thread(target=background_load, daemon=True)
+            loader.start()
+            time.sleep(0.3)
+            _, params0 = server.slot.read()
+            server.push_gradients({k: torch.ones_like(v)
+                                   for k, v in params0.items()}, wait=True)
+            pushed = server.slot.version
+            t_push = time.monotonic()
+            bound = 20 * SERVE_POLL_S + 1.0
+            staleness = {}
+            while (len(staleness) < SERVE_REPLICAS
+                   and time.monotonic() < t_push + bound + 30.0):
+                for rid, r in tier.replicas.items():
+                    if rid not in staleness and r.params_version >= pushed:
+                        staleness[rid] = time.monotonic() - t_push
+                time.sleep(0.01)
+            stop_load.set()
+            loader.join(timeout=60)
+            counts["serve_online_push"] = read_counts()
+            pushed_batches = batches() - b0
+            expect_counts("serve_online (c) push under load",
+                          counts["serve_online_push"],
+                          dict(NO_KERNELS, flash_fwd=cfg.n_layers
+                               * int(pushed_batches)))
+            installs = [tele.histogram("serve.weight_install_s",
+                                       {"replica": r}) for r in tier.replicas]
+            # A fresh poll: the pull of the whole model over the wire, its
+            # decode and the install.
+            polls = [tele.histogram("serve.weight_poll_s", {"replica": r})
+                     for r in tier.replicas]
+            log(f"serve_online (c) push: both replicas' pullers at version "
+                f"{[r.params_version for r in tier.replicas.values()]} "
+                f"(server {server.slot.version}); staleness {staleness} s "
+                f"(bound {bound:.2f} s); install_params (update_params: the "
+                f"module's deep copy and the load) {[round(h['max'], 4) for h in installs]} "
+                f"s max, {[round(h['p50'], 4) for h in installs]} s p50 by "
+                f"replica over {[h['count'] for h in installs]} swaps; the "
+                f"slowest poll (pull, decode, install) "
+                f"{[round(h['max'], 4) for h in polls]} s by replica; first "
+                f"sync {first_sync_s:.2f} s; {int(pushed_batches)} batches "
+                f"under the background load, {len(load_errors)} errors")
+            if load_errors:
+                raise AssertionError(f"serve_online (c): {load_errors[:3]}")
+            if len(staleness) < SERVE_REPLICAS or max(
+                    staleness.values()) > bound:
+                raise AssertionError(f"serve_online (c): staleness "
+                                     f"{staleness} past {bound} s")
+            _, newest = server.slot.read()
+            newer.load_state_dict(newest)
+            want = BatchPredictor(newer, device="cuda", chunk=CHUNK
+                                  ).predict(ids[:64])
+            for rid, r in tier.replicas.items():
+                if r.params_version != server.slot.version:
+                    raise AssertionError(f"serve_online (c): replica {rid} at "
+                                         f"{r.params_version}")
+                served = np.concatenate([r.infer(ids[i:i + 8])
+                                         for i in range(0, 64, 8)])
+                diff = float(np.abs(served - want).max())
+                limit = 2e-2 * max(1.0, float(np.abs(want).max()))
+                log(f"serve_online (c): replica {rid}, 64 rows vs "
+                    f"BatchPredictor on the server's newest weights: max abs "
+                    f"diff {diff:.3e} (limit {limit:.3e})")
+                if not diff <= limit:
+                    raise AssertionError(f"serve_online (c): replica {rid} "
+                                         "does not serve the pushed weights")
+            out["push"] = dict(staleness_s=staleness, bound_s=bound,
+                               install_s=[h["max"] for h in installs],
+                               poll_s=[h["max"] for h in polls],
+                               first_sync_s=first_sync_s)
+        finally:
+            http.stop()
+            server.stop()
+    finally:
+        tier.stop()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"serve_online phase: {out['wall_s']:.1f} s")
+    return counts, out
+
+
 START = time.perf_counter()
 
 
@@ -2839,6 +3126,8 @@ def run_phases(torch) -> int:
     done("dp")
     spark_counts, spark = spark_phase(torch)
     done("spark")
+    serve_online_counts, serve_online = serve_online_phase(torch)
+    done("serve_online")
 
     # Each kernel's numbers at its main path's shape: the serving chunk
     # for the forward, the LM training step for the other four.
@@ -2858,6 +3147,8 @@ def run_phases(torch) -> int:
                    "dp": dp_counts[name],
                    **{path: c[name] for path, c in spark_counts.items()},
                    **{path: c[name] for path, c in moe_counts.items()},
+                   **{path: c[name]
+                      for path, c in serve_online_counts.items()},
                    **{path: c[name]
                       for path, c in bench_counts_by_path.items()}}
         cases = main_cases[name]
@@ -2880,7 +3171,8 @@ def run_phases(torch) -> int:
                     "train_lm_resume": lm_resume, "quickstart": quick,
                     "hogwild": hogwild, "serve_resnet50": resnet50_serve,
                     "serve_resnet50_stream": resnet50_stream,
-                    "bench": bench, "dp": dp, "spark": spark, "moe": moe}))
+                    "bench": bench, "dp": dp, "spark": spark, "moe": moe,
+                    "serve_online": serve_online}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,8 +17,11 @@ updates, and Parquet streaming: ``inference.write_rows_parquet``,
 ``inference.stream_parquet_predict``) of the small nets, the MNIST nets,
 the ResNets and the transformer family, with flash attention (forward
 and backward) and the fused cross-entropy as CUDA kernels, plus model
-packaging and pipeline persistence. It imports neither jax nor
-anything of ``sparktorch_tpu``.
+packaging and pipeline persistence, and the online serving tier
+(``serve.infer``, ``serve.router``: continuous-batching replicas behind
+a router, restarts, live weight pulls) with the core of the telemetry
+bus (``obs``) and the ft policies and chaos harness (``ft``). It
+imports neither jax nor anything of ``sparktorch_tpu``.
 """
 
 from sparktorch_tpu_torch.utils.serde import (

@@ -11,8 +11,11 @@ Configs (each keeps the JAX config's sizes, seeds and record keys):
    over a Parquet stream
 
 plus ``mnist_cnn_sync`` (the headline's workload), ``long_context_lm``
-(the flash kernels at s = 8192) and ``moe_lm`` (an 8-expert switch
-causal LM beside its dense twin). Weights are seeded, never pretrained.
+(the flash kernels at s = 8192), ``moe_lm`` (an 8-expert switch
+causal LM beside its dense twin) and ``serve_online`` (the online
+serving tier's gates: continuous batching against the fixed-window
+``BatchPredictor`` under Poisson load, a replica kill, a live weight
+push). Weights are seeded, never pretrained.
 
 The sync configs run :func:`_sync_epoch_bench`: data-parallel over the
 mesh of :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` (the
@@ -40,6 +43,10 @@ Where the records differ from the JAX package's (``RECORD_KEYS`` below):
   its ``comm_s``, ``comm_fraction``, ``overlap_fraction``, ``comm_drift``):
   they come from an analysed XLA capture, which waits for the profiler
   port (ROADMAP, Queue 1, item 10).
+- ``serve_online``'s drift gate compares with the newest prior record,
+  and every prior record is the JAX package's on a TPU (``BENCH_r*.json``,
+  ``benchmarks/``), which may not carry over: its ``serve_drift`` is
+  always ``{"status": "no_prior_record", "tolerance": 0.5}``.
 - Left out: ``resnet50_inference``'s ``measured_run_*`` (long-haul runs
   logged on the TPU rig), the headline's append to ``benchmarks/`` (the
   port writes only where ``--log`` says), ``--telemetry-dump`` (ROADMAP,
@@ -137,6 +144,11 @@ RECORD_KEYS = {
          "comm_fraction", "overlap_fraction", "comm_drift"},
         {"comm_budget", "comm_fraction", "overlap_fraction", "comm_drift"},
         {"steps_run", "steps_run_dense"}),
+    "serve_online": (
+        {"config", "unit", "value", "n_requests", "serial_service_ms",
+         "offered_rate_rps", "throughput_ratio", "p99_ratio",
+         "cont_rows_per_s", "baseline", "continuous", "replica_kill",
+         "weight_push", "serve_drift", "phase_s"}, set(), set()),
 }
 
 
@@ -796,6 +808,396 @@ def bench_moe_lm(device=None, repeats: int = 5) -> dict:
     }
 
 
+def poisson_leg(submit_fn, pool: np.ndarray, arrivals: np.ndarray,
+                outputs: Optional[list] = None) -> dict:
+    """Open-loop load: one single-row request per arrival time (seconds
+    from the start gun), request i carrying row ``i % len(pool)``.
+    Every request thread is PRE-SPAWNED, waits for the gun, sleeps to
+    its own arrival, fires ``submit_fn(row[None])`` and records its own
+    completion latency (arrivals never wait for completions; spawning
+    threads on the clock would make the generator the bottleneck).
+    Failures are collected, never swallowed. ``outputs`` (a list of
+    ``len(arrivals)``) receives each request's result."""
+    import threading
+
+    n_requests = len(arrivals)
+    lats: List[Optional[float]] = [None] * n_requests
+    errors: list = []
+    start = threading.Event()
+    t_ref = [0.0]
+
+    def _fire(i: int) -> None:
+        start.wait()
+        delay = arrivals[i] - (time.perf_counter() - t_ref[0])
+        if delay > 0:
+            time.sleep(delay)
+        t0 = time.perf_counter()
+        try:
+            out = submit_fn(pool[i % len(pool)][None, :])
+            if out.shape[0] != 1:
+                raise ValueError(f"{out.shape[0]} rows for one")
+            lats[i] = time.perf_counter() - t0
+            if outputs is not None:
+                outputs[i] = out
+        except Exception as e:  # noqa: BLE001 - the gates count these
+            errors.append((i, f"{type(e).__name__}: {e}"))
+
+    threads = [threading.Thread(target=_fire, args=(i,), daemon=True)
+               for i in range(n_requests)]
+    for th in threads:
+        th.start()
+    time.sleep(0.05)  # let every thread park on the gun
+    t_ref[0] = time.perf_counter()
+    start.set()
+    for th in threads:
+        th.join(timeout=120)
+    wall = time.perf_counter() - t_ref[0]
+    done = [lat for lat in lats if lat is not None]
+    return {
+        "wall_s": wall,
+        "completed": len(done),
+        "errors": len(errors),
+        "error_samples": [e for _, e in errors[:3]],
+        "rows_per_s": len(done) / max(wall, 1e-9),
+        "p50_ms": float(np.percentile(done, 50)) * 1e3 if done else -1,
+        "p99_ms": float(np.percentile(done, 99)) * 1e3 if done else -1,
+    }
+
+
+def bench_serve_online(device=None, n_requests: int = 300) -> dict:
+    """The online serving gate (the JAX bench's ``serve_online``): the
+    continuous-batching tier must beat the fixed-window tool where it
+    claims to, and survive the faults it claims to — FAILS (raises)
+    otherwise.
+
+    Workload: ``n_requests`` Poisson open-loop single-row requests
+    (seeded exponential interarrivals at 2x the measured serial
+    capacity, so a one-at-a-time server is overloaded; arrivals never
+    wait for completions; :func:`poisson_leg`). The throughput legs serve
+    ``MLP([2048, 2048, 1024, 10])`` over a (512, 512) pool; legs run
+    interleaved x2 and gate on MEDIANS.
+
+    Gates (the JAX bench's, none loosened):
+
+    - the continuous-batching replica behind a router beats a serially
+      dispatched :class:`~sparktorch_tpu_torch.inference.BatchPredictor`
+      on completed rows/s AND p99 request latency under the SAME arrival
+      schedule, with every request completed and none failed;
+    - a seeded replica kill (``ChaosConfig(kill_replica_at={1: 8})``)
+      mid-load drops ZERO requests: the router evicts the victim,
+      re-routes its admissions, the tier restarts it and the router
+      re-admits it, all seen in counters;
+    - a mid-load weight push lands on EVERY replica within the
+      staleness bound (20 poll intervals + 1 s), and the served outputs
+      equal the server's weights' outputs after the swap;
+    - drift: the JAX gate compares with the newest prior
+      ``serve_online`` record, and every prior record is a TPU run of
+      the JAX package, which may not carry over: ``serve_drift`` is
+      always ``no_prior_record``.
+    """
+    import threading
+
+    from sparktorch_tpu_torch import serialize_torch_obj
+    from sparktorch_tpu_torch.ft import ChaosConfig, inject
+    from sparktorch_tpu_torch.ft.policy import FtPolicy, RestartPolicy
+    from sparktorch_tpu_torch.inference import BatchPredictor
+    from sparktorch_tpu_torch.models import MLP, ClassificationNet
+    from sparktorch_tpu_torch.net.transport import BinaryTransport
+    from sparktorch_tpu_torch.obs import Telemetry
+    from sparktorch_tpu_torch.serve.infer import InferenceReplica
+    from sparktorch_tpu_torch.serve.param_server import (
+        ParameterServer,
+        ParamServerHttp,
+    )
+    from sparktorch_tpu_torch.serve.router import InferenceTier, Router
+
+    dev = _resolve_device(device)
+    overload = 2.0
+    rng = np.random.default_rng(0)
+
+    with _Phase(dev) as p_init:
+        # Throughput legs: an MLP big enough that one row costs real
+        # compute, so batching has something to amortize.
+        torch.manual_seed(0)
+        module = MLP(features=[2048, 2048, 1024, 10], in_features=512)
+        xpool = rng.normal(0, 1, (512, 512)).astype(np.float32)
+        # Fault/weight legs: the small classifier the param server
+        # trains (recovery and staleness don't need the big model).
+        clf_module = ClassificationNet(n_classes=2)
+        xsmall = rng.normal(0, 1, (64, 10)).astype(np.float32)
+
+    with _Phase(dev) as p_warm:
+        # Calibrate the SERIAL service time (the fixed-window tool's
+        # capacity) after a warm-up, then pick the arrival rate to
+        # overload it: the gate compares the designs under load.
+        bp = BatchPredictor(module, device=dev, chunk=32,
+                            telemetry=Telemetry(run_id="serve_base"))
+        bp.predict(xpool[:1])
+        svc = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            bp.predict(xpool[:1])
+            svc.append(time.perf_counter() - t0)
+        svc_s = float(np.median(svc))
+        interarrival_s = svc_s / overload
+        arrivals = np.cumsum(rng.exponential(interarrival_s, n_requests))
+
+    def _baseline_leg() -> dict:
+        # The fixed-window tool behind a serial dispatch: one predict
+        # per request, one at a time (no admission queue, no
+        # coalescing).
+        lock = threading.Lock()
+
+        def submit(x):
+            with lock:
+                return bp.predict(x)
+
+        return poisson_leg(submit, xpool, arrivals)
+
+    def _continuous_leg() -> dict:
+        # SAME card, same arrival schedule, ONE replica: the throughput
+        # win must come from admission/coalescing, not extra compute.
+        leg_tele = Telemetry(run_id="serve_cont")
+        replica = InferenceReplica(module, replica_id="0",
+                                   telemetry=leg_tele,
+                                   buckets=(1, 8, 32),
+                                   max_queue_rows=1024,
+                                   warm_input=xpool[:1], device=dev)
+        router = Router(telemetry=leg_tele)
+        router.register(replica)
+        try:
+            out = poisson_leg(
+                lambda x: router.submit(x, deadline_s=120.0), xpool,
+                arrivals)
+            out["batches"] = leg_tele.counter_value(
+                "serve.batches_total", {"replica": "0"})
+            fill = leg_tele.histogram("serve.batch_fill",
+                                      {"replica": "0"})
+            out["batch_fill_p50"] = fill.get("p50")
+            out["queue_depth_p99"] = leg_tele.histogram(
+                "serve.queue_depth", {"replica": "0"}).get("p99")
+            return out
+        finally:
+            router.stop()
+            replica.stop()
+
+    with _Phase(dev) as p_measure:
+        bases, conts = [], []
+        for _ in range(2):  # interleaved: host noise hits both legs
+            bases.append(_baseline_leg())
+            conts.append(_continuous_leg())
+
+    def _median(legs, key):
+        vals = [leg[key] for leg in legs if leg.get(key) is not None]
+        return float(np.median(vals)) if vals else None
+
+    base = {k: (round(_median(bases, k), 3)
+                if isinstance(bases[0][k], (int, float)) else bases[0][k])
+            for k in bases[0]}
+    cont = {k: (round(_median(conts, k), 3)
+                if isinstance(conts[0][k], (int, float)) else conts[0][k])
+            for k in conts[0]}
+    throughput_ratio = cont["rows_per_s"] / max(base["rows_per_s"], 1e-9)
+    p99_ratio = cont["p99_ms"] / max(base["p99_ms"], 1e-9)
+
+    # -- seeded replica kill under load --------------------------------
+    with _Phase(dev) as p_kill:
+        kill_tele = Telemetry(run_id="serve_kill")
+        policy = FtPolicy(restart=RestartPolicy(backoff_base_s=0.02,
+                                                backoff_max_s=0.1,
+                                                max_restarts=3))
+        tier = InferenceTier(clf_module, n_replicas=2,
+                             telemetry=kill_tele, ft_policy=policy,
+                             buckets=(1, 8, 32), max_queue_rows=1024,
+                             warm_input=xsmall[:1],
+                             probe_interval_s=0.05, device=dev)
+        # Deterministic victim: replica 0 carries a fat observed
+        # latency so the weighted pick opens on replica 1, whose 8th
+        # admission is the seeded kill.
+        kill_tele.observe("serve.request_latency_s", 0.5,
+                          labels={"replica": "0"})
+        try:
+            with inject(ChaosConfig(kill_replica_at={1: 8}),
+                        telemetry=kill_tele) as inj:
+                kill_leg = poisson_leg(
+                    lambda x: tier.submit(x, deadline_s=60.0), xsmall,
+                    arrivals)
+            kills = len([e for e in inj.events
+                         if e["site"] == "serve.replica"])
+            deadline = time.monotonic() + 15.0
+            while (kill_tele.counter_value("router.readmissions_total",
+                                           {"replica": "1"}) < 1
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            evictions = kill_tele.counter_value(
+                "router.evictions_total",
+                {"replica": "1", "reason": "error"})
+            restarts = kill_tele.counter_value(
+                "serve.replica_restarts_total", {"replica": "1"})
+            readmissions = kill_tele.counter_value(
+                "router.readmissions_total", {"replica": "1"})
+        finally:
+            tier.stop()
+
+    # -- mid-load weight push: bounded staleness + exactness -----------
+    with _Phase(dev) as p_push:
+        poll_s = 0.05
+        staleness_bound_s = 20 * poll_s + 1.0
+        clf = serialize_torch_obj(
+            ClassificationNet(n_classes=2), criterion="cross_entropy",
+            optimizer="sgd", optimizer_params={"lr": 0.1},
+            input_shape=(10,),
+        )
+        push_tele = Telemetry(run_id="serve_push")
+        server = ParameterServer(clf, device=dev)
+        http = ParamServerHttp(server, port=0).start()
+        _v, params0 = server.slot.read()
+        tier = InferenceTier(ClassificationNet(n_classes=2), params0,
+                             n_replicas=2, telemetry=push_tele,
+                             buckets=(1, 8), max_queue_rows=1024,
+                             warm_input=xsmall[:1],
+                             probe_interval_s=0.05, device=dev)
+        tier.start_pullers(
+            lambda: BinaryTransport(http.url, quant=None),
+            poll_s=poll_s)
+        stop_load = threading.Event()
+
+        def _background_load():
+            while not stop_load.is_set():
+                tier.submit(xsmall[:1], deadline_s=30.0)
+                time.sleep(0.005)
+
+        loader = threading.Thread(target=_background_load, daemon=True)
+        loader.start()
+        try:
+            time.sleep(0.3)  # pullers sync the initial version
+            grads = {k: torch.ones_like(v) for k, v in params0.items()}
+            server.push_gradients(grads, wait=True)
+            pushed_version = server.slot.version
+            t_push = time.monotonic()
+            staleness: Dict[str, float] = {}
+            deadline = t_push + staleness_bound_s + 5.0
+            while (len(staleness) < len(tier.replicas)
+                   and time.monotonic() < deadline):
+                for rid, replica in tier.replicas.items():
+                    if rid not in staleness \
+                            and replica.params_version >= pushed_version:
+                        staleness[rid] = time.monotonic() - t_push
+                time.sleep(0.01)
+            stop_load.set()
+            loader.join(timeout=30)
+            # Exactness: the SERVED outputs equal the pushed weights'.
+            _v2, server_params = server.slot.read()
+            ref_module = ClassificationNet(n_classes=2)
+            ref_module.load_state_dict(server_params)
+            ref_module.to(dev).eval()
+            with torch.inference_mode():
+                ref = ref_module(torch.from_numpy(xsmall[:8]).to(dev))
+            ref = ref.cpu().numpy()
+            push_exact = True
+            for replica in tier.replicas.values():
+                out = replica.infer(xsmall[:8])
+                if not np.allclose(out, ref, rtol=1e-5, atol=1e-6):
+                    push_exact = False
+        finally:
+            stop_load.set()
+            tier.stop()
+            http.stop()
+            server.stop()
+
+    # -- the gates ------------------------------------------------------
+    if base["errors"] or cont["errors"]:
+        raise AssertionError(
+            f"load legs dropped requests: baseline {base['errors']} "
+            f"({base['error_samples']}), continuous {cont['errors']} "
+            f"({cont['error_samples']})"
+        )
+    # Completion counted SEPARATELY from errors: a future that is
+    # never resolved raises nothing — its load thread just times out
+    # — and an errors-only gate would report that orphaned request as
+    # success.
+    for leg_name, leg in (("baseline", base), ("continuous", cont),
+                          ("replica_kill", kill_leg)):
+        if leg["completed"] != n_requests:
+            raise AssertionError(
+                f"{leg_name} leg completed only {leg['completed']}/"
+                f"{n_requests} requests with no error raised — "
+                f"orphaned futures are silent drops"
+            )
+    if not throughput_ratio > 1.0:
+        raise AssertionError(
+            f"continuous batching did not beat the fixed-window "
+            f"BatchPredictor on throughput: {cont['rows_per_s']:.0f} "
+            f"vs {base['rows_per_s']:.0f} rows/s "
+            f"(x{throughput_ratio:.2f})"
+        )
+    if not p99_ratio <= 1.0:
+        raise AssertionError(
+            f"continuous batching p99 regressed vs the fixed-window "
+            f"baseline: {cont['p99_ms']:.1f} vs {base['p99_ms']:.1f} "
+            f"ms (x{p99_ratio:.2f}) — the throughput win must not be "
+            f"bought with latency"
+        )
+    if kill_leg["errors"]:
+        raise AssertionError(
+            f"replica-kill leg DROPPED {kill_leg['errors']} requests "
+            f"({kill_leg['error_samples']}) — the router must re-route "
+            f"every admission of the killed replica"
+        )
+    if kills < 1:
+        raise AssertionError("seeded replica kill never fired")
+    if evictions < 1 or restarts < 1 or readmissions < 1:
+        raise AssertionError(
+            f"recovery pipeline incomplete: evictions={evictions} "
+            f"restarts={restarts} readmissions={readmissions}"
+        )
+    if len(staleness) < 2:
+        raise AssertionError(
+            f"mid-load weight push reached only {len(staleness)}/2 "
+            f"replicas within {staleness_bound_s + 5.0:.1f}s"
+        )
+    max_staleness = max(staleness.values())
+    if max_staleness > staleness_bound_s:
+        raise AssertionError(
+            f"weight-update staleness {max_staleness:.2f}s exceeds "
+            f"the {staleness_bound_s:.2f}s bound"
+        )
+    if not push_exact:
+        raise AssertionError(
+            "served parameters != pushed parameters after the swap"
+        )
+
+    # Every prior serve_online record is the JAX package's, on a TPU; the
+    # tolerance is the JAX gate's default.
+    drift = {"status": "no_prior_record", "tolerance": 0.5}
+
+    return {
+        "config": "serve_online", "unit": "x (throughput ratio)",
+        "value": round(throughput_ratio, 3),
+        "n_requests": n_requests,
+        "serial_service_ms": round(svc_s * 1e3, 3),
+        "offered_rate_rps": round(1.0 / interarrival_s, 1),
+        "throughput_ratio": round(throughput_ratio, 3),
+        "p99_ratio": round(p99_ratio, 3),
+        "cont_rows_per_s": cont["rows_per_s"],
+        "baseline": base, "continuous": cont,
+        "replica_kill": {**kill_leg, "kills": kills,
+                         "evictions": evictions, "restarts": restarts,
+                         "readmissions": readmissions},
+        "weight_push": {
+            "poll_s": poll_s,
+            "staleness_s": {k: round(v, 3)
+                            for k, v in sorted(staleness.items())},
+            "staleness_bound_s": staleness_bound_s,
+            "exact": push_exact,
+        },
+        "serve_drift": drift,
+        "phase_s": _phase_s(init=p_init, compile_warmup=p_warm,
+                            measure=p_measure, replica_kill=p_kill,
+                            weight_push=p_push),
+    }
+
+
 CONFIGS: Dict[str, Callable[[], dict]] = {
     "mnist_mlp_sync": bench_mnist_mlp_sync,
     "mnist_cnn_sync": bench_mnist_cnn_sync,
@@ -805,6 +1207,7 @@ CONFIGS: Dict[str, Callable[[], dict]] = {
     "resnet50_inference": bench_resnet50_inference,
     "long_context_lm": bench_long_context_lm,
     "moe_lm": bench_moe_lm,
+    "serve_online": bench_serve_online,
 }
 
 

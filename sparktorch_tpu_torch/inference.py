@@ -10,8 +10,11 @@ the read-back. :func:`write_rows_parquet` and
 :func:`stream_parquet_predict` are the Parquet streaming path of
 BASELINE config 5 (pyarrow is imported inside them only).
 
-Not ported yet: the serving telemetry (``inference.*`` counters;
-ROADMAP, Queue 1: ``obs/``).
+Serving metrics land on the telemetry bus under the JAX package's
+names: ``inference.batch_fill`` (real rows over each chunk's rows),
+``inference.predict_s``, ``inference.requests`` and ``inference.rows``,
+labelled ``path=host`` (``predict``) or ``path=device``
+(``predict_device``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.distributed as dist
 
 from sparktorch_tpu_torch.ml.estimator import SparkTorchModel, _encode_bundle
 from sparktorch_tpu_torch.ml.pipeline import PipelineModel
+from sparktorch_tpu_torch.obs import get_telemetry
 from sparktorch_tpu_torch.utils.serde import ModelSpec, meta_copy
 
 
@@ -70,7 +74,8 @@ class BatchPredictor:
                  params: Optional[Mapping[str, torch.Tensor]] = None,
                  device=None, chunk: int = 1024,
                  preprocess: Optional[Callable] = None,
-                 postprocess: Optional[Callable] = None, mesh=None):
+                 postprocess: Optional[Callable] = None, mesh=None,
+                 telemetry=None):
         """``params`` (optional) is a ``state_dict`` to load into
         ``module`` first (buffers included: torch has no separate
         model state). ``preprocess`` maps each device chunk before the
@@ -78,8 +83,11 @@ class BatchPredictor:
         quarter of float32's host→device bytes); ``postprocess`` maps
         the module's output (e.g. ``lambda y: y.argmax(-1)``: one value
         a row read back instead of the logits). ``mesh``: a
-        :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` mesh."""
+        :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` mesh.
+        ``telemetry``: the bus the ``inference.*`` metrics land on (the
+        process-global one by default)."""
         self.device = _resolve_device(device)
+        self.telemetry = telemetry or get_telemetry()
         if params is not None:
             module.load_state_dict(params)
         self.module = module.to(self.device).eval()
@@ -115,6 +123,8 @@ class BatchPredictor:
                     pad = np.zeros((target - real, *part.shape[1:]),
                                    part.dtype)
                     part = np.concatenate([part, pad])
+            self.telemetry.observe("inference.batch_fill",
+                                   real / max(1, part.shape[0]))
             yield part, real
 
     def _put(self, part) -> torch.Tensor:
@@ -134,8 +144,12 @@ class BatchPredictor:
             return t.to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _fwd(self, x: torch.Tensor) -> torch.Tensor:
-        module = self.module  # one read: old or new weights, whole
+    def _fwd(self, x: torch.Tensor,
+             module: Optional[torch.nn.Module] = None) -> torch.Tensor:
+        """The forward of ``module`` (this predictor's by default) on a
+        device chunk, with the pre- and postprocessing."""
+        if module is None:
+            module = self.module  # one read: old or new weights, whole
         with torch.inference_mode():
             if self.preprocess is not None:
                 x = self.preprocess(x)
@@ -167,6 +181,7 @@ class BatchPredictor:
         n = x.shape[0]
         if n == 0:
             return self._probe(x).cpu().numpy()
+        t0 = time.perf_counter()
         parts = self._chunks(x, n)
         host = []
         nxt = next(parts)
@@ -182,7 +197,17 @@ class BatchPredictor:
                 host.append(prev[0].cpu().numpy()[: prev[1]])
             prev = (out, real)
         host.append(prev[0].cpu().numpy()[: prev[1]])
-        return np.concatenate(host) if len(host) > 1 else host[0]
+        out = np.concatenate(host) if len(host) > 1 else host[0]
+        # The read-backs above waited for the card, so this covers the
+        # copies and the compute.
+        self._record("host", time.perf_counter() - t0, n)
+        return out
+
+    def _record(self, path: str, seconds: float, rows: int) -> None:
+        tele = self.telemetry
+        tele.observe("inference.predict_s", seconds, labels={"path": path})
+        tele.counter("inference.requests", labels={"path": path})
+        tele.counter("inference.rows", float(rows), labels={"path": path})
 
     def predict_device(self, x, in_flight: int = 3) -> torch.Tensor:
         """Chunked forward with no device→host read-back: returns ONE
@@ -196,6 +221,7 @@ class BatchPredictor:
         n = x.shape[0]
         if n == 0:
             return self._probe(x)
+        t0 = time.perf_counter()
         outs, pending = [], []
         for part, real in self._chunks(x, n):
             out = self._fwd(self._put(part))
@@ -205,6 +231,8 @@ class BatchPredictor:
                     self.device).record_event())
                 if len(pending) >= max(2, in_flight):
                     pending.pop(0).synchronize()
+        # Enqueue time only: this path never waits for the last chunk.
+        self._record("device", time.perf_counter() - t0, n)
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def predict_stream(self, batches: Iterable) -> Iterator[np.ndarray]:

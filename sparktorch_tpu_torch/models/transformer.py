@@ -156,6 +156,14 @@ class MultiHeadAttention(nn.Module):
         self.qkv = Dense(cfg.d_model, 3 * cfg.n_heads * cfg.head_dim, dt)
         self.proj = Dense(cfg.n_heads * cfg.head_dim, cfg.d_model, dt)
 
+    def flax_param_shapes(self):
+        """The Flax shapes of the fused weights, whose rank differs here
+        (``convert.py``): Adafactor factors them on these."""
+        cfg = self.config
+        d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+        return {"qkv.weight": (d, 3, h, hd), "qkv.bias": (3, h, hd),
+                "proj.weight": (h, hd, d)}
+
     def forward(self, x):
         cfg = self.config
         b, s, _ = x.shape

@@ -1,0 +1,459 @@
+"""Run-scoped telemetry event bus: spans, counters, histograms, gauges — a copy of ``sparktorch_tpu/obs/telemetry.py:38-454``.
+
+Every layer shares one bus: the serving tier, trainers and the
+parameter server record into one :class:`Telemetry`, and sinks stream
+JSONL events (:mod:`sparktorch_tpu_torch.obs.sinks`). The metric keys
+(``format_key``), the histogram roll-ups (``_Hist.rollup``,
+``rollup_from_state``) and the snapshot layout are the JAX package's,
+so both packages' snapshots compare key for key.
+
+Design constraints:
+
+- **Hot-path cheap.** A counter bump is a dict add under one lock; a
+  span is two ``perf_counter`` calls. Nothing here touches the device
+  unless the caller explicitly asks (``Span.sync``).
+- **Bounded memory.** Histograms keep streaming count/sum/min/max plus
+  a fixed-size ring of recent samples for the percentile roll-ups — a
+  million-step run holds O(ring), not O(steps).
+- **Thread-safe.** Serving replicas, router threads, hogwild workers
+  and HTTP handler threads all record into the same instance.
+
+The one difference: ``Span.sync`` waits for the streams of the CUDA
+tensors it is given (the JAX one blocks on device arrays), and does
+nothing for CPU tensors and host values.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+
+import contextlib
+
+import numpy as np
+
+# (name, (("k","v"), ...)) — one metric series per name+labels pair.
+MetricKey = Tuple[str, Tuple[Tuple[str, str], ...]]
+
+
+def wall_ts() -> float:
+    """The sanctioned wall-clock TIMESTAMP read (``time.time()``):
+    cross-process joinable stamps for events, heartbeats, history
+    points, and snapshot ``ts`` fields. DURATION math must use
+    ``time.perf_counter()`` (wall clock steps under NTP slew);
+    anything that genuinely needs the epoch reads it through here so
+    a grep can tell timestamps from arithmetic."""
+    return time.time()
+
+
+def _key(name: str, labels: Optional[Dict[str, Any]]) -> MetricKey:
+    if not labels:
+        return (name, ())
+    return (name, tuple(sorted((str(k), str(v)) for k, v in labels.items())))
+
+
+def format_key(key: MetricKey) -> str:
+    """``name{k=v,...}`` — the flat-dict spelling used by snapshots.
+    ',' and '=' are reserved delimiters: label values must be simple
+    tokens (ranks, hosts, routes), never free-form strings like
+    filesystem paths — those belong on events, not labels."""
+    name, labels = key
+    if not labels:
+        return name
+    inner = ",".join(f"{k}={v}" for k, v in labels)
+    return f"{name}{{{inner}}}"
+
+
+class _Hist:
+    """Streaming histogram: exact count/sum/min/max, percentiles from a
+    bounded ring of the most recent samples."""
+
+    __slots__ = ("count", "total", "vmin", "vmax", "ring")
+
+    def __init__(self, ring_size: int):
+        self.count = 0
+        self.total = 0.0
+        self.vmin = float("inf")
+        self.vmax = float("-inf")
+        self.ring: "collections.deque[float]" = collections.deque(
+            maxlen=ring_size
+        )
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        self.count += 1
+        self.total += v
+        self.vmin = min(self.vmin, v)
+        self.vmax = max(self.vmax, v)
+        self.ring.append(v)
+
+    def state(self) -> Tuple[int, float, float, float, Tuple[float, ...]]:
+        """A consistent COPY of the streaming aggregates + ring — the
+        cheap part a reader takes under the bus lock, so the expensive
+        percentile math can run OUTSIDE it (see
+        :func:`rollup_from_state`)."""
+        return (self.count, self.total, self.vmin, self.vmax,
+                tuple(self.ring))
+
+    def rollup(self) -> Dict[str, Any]:
+        """p50/p95/p99 + streaming aggregates; safe on empty and
+        single-sample histograms (percentiles of one sample are that
+        sample; an empty histogram rolls up to count=0 with null
+        quantiles rather than raising)."""
+        return rollup_from_state(self.state())
+
+
+def rollup_from_state(state: Tuple[int, float, float, float,
+                                   Tuple[float, ...]]) -> Dict[str, Any]:
+    """Percentile roll-up from a :meth:`_Hist.state` copy. Kept OUT of
+    the bus lock on purpose: the ``np.percentile`` over a 4096-sample
+    ring is the expensive half of a histogram read, and computing it
+    under the lock serialized every bus writer against every reader —
+    the router's per-request p50 reads measurably throttled the very
+    replicas it was routing to (3x throughput at 400 threads). Readers
+    snapshot the ring under the lock, then compute here."""
+    count, total, vmin, vmax, ring = state
+    if count == 0:
+        return {"count": 0, "sum": 0.0, "mean": None, "min": None,
+                "max": None, "p50": None, "p95": None, "p99": None}
+    samples = np.asarray(ring, dtype=np.float64)
+    p50, p95, p99 = np.percentile(samples, [50.0, 95.0, 99.0])
+    return {
+        "count": count,
+        "sum": total,
+        "mean": total / count,
+        "min": vmin,
+        "max": vmax,
+        "p50": float(p50),
+        "p95": float(p95),
+        "p99": float(p99),
+    }
+
+
+class Span:
+    """One timed region, yielded by :meth:`Telemetry.span`.
+
+    ``duration_s`` is wall clock by default. Call :meth:`sync` with the
+    region's output tensors to fold device completion into the timing:
+    CUDA launches are asynchronous, so without a sync a span around a
+    forward measures enqueue time, not compute.
+    """
+
+    __slots__ = ("name", "path", "labels", "depth", "t0", "duration_s",
+                 "synced")
+
+    def __init__(self, name: str, path: str, labels: Dict[str, Any],
+                 depth: int):
+        self.name = name
+        self.path = path
+        self.labels = labels
+        self.depth = depth
+        self.t0 = time.perf_counter()
+        self.duration_s: Optional[float] = None
+        self.synced = False
+
+    def sync(self, *tensors: Any) -> None:
+        """Block until the work queued for the given CUDA tensors is
+        done (each tensor's device, on the calling thread's current
+        stream), so the span's duration covers their compute. No-op on
+        CPU tensors and host values."""
+        import torch
+
+        devices = {t.device for t in tensors
+                   if isinstance(t, torch.Tensor) and t.device.type == "cuda"}
+        for device in devices:
+            torch.cuda.current_stream(device).synchronize()
+        self.synced = True
+
+
+class Telemetry:
+    """The event bus. One instance per run scope (a trainer invocation,
+    a parameter server, the bench CLI); a process-global default exists
+    for code that doesn't thread one through (:func:`get_telemetry`)."""
+
+    def __init__(self, run_id: Optional[str] = None,
+                 ring_size: int = 4096):
+        self.run_id = run_id or time.strftime("%Y%m%dT%H%M%S")
+        self._ring_size = ring_size
+        self._lock = threading.Lock()
+        self._counters: Dict[MetricKey, float] = {}
+        self._gauges: Dict[MetricKey, float] = {}
+        self._hists: Dict[MetricKey, _Hist] = {}
+        self._spans: Dict[MetricKey, _Hist] = {}
+        self._info: Dict[MetricKey, str] = {}
+        self._sections: Dict[str, Any] = {}
+        self._sinks: List[Callable[[Dict[str, Any]], None]] = []
+        self._tls = threading.local()
+
+    def set_run_id(self, run_id: str) -> None:
+        """Adopt a (typically gang-minted) run id mid-scope: every
+        event emitted from here on — spans included — carries it, so
+        per-rank streams sharing one gang run_id can be joined by a
+        collector. Metric state is unaffected."""
+        self.run_id = str(run_id)
+
+    # -- recording ---------------------------------------------------------
+
+    def counter(self, name: str, inc: float = 1.0,
+                labels: Optional[Dict[str, Any]] = None) -> float:
+        """Monotonic counter bump; returns the new value."""
+        if inc < 0:
+            raise ValueError(f"counter {name!r}: negative increment {inc}")
+        k = _key(name, labels)
+        with self._lock:
+            value = self._counters.get(k, 0.0) + inc
+            self._counters[k] = value
+        return value
+
+    def gauge(self, name: str, value: float,
+              labels: Optional[Dict[str, Any]] = None) -> None:
+        """Last-write-wins instantaneous value (queue depth, version,
+        last-seen timestamp)."""
+        with self._lock:
+            self._gauges[_key(name, labels)] = float(value)
+
+    def info(self, name: str, value: str,
+             labels: Optional[Dict[str, Any]] = None) -> None:
+        """Last-write-wins STRING annotation (a trace-viewer URL, a
+        build id) — the non-numeric sibling of a gauge. Snapshots carry
+        these under ``info``, so they ride the ``/telemetry`` JSON;
+        the Prometheus renderer emits them build_info-style (value 1
+        with the string as a label)."""
+        with self._lock:
+            self._info[_key(name, labels)] = str(value)
+
+    def info_value(self, name: str,
+                   labels: Optional[Dict[str, Any]] = None) -> Optional[str]:
+        with self._lock:
+            return self._info.get(_key(name, labels))
+
+    def set_section(self, name: str, payload: Any) -> None:
+        """Attach a named JSON-serializable SECTION to snapshots (the
+        last published xprof analysis, a gang budget). Sections ride
+        ``snapshot()["sections"]`` — so ``/telemetry`` scrapes and
+        JSONL dumps carry structured documents the flat metric dicts
+        cannot (a fleet collector merges them cross-rank) — and are
+        ignored by the Prometheus renderer. Last write wins; ``None``
+        removes the section."""
+        with self._lock:
+            if payload is None:
+                self._sections.pop(name, None)
+            else:
+                self._sections[name] = payload
+
+    def get_section(self, name: str) -> Optional[Any]:
+        with self._lock:
+            return self._sections.get(name)
+
+    def observe(self, name: str, value: float,
+                labels: Optional[Dict[str, Any]] = None) -> None:
+        """Histogram sample (step time, latency, batch fill)."""
+        k = _key(name, labels)
+        with self._lock:
+            hist = self._hists.get(k)
+            if hist is None:
+                hist = self._hists[k] = _Hist(self._ring_size)
+            hist.observe(value)
+
+    @contextlib.contextmanager
+    def span(self, name: str,
+             labels: Optional[Dict[str, Any]] = None) -> Iterator[Span]:
+        """Nestable timed region. The span records under its full
+        slash-joined path (``train/step`` inside ``train``), so nested
+        timings stay attributable; completion emits one event to the
+        sinks and one histogram sample."""
+        stack: List[Span] = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = []
+        parent = stack[-1] if stack else None
+        path = f"{parent.path}/{name}" if parent is not None else name
+        span = Span(name, path, dict(labels or {}), depth=len(stack))
+        stack.append(span)
+        try:
+            yield span
+        finally:
+            span.duration_s = time.perf_counter() - span.t0
+            stack.pop()
+            k = _key(path, labels)
+            with self._lock:
+                hist = self._spans.get(k)
+                if hist is None:
+                    hist = self._spans[k] = _Hist(self._ring_size)
+                hist.observe(span.duration_s)
+            self.event("span", name=path, dur_s=span.duration_s,
+                       depth=span.depth, synced=span.synced,
+                       **span.labels)
+
+    def event(self, kind: str, **fields: Any) -> None:
+        """Emit one structured event to every attached sink."""
+        if not self._sinks:
+            return
+        record = {"ts": time.time(), "kind": kind, "run_id": self.run_id,
+                  **fields}
+        with self._lock:
+            sinks = list(self._sinks)
+        for sink in sinks:
+            sink(record)
+
+    # -- sinks -------------------------------------------------------------
+
+    def add_sink(self, sink: Callable[[Dict[str, Any]], None]) -> None:
+        with self._lock:
+            self._sinks.append(sink)
+
+    def remove_sink(self, sink: Callable[[Dict[str, Any]], None]) -> None:
+        with self._lock:
+            if sink in self._sinks:
+                self._sinks.remove(sink)
+
+    def add_jsonl_sink(self, path: str, append: bool = True):
+        """Stream events to a JSONL file (directories created, append
+        by default so multi-phase runs accumulate). Returns the sink;
+        ``sink.close()`` detaches and closes it."""
+        from sparktorch_tpu_torch.obs.sinks import JsonlSink
+
+        sink = JsonlSink(path, append=append, telemetry=self)
+        self.add_sink(sink)
+        return sink
+
+    # -- read side ---------------------------------------------------------
+
+    def counter_value(self, name: str,
+                      labels: Optional[Dict[str, Any]] = None) -> float:
+        with self._lock:
+            return self._counters.get(_key(name, labels), 0.0)
+
+    def gauge_value(self, name: str,
+                    labels: Optional[Dict[str, Any]] = None
+                    ) -> Optional[float]:
+        with self._lock:
+            return self._gauges.get(_key(name, labels))
+
+    def histogram(self, name: str,
+                  labels: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        # Ring snapshotted under the lock, percentiles computed OUTSIDE
+        # it: per-request readers (the router's p50 weight) must not
+        # serialize against the writers they observe.
+        with self._lock:
+            hist = self._hists.get(_key(name, labels))
+            state = hist.state() if hist is not None else None
+        return (rollup_from_state(state) if state is not None
+                else rollup_from_state((0, 0.0, 0.0, 0.0, ())))
+
+    def span_rollup(self, path: str,
+                    labels: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
+        with self._lock:
+            hist = self._spans.get(_key(path, labels))
+            state = hist.state() if hist is not None else None
+        return (rollup_from_state(state) if state is not None
+                else rollup_from_state((0, 0.0, 0.0, 0.0, ())))
+
+    def snapshot(self) -> Dict[str, Any]:
+        """One coherent view of every metric: counters and gauges as
+        flat ``name{labels}`` -> value dicts, histograms and spans as
+        roll-ups. This is what the JSONL dump writes and what the
+        Prometheus renderer consumes — one source of truth, so the
+        ``/metrics`` route can never disagree with the JSONL sink.
+
+        The lock covers only the cheap copies (dicts + ring
+        snapshots); the percentile math over every histogram runs
+        outside it, so a collector scrape or snapshot-hungry reader
+        cannot stall the recording hot path."""
+        with self._lock:
+            snap = {
+                "run_id": self.run_id,
+                "ts": time.time(),
+                "counters": {format_key(k): v
+                             for k, v in sorted(self._counters.items())},
+                "gauges": {format_key(k): v
+                           for k, v in sorted(self._gauges.items())},
+                "info": {format_key(k): v
+                         for k, v in sorted(self._info.items())},
+            }
+            hist_states = {format_key(k): h.state()
+                           for k, h in sorted(self._hists.items())}
+            span_states = {format_key(k): h.state()
+                           for k, h in sorted(self._spans.items())}
+            sections = dict(self._sections) if self._sections else None
+        snap["histograms"] = {k: rollup_from_state(s)
+                              for k, s in hist_states.items()}
+        snap["spans"] = {k: rollup_from_state(s)
+                         for k, s in span_states.items()}
+        if sections:
+            snap["sections"] = sections
+        return snap
+
+    def dump(self, path: str, append: bool = True) -> Dict[str, Any]:
+        """Write the snapshot as one JSONL line (the CLI dump format);
+        returns the snapshot."""
+        from sparktorch_tpu_torch.obs.sinks import write_jsonl
+
+        snap = self.snapshot()
+        write_jsonl(path, [{"kind": "snapshot", **snap}], append=append)
+        return snap
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._hists.clear()
+            self._spans.clear()
+            self._info.clear()
+            self._sections.clear()
+
+    # -- pickling ----------------------------------------------------------
+    # A bus rides inside objects that get dill-dumped (a fitted model
+    # holding a BatchPredictor; a worker closure shipped to an
+    # executor). Locks, thread-locals, and open-file sinks cannot
+    # cross a pickle boundary — and must not: the deserialized copy is
+    # a NEW scope on the far side. Metric state (plain dicts + rings)
+    # does travel, so a restored object keeps its numbers.
+
+    def __getstate__(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "run_id": self.run_id,
+                "_ring_size": self._ring_size,
+                "_counters": dict(self._counters),
+                "_gauges": dict(self._gauges),
+                "_hists": dict(self._hists),
+                "_spans": dict(self._spans),
+                "_info": dict(self._info),
+                "_sections": dict(self._sections),
+            }
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self.__dict__.setdefault("_info", {})  # pre-info pickles
+        self.__dict__.setdefault("_sections", {})  # pre-section pickles
+        self._lock = threading.Lock()
+        self._sinks = []
+        self._tls = threading.local()
+
+
+# ---------------------------------------------------------------------------
+# Process-global default
+# ---------------------------------------------------------------------------
+
+_GLOBAL: Optional[Telemetry] = None
+_GLOBAL_LOCK = threading.Lock()
+
+
+def get_telemetry() -> Telemetry:
+    """The process-global bus — the default for call sites that don't
+    thread a run-scoped instance through."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        if _GLOBAL is None:
+            _GLOBAL = Telemetry(run_id="global")
+        return _GLOBAL
+
+
+def set_telemetry(telemetry: Optional[Telemetry]) -> None:
+    """Swap the process-global bus (tests; run-scoped CLI entries)."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        _GLOBAL = telemetry

@@ -1,1 +1,1 @@
-"""The hogwild parameter server — the port of ``sparktorch_tpu/serve/param_server.py``."""
+"""Serving: the hogwild parameter server (``param_server.py``) and the online tier (``infer.py``, ``router.py``) — the ports of ``sparktorch_tpu/serve/``."""

@@ -52,6 +52,7 @@ from sparktorch_tpu_torch.inference import _resolve_device
 from sparktorch_tpu_torch.net import wire as binwire
 from sparktorch_tpu_torch.utils.early_stopper import EarlyStopping
 from sparktorch_tpu_torch.utils.locks import VersionedSlot
+from sparktorch_tpu_torch.utils.optim import flax_shapes
 from sparktorch_tpu_torch.utils.serde import ModelSpec, deserialize_model
 
 MAX_TOLERATED_ERRORS = 10  # server.py:139-142 parity
@@ -100,7 +101,8 @@ class ParameterServer:
                             for n, p in module.named_parameters()}
             self._model_state = {n: b.detach().clone()
                                  for n, b in module.named_buffers()}
-        self._opt = self.spec.make_optimizer(list(self._master.values()))
+        self._opt = self.spec.make_optimizer(
+            list(self._master.values()), flax_shapes(module, self._master))
         self.slot = VersionedSlot(snapshot(self._master))
 
         # Windowed early stop (server.py:102-123 parity).

@@ -75,6 +75,7 @@ from sparktorch_tpu_torch.utils.data import (
 )
 from sparktorch_tpu_torch.utils.early_stopper import EarlyStopping
 from sparktorch_tpu_torch.utils.metrics import MetricsRecorder
+from sparktorch_tpu_torch.utils.optim import flax_shapes
 from sparktorch_tpu_torch.utils.serde import (
     ModelSpec,
     deserialize_model,
@@ -185,7 +186,8 @@ def _build_trainer(torch_obj, spec: ModelSpec, dev: torch.device):
     if isinstance(torch_obj, ModelSpec) and spec.module is not None:
         module = copy.deepcopy(module)  # leave the caller's module as it is
     module = module.to(dev).train()
-    return module, spec.make_optimizer(module.parameters()), spec.loss_fn()
+    opt = spec.make_optimizer(module.parameters(), flax_shapes(module))
+    return module, opt, spec.loss_fn()
 
 
 def _result(module: torch.nn.Module, spec: ModelSpec,

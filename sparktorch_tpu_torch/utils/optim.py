@@ -13,7 +13,8 @@ these:
 - optax ``adagrad``: Σ ← Σ + g² from an initial 0.1 (torch: 0), update =
   g/√(Σ + ε) with ε 1e-7 (torch: 1e-10 outside the root).
 - optax ``adafactor`` (not ``torch.optim.Adafactor``): factored second
-  moments over the two largest dims, the decay 1 − (t + 1)^−0.8, the
+  moments over the two largest dims of each parameter's Flax layout
+  (:func:`flax_shapes`, :func:`to_flax`), the decay 1 − (t + 1)^−0.8, the
   update clipped to an RMS of 1.0, the learning rate (none by default),
   then scaled by the parameter's RMS (at least 1e-3).
 - optax ``lamb``: Adam's moments (ε 1e-6), decoupled weight decay (0 by
@@ -29,7 +30,7 @@ per tensor where it takes a norm or a mean.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -167,26 +168,63 @@ class Adagrad(_OptaxRule):
         return loss
 
 
-def _flax_axes(ndim: int):
-    """The port's axis of each axis of the Flax layout: a 4-D parameter
-    is a convolution kernel, OIHW here and HWIO in Flax; every other
-    rank has one layout (a 2-D weight is transposed, and Adafactor's
-    factored estimate of a matrix is the same either way round)."""
-    return (2, 3, 1, 0) if ndim == 4 else tuple(range(ndim))
+def flax_shapes(module: torch.nn.Module,
+                params: Optional[Mapping[str, torch.Tensor]] = None
+                ) -> Dict[torch.Tensor, Tuple[int, ...]]:
+    """The Flax shape of each parameter whose Flax layout is not the one
+    its rank implies (:func:`to_flax`), keyed by the tensor: the
+    transformer's fused qkv and proj weights, which submodules declare
+    by a ``flax_param_shapes()`` method (local name → shape). ``params``
+    (name → tensor, ``module.named_parameters()`` by default) names the
+    tensors to key by, e.g. a parameter server's master copies."""
+    if params is None:
+        params = dict(module.named_parameters())
+    out = {}
+    for prefix, sub in module.named_modules():
+        declared = getattr(sub, "flax_param_shapes", None)
+        if declared is None:
+            continue
+        for name, shape in declared().items():
+            key = f"{prefix}.{name}" if prefix else name
+            if key in params:
+                out[params[key]] = tuple(shape)
+    return out
+
+
+def to_flax(t: torch.Tensor, shape: Optional[Sequence[int]] = None
+            ) -> torch.Tensor:
+    """``t`` in the Flax layout: a 2-D weight (out, in) transposed to
+    (in, out), a 4-D convolution kernel OIHW permuted to HWIO, other
+    ranks as they are; then reshaped to ``shape`` where the Flax
+    parameter has another rank (the fused qkv kernel (d, 3, h, hd),
+    its bias (3, h, hd), the proj kernel (h, hd, d))."""
+    if t.ndim == 2:
+        t = t.T
+    elif t.ndim == 4:
+        t = t.permute(2, 3, 1, 0)
+    return t if shape is None else t.reshape(shape)
+
+
+def from_flax(t: torch.Tensor, port_shape: Sequence[int]) -> torch.Tensor:
+    """The inverse of :func:`to_flax` for a parameter of ``port_shape``."""
+    if len(port_shape) == 2:
+        return t.reshape(port_shape[1], port_shape[0]).T
+    if len(port_shape) == 4:
+        o, i, h, w = port_shape
+        return t.reshape(h, w, i, o).permute(3, 2, 0, 1)
+    return t.reshape(port_shape)
 
 
 def _factored_dims(shape, factored: bool, min_dim_size_to_factor: int):
-    """optax's ``_factored_dims`` on the Flax layout of ``shape``: the
-    port's axes (d1, d0) of the second-largest and the largest dims, or
-    None when the second-largest is below ``min_dim_size_to_factor``."""
+    """optax's ``_factored_dims`` of a Flax-layout ``shape``: the axes
+    (d1, d0) of the second-largest and the largest dims, or None when
+    the second-largest is below ``min_dim_size_to_factor``."""
     if not factored or len(shape) < 2:
         return None
-    axes = _flax_axes(len(shape))
-    flax_shape = [shape[a] for a in axes]
-    order = np.argsort(flax_shape)
-    if flax_shape[order[-2]] < min_dim_size_to_factor:
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
         return None
-    return axes[order[-2]], axes[order[-1]]
+    return int(order[-2]), int(order[-1])
 
 
 def _rms(t: torch.Tensor) -> torch.Tensor:
@@ -196,35 +234,45 @@ def _rms(t: torch.Tensor) -> torch.Tensor:
 class Adafactor(_OptaxRule):
     """optax ``adafactor`` (module docstring). ``lr=None`` applies no
     learning rate, as optax's default does: the step is then the clipped
-    update times the parameter's RMS. The factored dims are picked on the
-    Flax layout of each tensor (:func:`_factored_dims`); the
-    transformer's fused qkv and proj weights are 2-D here and factor as
-    such, where Flax holds them as (d, 3, h, hd) and (h, hd, d)."""
+    update times the parameter's RMS.
+
+    The update is computed on each parameter in its Flax layout
+    (:func:`to_flax`), where optax picks the factored dims, and the
+    moments are kept in that layout. ``flax_shapes`` (parameter → Flax
+    shape, from :func:`flax_shapes`) names the parameters whose Flax
+    rank differs: the transformer's fused qkv and proj weights, which
+    optax factors (or not) over their 4-D and 3-D axes."""
 
     def __init__(self, params, lr: Optional[float] = None,
                  min_dim_size_to_factor=128, decay_rate=0.8, decay_offset=0,
                  multiply_by_parameter_scale=True, clipping_threshold=1.0,
                  momentum=None, weight_decay_rate=None, eps=1e-30,
-                 factored=True):
+                 factored=True, flax_shapes=None):
         super().__init__(params, dict(
             lr=lr, min_dim_size_to_factor=min_dim_size_to_factor,
             decay_rate=decay_rate, decay_offset=decay_offset,
             multiply_by_parameter_scale=multiply_by_parameter_scale,
             clipping_threshold=clipping_threshold, momentum=momentum,
             weight_decay_rate=weight_decay_rate, eps=eps, factored=factored))
+        self.flax_shapes = dict(flax_shapes or {})
+
+    def _flax(self, t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        return to_flax(t, self.flax_shapes.get(p))
 
     def _init_state(self, st, p, group):
         st["step"] = 0
-        dims = _factored_dims(p.shape, group["factored"],
+        flax_p = self._flax(p, p)
+        shape = flax_p.shape
+        dims = _factored_dims(shape, group["factored"],
                               group["min_dim_size_to_factor"])
         if dims is not None:
             d1, d0 = dims
-            st["v_row"] = p.new_zeros(p.shape[:d0] + p.shape[d0 + 1:])
-            st["v_col"] = p.new_zeros(p.shape[:d1] + p.shape[d1 + 1:])
+            st["v_row"] = p.new_zeros(shape[:d0] + shape[d0 + 1:])
+            st["v_col"] = p.new_zeros(shape[:d1] + shape[d1 + 1:])
         else:
-            st["v"] = _zeros(p)
+            st["v"] = p.new_zeros(shape)
         if group["momentum"] is not None:
-            st["ema"] = _zeros(p)
+            st["ema"] = p.new_zeros(shape)
 
     def _scaled(self, g, st, dims, decay, eps):
         """The gradient over the (factored) RMS estimate; updates the
@@ -253,7 +301,8 @@ class Adafactor(_OptaxRule):
             decay = 1.0 - t ** -group["decay_rate"]
             for p, g in zip(params, grads):
                 st = self.state[p]
-                dims = _factored_dims(p.shape, group["factored"],
+                flax_p, g = self._flax(p, p), self._flax(g, p)
+                dims = _factored_dims(flax_p.shape, group["factored"],
                                       group["min_dim_size_to_factor"])
                 u = self._scaled(g, st, dims, decay, group["eps"])
                 if group["clipping_threshold"] is not None:
@@ -270,8 +319,8 @@ class Adafactor(_OptaxRule):
                         u, alpha=1.0 - group["momentum"])
                     u = ema
                 if group["weight_decay_rate"] is not None:
-                    u = u + group["weight_decay_rate"] * p
-                p.sub_(u)
+                    u = u + group["weight_decay_rate"] * flax_p
+                p.sub_(from_flax(u, p.shape))
         return loss
 
 

@@ -203,10 +203,18 @@ class ModelSpec:
     def loss_fn(self) -> LossFn:
         return resolve_loss(self.loss)
 
-    def make_optimizer(self, params: Iterable[torch.Tensor]
+    def make_optimizer(self, params: Iterable[torch.Tensor],
+                       flax_shapes: Optional[Mapping[torch.Tensor,
+                                                     Sequence[int]]] = None
                        ) -> torch.optim.Optimizer:
-        """The spec's optimizer over ``params``."""
-        return resolve_optimizer(self.optimizer, self.optimizer_params)(params)
+        """The spec's optimizer over ``params``. ``flax_shapes``
+        (:func:`~sparktorch_tpu_torch.utils.optim.flax_shapes` of the
+        module) gives Adafactor the Flax shape of each parameter whose
+        layout differs, so it factors as optax does."""
+        opt = resolve_optimizer(self.optimizer, self.optimizer_params)(params)
+        if isinstance(opt, optim.Adafactor) and flax_shapes:
+            opt.flax_shapes.update(flax_shapes)
+        return opt
 
     def abstract_module(self) -> nn.Module:
         """The module on the ``meta`` device: shapes and dtypes, no

@@ -134,9 +134,54 @@ def test_config_choices_and_unported_options():
     assert set(bench.CONFIGS) == set(bench.RECORD_KEYS) == {
         "mnist_mlp_sync", "mnist_cnn_sync", "lazy_cnn_sync",
         "resnet18_hogwild", "bert_dp", "resnet50_inference",
-        "long_context_lm", "moe_lm"}
+        "long_context_lm", "moe_lm", "serve_online"}
     with pytest.raises(SystemExit):
         bench.main(["--config", "moe_a2a"])  # needs an ep mesh axis
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
         bench.main(["--config", "all", "--telemetry-dump", "x.jsonl"])
     assert bench.mfu_honest(98.9) == pytest.approx(0.1)
+
+
+def test_serve_online_gates_hold_on_the_cpu():
+    # The JAX config's sizes, seeds, legs and gates, at 40 requests a
+    # leg: the call raises if a gate fails. One intra-op thread, so a
+    # row's compute sets the serial service time (the regime the gate's
+    # model is sized for), not the thread pool's contention with the
+    # other processes on the host.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rec = bench.bench_serve_online(device="cpu", n_requests=40)
+    finally:
+        torch.set_num_threads(threads)
+    jax_keys, omitted, added = bench.RECORD_KEYS["serve_online"]
+    assert set(rec) == (jax_keys - omitted) | added
+    assert rec["n_requests"] == 40
+    assert rec["throughput_ratio"] > 1.0 and rec["p99_ratio"] <= 1.0
+    for leg in ("baseline", "continuous", "replica_kill"):
+        assert rec[leg]["completed"] == 40 and rec[leg]["errors"] == 0
+    kill = rec["replica_kill"]
+    assert kill["kills"] == 1 and min(
+        kill["evictions"], kill["restarts"], kill["readmissions"]) >= 1
+    push = rec["weight_push"]
+    assert push["exact"] and set(push["staleness_s"]) == {"0", "1"}
+    assert max(push["staleness_s"].values()) <= push["staleness_bound_s"]
+    assert rec["serve_drift"] == {"status": "no_prior_record",
+                                  "tolerance": 0.5}
+    assert set(rec["phase_s"]) == {"init", "compile_warmup", "measure",
+                                   "replica_kill", "weight_push"}
+
+
+def test_serve_online_record_keys_are_the_jax_records():
+    # The JAX bench's retained serve_online records carry exactly these
+    # keys (plus the ``ts`` its CLI adds).
+    import json
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "benchmarks" / \
+        "bench_r07_serve.jsonl"
+    jax_keys, omitted, added = bench.RECORD_KEYS["serve_online"]
+    recs = [json.loads(line) for line in path.read_text().splitlines()
+            if line.strip()]
+    assert recs and all(set(r) - {"ts"} == jax_keys for r in recs)
+    assert omitted == added == set()

@@ -7,8 +7,10 @@ decay 1e-4, RMSprop's decay 0.9 with eps inside the root, Adagrad's
 initial accumulator 0.1 and eps 1e-7, Adafactor's factored moments and
 no learning rate, Lion's weight decay 1e-3), not ``torch.optim``'s. The
 parameter set holds a 2-D and a 3-D tensor with two dims of at least
-128, which Adafactor factors. Then the optax-only names train a small
-net through both packages' ``train_distributed``.
+128, which Adafactor factors; then Adafactor steps a small transformer,
+whose fused attention weights Flax holds at another rank. Then the
+optax-only names train a small net through both packages'
+``train_distributed``.
 """
 
 import jax
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from sparktorch_tpu.utils import serde as jax_serde
-from sparktorch_tpu_torch.utils import serde
+from sparktorch_tpu_torch.utils import optim, serde
 
 # f32 on both sides; the update rules are the same, rounded in another order.
 ATOL, RTOL = 1e-6, 1e-5
@@ -111,6 +113,54 @@ def test_optax_only_optimizers_name_the_roadmap(name):
             jax_serde.resolve_optimizer(name)
         with pytest.raises(TypeError, match="learning_rate"):
             serde.resolve_optimizer(name)([w])
+
+
+# A transformer's fused weights have another rank in Flax: qkv (d, 3, h,
+# hd) and its bias (3, h, hd), proj (h, hd, d). At hd = 64 optax factors
+# neither fused kernel (its second-largest dim is below 128); at hd = 128
+# it factors both, over other axes than the port's 2-D (3·h·hd, d) and
+# (d, h·hd) weights would give.
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("kwargs", [
+    {}, {"lr": 1e-2, "momentum": 0.9, "weight_decay_rate": 1e-3}])
+def test_adafactor_on_a_transformer_matches_optax(head_dim, kwargs):
+    from sparktorch_tpu.models import transformer as jax_tf
+    from sparktorch_tpu_torch.convert import state_dict_from_flax
+    from sparktorch_tpu_torch.models.transformer import (
+        CausalLM,
+        TransformerConfig,
+    )
+
+    cfg = dict(vocab_size=64, d_model=2 * head_dim, n_heads=2, n_layers=2,
+               d_ff=256, max_len=16, dtype="float32")
+    jax_model = jax_tf.CausalLM(jax_tf.TransformerConfig(**cfg))
+    ids = jnp.zeros((1, 16), jnp.int32)
+    params = jax.device_get(jax_model.init(jax.random.key(0), ids))["params"]
+    rng = np.random.default_rng(7)
+    grads = [jax.tree.map(lambda a: rng.standard_normal(
+        a.shape, dtype=np.float32), params) for _ in range(3)]
+
+    tx = jax_serde.resolve_optimizer("adafactor", kwargs)
+    p = jax.tree.map(jnp.asarray, params)
+    state = tx.init(p)
+    for g in grads:
+        updates, state = tx.update(jax.tree.map(jnp.asarray, g), state, p)
+        p = optax.apply_updates(p, updates)
+
+    module = CausalLM(TransformerConfig(**cfg))
+    module.load_state_dict(state_dict_from_flax(params, module))
+    spec = serde.ModelSpec(module=module, loss="cross_entropy",
+                           optimizer="adafactor", optimizer_params=kwargs)
+    named = dict(module.named_parameters())
+    opt = spec.make_optimizer(named.values(), optim.flax_shapes(module))
+    for g in grads:
+        for key, value in state_dict_from_flax(g, module).items():
+            named[key].grad = value
+        opt.step()
+    want = state_dict_from_flax(jax.device_get(p), module)
+    for key, value in named.items():
+        np.testing.assert_allclose(value.detach().numpy(), want[key].numpy(),
+                                   atol=1e-5, rtol=1e-5, err_msg=key)
 
 
 # Adafactor trains MnistCNN at width 128: its second convolution's kernel

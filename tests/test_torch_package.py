@@ -36,7 +36,9 @@ def test_import_pulls_in_no_jax():
         "sparktorch_tpu_torch.utils.checkpoint, sparktorch_tpu_torch.bench, "
         "sparktorch_tpu_torch.parallel, sparktorch_tpu_torch.parallel.launch, "
         "sparktorch_tpu_torch.native, sparktorch_tpu_torch.native.gang, "
-        "sparktorch_tpu_torch.ops.roofline, sparktorch_tpu_torch.native.rowpack\n"
+        "sparktorch_tpu_torch.ops.roofline, sparktorch_tpu_torch.native.rowpack, "
+        "sparktorch_tpu_torch.obs, sparktorch_tpu_torch.ft, "
+        "sparktorch_tpu_torch.serve.infer, sparktorch_tpu_torch.serve.router\n"
         "from sparktorch_tpu_torch import SparkTorch\n"
         "from sparktorch_tpu_torch.spark import localsession\n"
         "assert localsession.install()\n"
