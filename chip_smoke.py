@@ -35,16 +35,28 @@ the CPU path):
    for 6 steps on 2 rows of 8,192 seeded ids with next-token labels. Per
    step: 2·4 forward launches (remat recomputes each layer), 4 dq, 4
    dk/dv, 1 CE forward and 1 CE backward; every loss finite and the last
-   below the first. One step runs under torch.profiler;
+   below the first; its step time is taken with the obs hooks on (the
+   process bus) and no profiler. One step runs under torch.profiler.
+   Then the obs and chaos hooks on that LM through ``train_distributed``:
+   (a) TRACE_STEPS steps with a fresh ``Telemetry`` and a
+   ``profile_dir``: the Chrome trace's ``train_step`` ranges number
+   ``tracing.annotated_steps``, the five kernels launch 8/4/4/1/1 a step
+   inside them and never outside, ``train.steps`` and ``train.examples``
+   match the records; (b) the same fit without the profiler, its losses
+   within 1e-6·max|loss| of (a)'s; (c) a seeded ``worker.step`` kill at
+   step 2 raises ``ChaosKill`` after two steps;
 6. train parity: one step of that LM at s = 2048 with flash attention and
    the fused CE against the same weights with dense attention and the
    dense CE: loss within 1e-2 (relative), grad norm within 1e-2, and a
    gradient cosine above 0.99 for every parameter;
-7. bench: the eight configs of ``sparktorch_tpu_torch.bench.CONFIGS`` (the
-   port's benchmark entry: BASELINE configs 1–5, the MNIST-CNN headline,
-   the long-context LM and the MoE LM; ``resnet18_hogwild`` at the cut
-   depth of BENCH_DEPTH), each record printed on its own line and held to
-   the JAX config's record keys less the documented omissions, with
+7. bench: the configs of ``sparktorch_tpu_torch.bench.CONFIGS`` but
+   ``serve_online`` (the port's benchmark entry: BASELINE configs 1–5,
+   the MNIST-CNN headline, ``hogwild_wire``, the long-context LM and the
+   MoE LM; those of BENCH_DEPTH at a cut depth; ``hogwild_wire`` at the
+   JAX depth through the CLI's ``main`` with ``--telemetry-dump``, whose
+   dump must hold the ``bench/*`` spans), each record printed on its own
+   line and held to the JAX config's record keys less the documented
+   omissions, with
    8/4/4/1/1 launches per LM step (the dense 2k leg: the CE kernels
    only), 12/12/12/0/0 per BERT-base step, 0/0/0/1/1 per step of either
    ``moe_lm`` leg and none elsewhere;
@@ -85,10 +97,12 @@ the CPU path):
    parameter server — (a) ``train_async``, local, 1 worker (its rate is
    the bench's ``resnet18_hogwild`` record); (b)
    ``SparkTorch(mode="hogwild", partitions=4).fit`` and ``transform``; (c)
-   binary HTTP with bf16 pushes, 2 workers — and (d) ``train_distributed``
-   at the same minibatch; every loss finite, applies equal to pushes, the
-   loss falling in (a), (b) and (d); one iteration of (a) under
-   torch.profiler;
+   binary HTTP with bf16 pushes, 2 workers, on a run-scoped bus whose
+   ``GET /metrics`` scrape must equal its JSONL dump, with
+   ``param_server.applies`` equal to the workers' ``hogwild.pushes`` —
+   and (d) ``train_distributed`` at the same minibatch; every loss
+   finite, applies equal to pushes, the loss falling in (a), (b) and (d);
+   one iteration of (a) under torch.profiler;
 12. serve ResNet-50: ``resnet50()`` at 224×224×3 served over 2,048 rows,
    the first chunk's bf16 logits against the module in f32;
 13. serve ResNet-50 stream (BASELINE config 5): 8,192 seeded uint8 rows
@@ -202,6 +216,9 @@ LAUNCH = {
 }
 
 SLICE_ROWS, SLICE_SEQ, CHUNK = 2000, 128, 1024
+# The traced LM fit (train_lm_obs_phase): steps under torch.profiler, one
+# a chunk, so each step is one train_step range.
+TRACE_STEPS = 3
 
 # The JAX package's bench_long_context_lm (sparktorch_tpu/bench.py).
 LM = dict(vocab_size=32768, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
@@ -719,7 +736,10 @@ def profile_pass(torch, label, fn):
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_family, by_name = [], {}, {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # A train_step range (the trainers' step annotation) shows on the
+        # device timeline too; it is a span over kernels, not one.
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.is_user_annotation):
             continue
         start, end = evt.time_range.start, evt.time_range.end
         spans.append((start, end))
@@ -918,8 +938,9 @@ def train_lm_phase(torch):
     step_s = records[0]["step_time_s"]  # one read-back per chunk: its mean
     tokens_per_s = LM_BATCH * LM_SEQ / step_s
     log(f"train LM: {n} steps, losses {[round(x, 4) for x in losses]}; "
-        f"step {step_s * 1e3:.1f} ms = {tokens_per_s:,.0f} tokens/s "
-        f"(fit wall {wall:.2f} s incl. unpacking and H2D)")
+        f"step {step_s * 1e3:.1f} ms = {tokens_per_s:,.0f} tokens/s with "
+        f"the hooks on (the process bus, no profiler) (fit wall "
+        f"{wall:.2f} s incl. unpacking and H2D)")
 
     # One more step under the profiler, on the module as the fit built it.
     spec = deserialize_model(payload)
@@ -935,7 +956,144 @@ def train_lm_phase(torch):
     del module, opt, batch
     torch.cuda.empty_cache()
     return counts, dict(step_ms=step_s * 1e3, tokens_per_s=tokens_per_s,
-                        losses=losses)
+                        losses=losses), (payload, ids)
+
+
+def trace_kernel(name):
+    """The KERNELS key of a kernel event's name in a Chrome trace, or
+    None for any other kernel."""
+    for key, part in (("flash_fwd", "flash_fwd_"),
+                      ("flash_bwd_dq", "flash_bwd_dq_"),
+                      ("flash_bwd_dkv", "flash_bwd_dkv_"),
+                      ("ce_fwd", "ce_fwd_kernel"),
+                      ("ce_bwd", "ce_bwd_kernel")):
+        if part in name:
+            return key
+    return None
+
+
+def step_kernel_launches(path):
+    """From a torch.profiler Chrome trace: the number of ``train_step``
+    ranges, and each kernel's launches whose launch call (matched to the
+    kernel by its correlation id) lies inside one of them, and outside
+    all of them."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name") == "train_step" and e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    inside, outside = dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
+    for e in events:
+        key = trace_kernel(e["name"]) if e.get("cat") == "kernel" else None
+        if key is None:
+            continue
+        t = launched.get(e["args"].get("correlation"))
+        hit = t is not None and any(a <= t <= b for a, b in ranges)
+        (inside if hit else outside)[key] += 1
+    return len(ranges), inside, outside
+
+
+def train_lm_obs_phase(torch, payload, ids):
+    """Phase 5's LM through ``train_distributed`` with the obs and chaos
+    hooks: (a) TRACE_STEPS steps, one a chunk, with a fresh
+    ``Telemetry`` and a ``profile_dir``: the Chrome trace holds
+    ``tracing.annotated_steps`` ``train_step`` ranges, the five kernels
+    launch 8/4/4/1/1 a step inside them and never outside, and the bus's
+    ``train.steps`` and ``train.examples`` match the records; (b) the
+    same fit on the process bus and no profiler: its losses within
+    1e-6·max|loss| of (a)'s; (c) a seeded ``worker.step`` kill at step 2
+    raises ``ChaosKill`` there, after two steps."""
+    from sparktorch_tpu_torch.ft import ChaosConfig, ChaosKill, inject
+    from sparktorch_tpu_torch.obs import Telemetry
+    from sparktorch_tpu_torch.train.sync import train_distributed
+
+    x, y = ids[:, :-1].astype(np.float32), ids[:, 1:]
+    n = TRACE_STEPS
+    common = dict(labels=y, steps_per_call=1, device="cuda")
+    counts, out = {}, {}
+
+    tele = Telemetry(run_id="train_lm_traced")
+    trace_dir = os.path.join(SCRATCH, "lm_trace")
+    reset_counts()
+    t0 = time.perf_counter()
+    traced = train_distributed(payload, x, iters=n, telemetry=tele,
+                               profile_dir=trace_dir, **common)
+    fit_s = time.perf_counter() - t0
+    counts["train_lm_traced"] = read_counts()
+    expect_counts("train LM traced", counts["train_lm_traced"],
+                  lm_step_counts(n))
+    (name,) = os.listdir(trace_dir)
+    path = os.path.join(trace_dir, name)
+    size_mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    n_ranges, inside, outside = step_kernel_launches(path)
+    parse_s = time.perf_counter() - t0
+    shutil.rmtree(trace_dir)
+    snap = tele.snapshot()
+    annotated = snap["counters"]["tracing.annotated_steps"]
+    if not n_ranges == annotated == n:
+        raise AssertionError(f"train LM traced: {n_ranges} train_step ranges,"
+                             f" {annotated} annotated steps, {n} steps")
+    if inside != lm_step_counts(n) or any(outside.values()):
+        raise AssertionError(f"train LM traced: launches inside the ranges "
+                             f"{inside}, outside {outside}")
+    examples = sum(r["examples"] for r in traced.metrics)
+    if (snap["counters"]["train.steps"] != len(traced.metrics) == n
+            or snap["counters"]["train.examples"] != examples):
+        raise AssertionError(f"train LM traced: bus {snap['counters']}, "
+                             f"{len(traced.metrics)} records")
+    log(f"train LM traced: {n} steps, {n_ranges} train_step ranges == "
+        f"tracing.annotated_steps; launches inside them {inside} = "
+        f"8/4/4/1/1 a step, outside {outside}; train.steps "
+        f"{snap['counters']['train.steps']:.0f}, train.examples "
+        f"{examples:.0f}; trace {size_mb:.1f} MB (fit {fit_s:.1f} s with "
+        f"the export, parsed in {parse_s:.1f} s); spans "
+        f"{sorted(snap['spans'])}")
+
+    reset_counts()
+    plain = train_distributed(payload, x, iters=n, **common)
+    counts["train_lm_untraced"] = read_counts()
+    expect_counts("train LM untraced", counts["train_lm_untraced"],
+                  lm_step_counts(n))
+    a = np.asarray([r["loss"] for r in traced.metrics])
+    b = np.asarray([r["loss"] for r in plain.metrics])
+    diff, tol = float(np.abs(a - b).max()), 1e-6 * float(np.abs(b).max())
+    if not diff <= tol:
+        raise AssertionError(f"train LM traced vs untraced: losses {a} vs "
+                             f"{b}, max diff {diff:.3e} > {tol:.3e}")
+    step_ms = [1e3 * r["step_time_s"] for r in plain.metrics]
+    log(f"train LM untraced: losses {[round(v, 4) for v in b]}, max diff "
+        f"to traced {diff:.3e} (limit {tol:.3e}); one step a chunk, hooks "
+        f"on, no profiler: steps {[round(v, 2) for v in step_ms]} ms")
+
+    reset_counts()
+    records = []
+    with inject(ChaosConfig(kill_worker_at={0: 2})) as inj:
+        try:
+            train_distributed(payload, x, iters=4,
+                              metrics_hook=records.append, **common)
+        except ChaosKill as e:
+            killed = str(e)
+        else:
+            raise AssertionError("chaos: the worker.step kill did not fire")
+    counts["train_lm_chaos_kill"] = read_counts()
+    expect_counts("train LM chaos kill", counts["train_lm_chaos_kill"],
+                  lm_step_counts(2))
+    want = [{"site": "worker.step", "worker": 0, "step": 2}]
+    if inj.events != want or [r["iter"] for r in records] != [0, 1]:
+        raise AssertionError(f"chaos: events {inj.events}, records "
+                             f"{[r['iter'] for r in records]}")
+    log(f"train LM chaos: ChaosKill '{killed}' after steps "
+        f"{[r['iter'] for r in records]}; events {inj.events}")
+    torch.cuda.empty_cache()
+    out.update(traced_losses=a.tolist(), untraced_losses=b.tolist(),
+               max_loss_diff=diff, trace_mb=size_mb, ranges=n_ranges,
+               launches_in_ranges=inside, untraced_step_ms=step_ms,
+               chaos_events=inj.events)
+    return counts, out
 
 
 def train_parity_phase(torch):
@@ -1413,6 +1571,56 @@ def hogwild_iteration_profile(torch, payload, x, y):
         server.stop()
 
 
+def hogwild_scrape(torch, payload, tele, summary):
+    """Leg (c)'s bus served on ``GET /metrics`` by a parameter server
+    started on it after the run: the scrape parses to the values of the
+    bus's JSONL dump, and the server's applies equal the workers'
+    pushes and the summary's."""
+    import urllib.request
+
+    from sparktorch_tpu_torch.obs import (
+        parse_prometheus,
+        read_jsonl,
+        render_prometheus,
+    )
+    from sparktorch_tpu_torch.serve.param_server import (
+        ParameterServer,
+        ParamServerHttp,
+    )
+
+    server = ParameterServer(payload, telemetry=tele, device="cuda")
+    http = ParamServerHttp(server, port=0).start()
+    try:
+        with urllib.request.urlopen(http.url + "/metrics", timeout=30) as r:
+            scraped = parse_prometheus(r.read().decode())
+    finally:
+        http.stop()
+        server.stop()
+    path = os.path.join(SCRATCH, "hogwild_http.jsonl")
+    snap = tele.dump(path)
+    (line,) = read_jsonl(path)
+    os.remove(path)
+    dumped = parse_prometheus(render_prometheus(line))
+    if scraped != dumped:
+        diff = sorted(k for k in set(scraped) | set(dumped)
+                      if scraped.get(k) != dumped.get(k))
+        raise AssertionError(f"hogwild (c): /metrics differs from the dump "
+                             f"at {diff[:8]}")
+    counters = snap["counters"]
+    pushes = sum(v for k, v in counters.items()
+                 if k.startswith("hogwild.pushes"))
+    applies = counters["param_server.applies"]
+    if not applies == pushes == summary["hogwild_budget"]["pushes"]:
+        raise AssertionError(f"hogwild (c): {applies} applies, {pushes} "
+                             f"pushes on the bus, summary "
+                             f"{summary['hogwild_budget']['pushes']}")
+    log(f"hogwild (c) /metrics: {len(scraped)} series equal to the dump; "
+        f"param_server.applies {applies:.0f} == hogwild.pushes "
+        f"{pushes:.0f}; http_requests "
+        f"{ {k: v for k, v in counters.items() if 'http_requests' in k} }")
+    return dict(series=len(scraped), applies=applies, pushes=pushes)
+
+
 def hogwild_phase(torch, bench_rec):
     """BASELINE config 3: ResNet-18 through the parameter server, in
     three legs, and the sync trainer at the same minibatch, each on
@@ -1426,6 +1634,7 @@ def hogwild_phase(torch, bench_rec):
     counts of each leg's runs and the numbers."""
     from sparktorch_tpu_torch import SparkTorch, serialize_torch_obj
     from sparktorch_tpu_torch.models import resnet18
+    from sparktorch_tpu_torch.obs import Telemetry
     from sparktorch_tpu_torch.train.hogwild import train_async
     from sparktorch_tpu_torch.train.sync import train_distributed
 
@@ -1512,13 +1721,16 @@ def hogwild_phase(torch, bench_rec):
         est_runs.append(run)
     out["estimator"] = median_of("hogwild (b) estimator, 4 workers", est_runs)
 
+    tele = Telemetry(run_id="hogwild_http")
     reset_counts()
     result = train_async(payload, x, iters=HW_ITERS["http"], partitions=2,
                          transport="http", wire="binary", quant="bf16",
-                         **common)
+                         telemetry=tele, **common)
     counts["hogwild_http"] = add_counts({}, "hogwild (c) http")
     out["http"] = check_hogwild("(c) binary HTTP, bf16 pushes, 2 workers",
                                 result.metrics, result.summary, falls=False)
+    out["http"]["scrape"] = hogwild_scrape(torch, payload, tele,
+                                           result.summary)
 
     out["profile"] = hogwild_iteration_profile(torch, payload, x[:HW_MB * 2],
                                                y[:HW_MB * 2])
@@ -1790,34 +2002,87 @@ def bench_counts(name, rec):
     return NO_KERNELS
 
 
+def check_record_keys(bench, name, rec):
+    jax_keys, omitted, added = bench.RECORD_KEYS[name]
+    want = jax_keys - omitted
+    if not want <= set(rec) or not set(rec) - want <= added:
+        raise AssertionError(
+            f"bench {name}: missing {sorted(want - set(rec))}, "
+            f"unexpected {sorted(set(rec) - want - added)}")
+
+
+def bench_hogwild_wire_dump(torch, bench):
+    """``hogwild_wire`` at the JAX depth through the CLI's ``main`` with
+    ``--telemetry-dump``: the record's keys, the dump's ``bench/*`` spans
+    and the workers' counters on the process bus, no kernel launched."""
+    import contextlib
+    import io
+
+    from sparktorch_tpu_torch.obs import Telemetry, read_jsonl, set_telemetry
+
+    path = os.path.join(SCRATCH, "bench_telemetry.jsonl")
+    set_telemetry(Telemetry(run_id="bench"))
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            bench.main(["--config", "hogwild_wire", "--telemetry-dump", path])
+    finally:
+        set_telemetry(None)
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    (rec,) = [json.loads(line) for line in buf.getvalue().splitlines()]
+    rec.pop("ts"), rec.pop("device")
+    log(json.dumps(rec))
+    check_record_keys(bench, "hogwild_wire", rec)
+    expect_counts("bench hogwild_wire", got, NO_KERNELS)
+    (dump,) = read_jsonl(path)
+    os.remove(path)
+    spans, counters = dump["spans"], dump["counters"]
+    phases = {k: spans[f"bench/{k}"]["count"]
+              for k in ("data", "init", "compile_warmup", "measure")}
+    for leg in ("dill", "binary"):
+        if not (rec[leg]["pushes"] > 0 and np.isfinite(rec[leg]["final_loss"])
+                and rec[leg]["push_wire_s_per_push"] > 0):
+            raise AssertionError(f"bench hogwild_wire {leg}: {rec[leg]}")
+    if (set(phases.values()) != {1} or counters["hogwild.rounds"] != 3
+            or counters["param_server.applies"]
+            != sum(v for k, v in counters.items()
+                   if k.startswith("hogwild.pushes"))):
+        raise AssertionError(f"bench hogwild_wire dump: spans {phases}, "
+                             f"counters {counters}")
+    log(f"bench hogwild_wire: {wall:.1f} s; --telemetry-dump: "
+        f"{len(counters)} counters, spans {sorted(spans)}")
+    return got, rec
+
+
 def bench_phase(torch):
     """The configs of ``bench.CONFIGS`` (the port's benchmark entry; those
     of BENCH_DEPTH at a cut depth) but ``serve_online``, which its own
     phase runs, each record printed on a line of its own and held to the
     JAX config's keys less the documented omissions, with the launches
-    it made."""
+    it made; ``hogwild_wire`` runs once through the CLI with
+    ``--telemetry-dump``."""
     import gc
 
     from sparktorch_tpu_torch import bench
 
     records, counts = {}, {}
-    configs = {k: v for k, v in bench.CONFIGS.items() if k != "serve_online"}
-    for i, (name, config) in enumerate(configs.items()):
-        if i:
-            gc.collect()
-            torch.cuda.empty_cache()
+    counts["bench_hogwild_wire"], records["hogwild_wire"] = (
+        bench_hogwild_wire_dump(torch, bench))
+    configs = {k: v for k, v in bench.CONFIGS.items()
+               if k not in ("serve_online", "hogwild_wire")}
+    for name, config in configs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
         reset_counts()
         t0 = time.perf_counter()
         rec = config(**BENCH_DEPTH.get(name, {}))
         wall = time.perf_counter() - t0
         got = read_counts()
         log(json.dumps(rec))
-        jax_keys, omitted, added = bench.RECORD_KEYS[name]
-        want = jax_keys - omitted
-        if not want <= set(rec) or not set(rec) - want <= added:
-            raise AssertionError(
-                f"bench {name}: missing {sorted(want - set(rec))}, "
-                f"unexpected {sorted(set(rec) - want - added)}")
+        check_record_keys(bench, name, rec)
         rate = rec["examples_per_sec_per_chip"]
         if not (np.isfinite(rate) and rate > 0):
             raise AssertionError(f"bench {name}: rate {rate}")
@@ -3102,9 +3367,11 @@ def run_phases(torch) -> int:
     done("kernels")
     serve_counts, rows_per_s = slice_phase(torch)
     done("slice")
-    lm_counts, lm = train_lm_phase(torch)
+    lm_counts, lm, lm_fit = train_lm_phase(torch)
+    obs_counts, lm["obs"] = train_lm_obs_phase(torch, *lm_fit)
+    del lm_fit
     parity = train_parity_phase(torch)
-    done("train_lm and parity")
+    done("train_lm, obs and parity")
     bench_counts_by_path, bench = bench_phase(torch)
     done("bench")
     moe_counts, moe = moe_phase(torch)
@@ -3141,6 +3408,7 @@ def run_phases(torch) -> int:
                    "train_lm_streaming": stream_counts[name],
                    "train_lm_resume": resume_counts[name],
                    "quickstart_and_lazy_cnn": quick_counts[name],
+                   **{path: c[name] for path, c in obs_counts.items()},
                    **{path: c[name] for path, c in hogwild_counts.items()},
                    "serve_resnet50": r50_counts[name],
                    "serve_resnet50_stream": r50_stream_counts[name],

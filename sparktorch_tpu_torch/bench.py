@@ -10,12 +10,13 @@ Configs (each keeps the JAX config's sizes, seeds and record keys):
 5. ``resnet50_inference`` — ResNet-50 batch inference, device-resident and
    over a Parquet stream
 
-plus ``mnist_cnn_sync`` (the headline's workload), ``long_context_lm``
-(the flash kernels at s = 8192), ``moe_lm`` (an 8-expert switch
-causal LM beside its dense twin) and ``serve_online`` (the online
-serving tier's gates: continuous batching against the fixed-window
-``BatchPredictor`` under Poisson load, a replica kill, a live weight
-push). Weights are seeded, never pretrained.
+plus ``mnist_cnn_sync`` (the headline's workload), ``hogwild_wire``
+(the dill wire against the binary one on real sockets),
+``long_context_lm`` (the flash kernels at s = 8192), ``moe_lm`` (an
+8-expert switch causal LM beside its dense twin) and ``serve_online``
+(the online serving tier's gates: continuous batching against the
+fixed-window ``BatchPredictor`` under Poisson load, a replica kill, a
+live weight push). Weights are seeded, never pretrained.
 
 The sync configs run :func:`_sync_epoch_bench`: data-parallel over the
 mesh of :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` (the
@@ -41,23 +42,29 @@ Where the records differ from the JAX package's (``RECORD_KEYS`` below):
   they give the launches per step.
 - ``moe_lm`` leaves out the JAX record's trace keys (``comm_budget`` with
   its ``comm_s``, ``comm_fraction``, ``overlap_fraction``, ``comm_drift``):
-  they come from an analysed XLA capture, which waits for the profiler
-  port (ROADMAP, Queue 1, item 10).
+  they come from an analysed capture, which waits for the trace analyzer
+  (``obs/xprof.py``, ROADMAP, Queue 1, item 10, step 4).
 - ``serve_online``'s drift gate compares with the newest prior record,
   and every prior record is the JAX package's on a TPU (``BENCH_r*.json``,
   ``benchmarks/``), which may not carry over: its ``serve_drift`` is
   always ``{"status": "no_prior_record", "tolerance": 0.5}``.
 - Left out: ``resnet50_inference``'s ``measured_run_*`` (long-haul runs
   logged on the TPU rig), the headline's append to ``benchmarks/`` (the
-  port writes only where ``--log`` says), ``--telemetry-dump`` (ROADMAP,
-  Queue 1, item 10) and the non-BASELINE configs (item 11).
+  port writes only where ``--log`` says) and the other non-BASELINE
+  configs (item 11).
 
 Timing: the span a sample measures ends at a read-back of the loss,
 which waits for the card. Phase seconds come from a host timer that
 synchronizes the card at each phase's end.
 
+Each config's phases (``data``, ``init``, ``compile_warmup``,
+``measure``, ...) are ``bench/<phase>`` spans on the process-global bus,
+with the trainers' own spans and counters beneath them.
+
 CLI: ``python -m sparktorch_tpu_torch.bench [--config headline|all|<name>]
-[--log PATH]`` (or ``sparktorch-tpu-torch-bench``). With no CUDA device
+[--log PATH] [--telemetry-dump PATH]`` (or ``sparktorch-tpu-torch-bench``);
+``--telemetry-dump`` appends the bus's snapshot as one JSONL line after
+the records. With no CUDA device
 every config raises; the functions take ``device="cpu"`` for tests.
 """
 
@@ -73,6 +80,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from sparktorch_tpu_torch.obs import get_telemetry
 from sparktorch_tpu_torch.ops.roofline import (
     PEAK_FLOPS,
     attention_flops,
@@ -116,6 +124,11 @@ RECORD_KEYS = {
          "async_efficiency_http_vs_local", "http_push_wire_s_per_push",
          "phase_s", "step_time_p50_s", "step_time_p99_s",
          "step_time_mean_s", *_BUDGET_KEYS}, set(), set()),
+    "hogwild_wire": (
+        {"config", "unit", "value", "binary", "dill",
+         "push_bytes_ratio_dill_over_binary",
+         "pull_bytes_ratio_dill_over_binary", "push_wire_speedup",
+         "phase_s"}, set(), set()),
     "bert_dp": (
         {"config", "unit", "n_params", "n_params_embedding",
          "n_params_per_token", "achieved_tflops_per_chip", "mfu_honest",
@@ -166,20 +179,26 @@ def _resolve_device(device=None) -> torch.device:
 
 class _Phase:
     """Host seconds of a ``with`` block, the card synchronized at its
-    end (the analog of the JAX bench's ``bench/*`` spans)."""
+    end, recorded on the process-global bus as the JAX bench's
+    ``bench/<name>`` span (what ``--telemetry-dump`` writes out)."""
 
-    def __init__(self, dev: torch.device):
+    def __init__(self, dev: torch.device, name: str):
         self.dev = dev
         self.duration_s = 0.0
+        self._span = get_telemetry().span(f"bench/{name}")
 
     def __enter__(self):
+        self._span.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        self.duration_s = time.perf_counter() - self._t0
+        try:
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+            self.duration_s = time.perf_counter() - self._t0
+        finally:
+            self._span.__exit__(*exc)
 
 
 def _phase_s(**phases: _Phase) -> dict:
@@ -309,10 +328,10 @@ def _sync_epoch_bench(spec, x, y, batch_size: int, iters: int = 30,
     dev = _resolve_device(device)
     mesh = build_mesh()
     world, group = mesh.dp, mesh.group
-    with _Phase(dev) as p_data:
+    with _Phase(dev, "data") as p_data:
         batch, _ = handle_features(x, y)
         shards = _Shards(batch, mesh, dev, seed=0)
-    with _Phase(dev) as p_init:
+    with _Phase(dev, "init") as p_init:
         module, optimizer, loss_fn, _, _ = _dp_trainer(spec, spec, mesh, dev)
     steps_run = 0
 
@@ -323,7 +342,7 @@ def _sync_epoch_bench(spec, x, y, batch_size: int, iters: int = 30,
         steps_run += iters
         return steps[-1].loss
 
-    with _Phase(dev) as p_warm:
+    with _Phase(dev, "compile_warmup") as p_warm:
         cost = None
         if with_cost_analysis:
             cost = counted_flops_per_step(module, loss_fn, optimizer,
@@ -335,7 +354,7 @@ def _sync_epoch_bench(spec, x, y, batch_size: int, iters: int = 30,
 
     slopes = []  # per-step seconds, one sample per repeat
     n_long = max(chunks, 2)
-    with _Phase(dev) as p_measure:
+    with _Phase(dev, "measure") as p_measure:
         for _ in range(max(2, repeats)):
             t0 = time.perf_counter()
             float(call())
@@ -465,16 +484,16 @@ def bench_resnet18_hogwild(device=None, iters: int = 1024,
     from sparktorch_tpu_torch.train.hogwild import train_async
 
     dev = _resolve_device(device)
-    with _Phase(dev) as p_data:
+    with _Phase(dev, "data") as p_data:
         rng = np.random.default_rng(0)
         n, mb = 2048, 256
         x = rng.normal(0, 1, (n, 32, 32, 3)).astype(np.float32)
         y = rng.integers(0, 10, (n,)).astype(np.int32)
-    with _Phase(dev) as p_init:
+    with _Phase(dev, "init") as p_init:
         torch.manual_seed(0)
         spec = _spec(resnet18(num_classes=10), optimizer="sgd",
                      optimizer_params={"lr": 1e-2}, input_shape=(32, 32, 3))
-    with _Phase(dev) as p_warm:
+    with _Phase(dev, "compile_warmup") as p_warm:
         train_async(spec, x, labels=y, iters=8, mini_batch=mb, push_every=4,
                     device=dev)
 
@@ -495,7 +514,7 @@ def bench_resnet18_hogwild(device=None, iters: int = 1024,
                         "iters_recorded": n_rec, "dt": dt,
                         "final_loss": result.metrics[-1]["loss"]}, budget
 
-    with _Phase(dev) as p_measure:
+    with _Phase(dev, "measure") as p_measure:
         runs = sorted([_one_run() for _ in range(max(1, repeats))],
                       key=lambda r: r[0])
         rates = [r[0] for r in runs]
@@ -553,6 +572,88 @@ def bench_resnet18_hogwild(device=None, iters: int = 1024,
                                compile_warmup=p_warm, measure=p_measure),
                     "sync_twin": round(sum(sync["phase_s"].values()), 3)},
         **_steps_summary(times),
+    }
+
+
+def bench_hogwild_wire(device=None, iters: int = 128) -> dict:
+    """The JAX bench's ``hogwild_wire``: the same hogwild workload
+    (MnistMLP, 2,048 rows, minibatch 256, ``push_every=4``, ``iters``
+    iterations) over the dill wire, then the framed binary wire, both on
+    real sockets. The headline numbers are per operation — seconds and
+    bytes per push and per fresh pull, what the wire buys — with each
+    wire's end-to-end wall beside them."""
+    from sparktorch_tpu_torch.models import MnistMLP
+    from sparktorch_tpu_torch.train.hogwild import train_async
+
+    dev = _resolve_device(device)
+    with _Phase(dev, "data") as p_data:
+        rng = np.random.default_rng(0)
+        n, mb = 2048, 256
+        x = rng.normal(0, 1, (n, 784)).astype(np.float32)
+        y = rng.integers(0, 10, (n,)).astype(np.int32)
+    with _Phase(dev, "init") as p_init:
+        torch.manual_seed(0)
+        spec = _spec(MnistMLP(), optimizer="adam",
+                     optimizer_params={"lr": 1e-3}, input_shape=(784,))
+    with _Phase(dev, "compile_warmup") as p_warm:
+        train_async(spec, x, labels=y, iters=8, mini_batch=mb, push_every=4,
+                    device=dev)
+
+    wires: Dict[str, dict] = {}
+    with _Phase(dev, "measure") as p_measure:
+        for wire_fmt in ("dill", "binary"):
+            t0 = time.perf_counter()
+            result = train_async(spec, x, labels=y, iters=iters,
+                                 mini_batch=mb, push_every=4,
+                                 transport="http", wire=wire_fmt, seed=0,
+                                 device=dev)
+            wall = time.perf_counter() - t0
+            b = (result.summary or {}).get("hogwild_budget", {})
+            pushes = max(1, int(b.get("pushes", 0)))
+            fresh = max(1, int(b.get("pull_fresh", 0)))
+            wires[wire_fmt] = {
+                "wall_s": round(wall, 3),
+                "pull_s": round(b.get("pull_s", 0.0), 4),
+                "push_wire_s": round(b.get("push_wire_s", 0.0), 4),
+                "push_materialize_s": round(
+                    b.get("push_materialize_s", 0.0), 4),
+                "pull_mb": round(b.get("pull_bytes", 0) / 1e6, 3),
+                "push_mb": round(b.get("push_bytes", 0) / 1e6, 3),
+                "pulls": int(b.get("pulls", 0)),
+                "pull_fresh": int(b.get("pull_fresh", 0)),
+                "pushes": int(b.get("pushes", 0)),
+                "push_wire_s_per_push": round(
+                    b.get("push_wire_s", 0.0) / pushes, 5),
+                "pull_s_per_fresh_pull": round(
+                    b.get("pull_s", 0.0) / fresh, 5),
+                # Steps = pushes × push_every.
+                "push_bytes_per_step": round(
+                    b.get("push_bytes", 0)
+                    / max(1, int(b.get("pushes", 0)) * 4), 1),
+                "final_loss": result.metrics[-1]["loss"],
+            }
+
+    d, bn = wires["dill"], wires["binary"]
+    return {
+        "config": "hogwild_wire", "unit": "s/push",
+        "value": bn["push_wire_s_per_push"],
+        "binary": bn, "dill": d,
+        "push_bytes_ratio_dill_over_binary": round(
+            d["push_mb"] / max(bn["push_mb"], 1e-9), 3),
+        "pull_bytes_ratio_dill_over_binary": round(
+            d["pull_mb"] / max(bn["pull_mb"], 1e-9), 3),
+        "push_wire_speedup": round(
+            d["push_wire_s_per_push"]
+            / max(bn["push_wire_s_per_push"], 1e-9), 3),
+        "phase_s": {
+            **_phase_s(data=p_data, init=p_init, compile_warmup=p_warm,
+                       measure=p_measure),
+            # The hot-path budget the wire change targets, per wire.
+            "pull": round(bn["pull_s"], 4),
+            "push": round(bn["push_wire_s"] + bn["push_materialize_s"], 4),
+            "pull_dill": round(d["pull_s"], 4),
+            "push_dill": round(d["push_wire_s"] + d["push_materialize_s"], 4),
+        },
     }
 
 
@@ -672,7 +773,7 @@ def bench_resnet50_inference(device=None) -> dict:
     chunk = 256
     n_stream = chunk * 8
     with tempfile.TemporaryDirectory() as d:
-        with _Phase(dev) as p_data:
+        with _Phase(dev, "data") as p_data:
             x = rng.integers(0, 256, (chunk * 4, 224, 224, 3), dtype=np.uint8)
             path = os.path.join(d, "bench_stream.parquet")
             write_rows_parquet(
@@ -680,17 +781,17 @@ def bench_resnet50_inference(device=None) -> dict:
                 (rng.integers(0, 256, (chunk, 224, 224, 3), dtype=np.uint8)
                  for _ in range(n_stream // chunk)),
                 rows_per_group=chunk)
-        with _Phase(dev) as p_init:
+        with _Phase(dev, "init") as p_init:
             torch.manual_seed(0)
             predictor = BatchPredictor(
                 resnet50(), device=dev, chunk=chunk,
                 preprocess=lambda v: v.float() / 255.0,
                 postprocess=lambda out: out.argmax(-1).int())
-        with _Phase(dev) as p_warm:
+        with _Phase(dev, "compile_warmup") as p_warm:
             predictor.predict(x[:chunk])
         n_chips = 1  # one predictor on this process's card
 
-        with _Phase(dev) as p_measure:
+        with _Phase(dev, "measure") as p_measure:
             xd = torch.from_numpy(x).to(dev)  # device-resident: the chip
             rates = []
             for _ in range(3):
@@ -915,7 +1016,7 @@ def bench_serve_online(device=None, n_requests: int = 300) -> dict:
     overload = 2.0
     rng = np.random.default_rng(0)
 
-    with _Phase(dev) as p_init:
+    with _Phase(dev, "init") as p_init:
         # Throughput legs: an MLP big enough that one row costs real
         # compute, so batching has something to amortize.
         torch.manual_seed(0)
@@ -926,7 +1027,7 @@ def bench_serve_online(device=None, n_requests: int = 300) -> dict:
         clf_module = ClassificationNet(n_classes=2)
         xsmall = rng.normal(0, 1, (64, 10)).astype(np.float32)
 
-    with _Phase(dev) as p_warm:
+    with _Phase(dev, "compile_warmup") as p_warm:
         # Calibrate the SERIAL service time (the fixed-window tool's
         # capacity) after a warm-up, then pick the arrival rate to
         # overload it: the gate compares the designs under load.
@@ -981,7 +1082,7 @@ def bench_serve_online(device=None, n_requests: int = 300) -> dict:
             router.stop()
             replica.stop()
 
-    with _Phase(dev) as p_measure:
+    with _Phase(dev, "measure") as p_measure:
         bases, conts = [], []
         for _ in range(2):  # interleaved: host noise hits both legs
             bases.append(_baseline_leg())
@@ -1001,7 +1102,7 @@ def bench_serve_online(device=None, n_requests: int = 300) -> dict:
     p99_ratio = cont["p99_ms"] / max(base["p99_ms"], 1e-9)
 
     # -- seeded replica kill under load --------------------------------
-    with _Phase(dev) as p_kill:
+    with _Phase(dev, "replica_kill") as p_kill:
         kill_tele = Telemetry(run_id="serve_kill")
         policy = FtPolicy(restart=RestartPolicy(backoff_base_s=0.02,
                                                 backoff_max_s=0.1,
@@ -1040,7 +1141,7 @@ def bench_serve_online(device=None, n_requests: int = 300) -> dict:
             tier.stop()
 
     # -- mid-load weight push: bounded staleness + exactness -----------
-    with _Phase(dev) as p_push:
+    with _Phase(dev, "weight_push") as p_push:
         poll_s = 0.05
         staleness_bound_s = 20 * poll_s + 1.0
         clf = serialize_torch_obj(
@@ -1203,6 +1304,7 @@ CONFIGS: Dict[str, Callable[[], dict]] = {
     "mnist_cnn_sync": bench_mnist_cnn_sync,
     "lazy_cnn_sync": bench_lazy_cnn_sync,
     "resnet18_hogwild": bench_resnet18_hogwild,
+    "hogwild_wire": bench_hogwild_wire,
     "bert_dp": bench_bert_dp,
     "resnet50_inference": bench_resnet50_inference,
     "long_context_lm": bench_long_context_lm,
@@ -1246,11 +1348,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--log", default=None,
                         help="append the result records to this JSONL file")
     parser.add_argument("--telemetry-dump", default=None, metavar="PATH",
-                        help="not ported yet (ROADMAP, Queue 1, item 10)")
+                        help="append the run's full telemetry snapshot "
+                             "(counters, gauges, histogram and span "
+                             "roll-ups, the bench/* phase spans among "
+                             "them) as one JSONL line after the records")
     args = parser.parse_args(argv)
-    if args.telemetry_dump:
-        raise NotImplementedError("--telemetry-dump is not ported yet "
-                                  "(ROADMAP, Queue 1: obs/, item 10)")
 
     runs = {"headline": [_headline], "all": list(CONFIGS.values())}.get(
         args.config) or [CONFIGS[args.config]]
@@ -1270,6 +1372,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         with open(args.log, "a") as f:
             for rec in records:
                 f.write(json.dumps(rec) + "\n")
+    if args.telemetry_dump:
+        get_telemetry().dump(args.telemetry_dump)
 
 
 if __name__ == "__main__":

@@ -5,15 +5,18 @@ Named INJECTION POINTS sit behind the hot paths, and a
 config, when each point fires. :meth:`ChaosInjector.fire` gives the
 JAX package's verdicts for the same config and the same site calls.
 
-The port's injection points so far: ``serve.replica`` (kill and slow,
-in :meth:`~sparktorch_tpu_torch.serve.infer.InferenceReplica.submit`)
-and ``heartbeat.beat`` (the freeze, in
-:meth:`~sparktorch_tpu_torch.obs.heartbeat.HeartbeatEmitter.beat`).
-The sites in the modules that were ported before this one
-(``transport.request``, ``param_server.update``/``pull``,
-``worker.step``, ``data.batch``, ``train.rank``) have no injection
-point in the port yet (ROADMAP, Queue 1, item 9); their verdicts are
-evaluated here all the same.
+The port's injection points: ``serve.replica`` (kill and slow, in
+:meth:`~sparktorch_tpu_torch.serve.infer.InferenceReplica.submit`),
+``heartbeat.beat`` (the freeze, in
+:meth:`~sparktorch_tpu_torch.obs.heartbeat.HeartbeatEmitter.beat`),
+``transport.request`` (a dropped connection, in the binary wire
+client), ``param_server.pull`` and ``param_server.update`` (a torn pull
+body, a forced 500, in the parameter server's HTTP routes), and
+``worker.step``, ``data.batch`` and ``train.rank`` (kill, poison,
+straggle, in the sync, streaming and hogwild trainers' step loops).
+``fleet.shard`` and ``ctl.process`` wait for the fleet and the
+supervisor (ROADMAP, Queue 1, item 9); their verdicts are evaluated
+here all the same.
 
 Install is process-global (``with inject(config): ...``) because the
 faults must reach code deep inside worker threads without threading a

@@ -15,18 +15,27 @@ coordinator and the reverse). The typical flow:
 
 Heartbeats run on a daemon thread; a dead host flips every barrier into
 a :class:`GangFailure`, so surviving hosts fail fast instead of hanging
-in a collective. Not ported yet (ROADMAP, Queue 1): the rank-attributed
-heartbeat files (``HeartbeatEmitter``, item 10) and the HTTP exporter
-(``GangMetricsExporter``, item 9).
+in a collective. With a heartbeat directory (``heartbeat_dir=`` or the
+``SPARKTORCH_TPU_HEARTBEAT_DIR`` variable) each tick also publishes the
+rank's attributed heartbeat file
+(:class:`~sparktorch_tpu_torch.obs.heartbeat.HeartbeatEmitter`: rank,
+host, pid, the step the trainers last reported), which either
+package's ``gang_report`` reads. Not ported yet (ROADMAP, Queue 1): the
+HTTP exporter (``GangMetricsExporter``) and ``resize`` (item 9, step 3).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 from typing import List, Optional
 
 from sparktorch_tpu_torch.native.build import load_library
+from sparktorch_tpu_torch.obs.heartbeat import (
+    HEARTBEAT_DIR_ENV,
+    HeartbeatEmitter,
+)
 
 
 class GangFailure(RuntimeError):
@@ -149,9 +158,18 @@ class GangWorker:
     _HB_MAX_IO_FAILURES = 3
 
     def __init__(self, host: str, port: int, rank: int, address: str,
-                 timeout_ms: int = 30_000, heartbeat_interval_s: float = 2.0):
+                 timeout_ms: int = 30_000, heartbeat_interval_s: float = 2.0,
+                 heartbeat_dir: Optional[str] = None, telemetry=None):
         self._lib = _lib()
         self.rank = rank
+        # Rank-attributed liveness: the native protocol carries a
+        # liveness bit; the emitter adds who, where and at which step.
+        heartbeat_dir = heartbeat_dir or os.environ.get(HEARTBEAT_DIR_ENV)
+        self.heartbeat = (
+            HeartbeatEmitter(heartbeat_dir, rank, telemetry=telemetry)
+            if heartbeat_dir else None)
+        # A heartbeat file that cannot be written fails the gang check.
+        self._hb_error: Optional[BaseException] = None
         self._endpoint = (host, port, address, timeout_ms)
         # A fresh registration; the OK reply names the generation joined
         # (-1: a coordinator that predates generation tags) and the run id.
@@ -163,6 +181,13 @@ class GangWorker:
         buf = ctypes.create_string_buffer(256)
         n = self._lib.gang_client_run_id(self._handle, buf, len(buf))
         self.run_id: Optional[str] = buf.value.decode() if n > 0 else None
+        if self.run_id:
+            # The gang's run id on this rank's heartbeat records and
+            # telemetry events, so per-rank streams can be joined.
+            if self.heartbeat is not None:
+                self.heartbeat.set_run_id(self.run_id)
+            if telemetry is not None:
+                telemetry.set_run_id(self.run_id)
         # Heartbeats get their own connection, tagged with the generation
         # and run id just learned: the main one may sit in a barrier read.
         # Without it there is no failure detection, so refuse to start.
@@ -194,6 +219,13 @@ class GangWorker:
     def _heartbeat_loop(self, interval: float):
         io_failures = 0
         while not self._hb_stop.wait(interval):
+            if self.heartbeat is not None:
+                try:
+                    self.heartbeat.beat()
+                except OSError as e:
+                    self._hb_error = e
+                    self._hb_dead.set()
+                    return
             with self._hb_lock:
                 if self._hb_handle is None:
                     return
@@ -250,6 +282,9 @@ class GangWorker:
         """Raise :class:`GangFailure` if the gang has failed. Cheap (a
         local event): trainers call it between steps, so a dead host
         aborts the survivors before their next collective."""
+        if self._hb_error is not None:
+            raise GangFailure(f"rank {self.rank}: heartbeat file write "
+                              "failed") from self._hb_error
         if self.failed:
             raise GangFailure(
                 f"rank {self.rank}: gang failed (peer declared dead)")
@@ -273,6 +308,12 @@ class GangWorker:
 
     def close(self):
         self._hb_stop.set()
+        if self.heartbeat is not None:
+            # Join the heartbeat thread before the final beat, so a tick
+            # past its stop check cannot publish alive=True over the
+            # alive=False record a clean shutdown leaves.
+            self._hb_thread.join(timeout=5.0)
+            self.heartbeat.close()
         with self._hb_lock:
             if self._hb_handle:
                 self._lib.gang_client_close(self._hb_handle)

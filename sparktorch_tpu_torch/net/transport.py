@@ -10,8 +10,13 @@ residual fed into the next push (error feedback).
 
 It keeps the hogwild transport contract (``pull`` / ``push`` /
 ``post_loss`` / ``alive`` / ``stats``), and speaks to either package's
-server. Not ported (ROADMAP): the chaos and rpctrace hooks, and the
-fleet's ``pull_delta``.
+server. As in the JAX package, every attempt passes the
+``transport.request`` chaos site (an injected drop takes the real
+reconnect path), each redial counts on ``transport_reconnects_total``,
+and pushes carry the run's 16-bit tag (:func:`run_tag`): a pulled frame
+tagged by another run counts on ``transport_run_tag_mismatches_total``.
+Not ported yet (ROADMAP, Queue 1): the rpctrace hooks (item 10, step 4)
+and the fleet's ``pull_delta`` (item 9, step 2).
 """
 
 from __future__ import annotations
@@ -19,12 +24,14 @@ from __future__ import annotations
 import http.client
 import json
 import time
+import zlib
 from typing import Any, Dict, Optional, Tuple
 from urllib.parse import urlsplit
 
 import numpy as np
 import torch
 
+from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.net import wire
 
 _TIMEOUT = 10.0        # hogwild.py:34-38 parity for push/poll
@@ -42,6 +49,16 @@ def new_phase_stats() -> dict:
         "push_bytes": 0, "pushes": 0,
         "poll_s": 0.0, "reconnects": 0,
     }
+
+
+def run_tag(run_id: Optional[str]) -> int:
+    """The 16-bit correlation tag of ``run_id`` for the wire header's
+    reserved bytes (the JAX package's ``obs.collector.run_tag``): 0 is
+    "untagged", so a real run id always maps to a nonzero tag."""
+    if not run_id:
+        return 0
+    tag = zlib.crc32(str(run_id).encode()) & 0xFFFF
+    return tag or 1
 
 
 class TransportError(RuntimeError):
@@ -64,7 +81,8 @@ class BinaryTransport:
     """Binary-wire client for one hogwild worker. Not thread-safe: each
     worker owns its transport, its connection and its residuals."""
 
-    def __init__(self, url: str, quant: Optional[str] = "bf16"):
+    def __init__(self, url: str, quant: Optional[str] = "bf16",
+                 telemetry=None, run_id: Optional[str] = None):
         parts = urlsplit(url if "//" in url else f"http://{url}")
         if parts.scheme not in ("", "http"):
             raise ValueError(f"BinaryTransport speaks http only, got {url!r}")
@@ -77,7 +95,19 @@ class BinaryTransport:
         self._residuals: Optional[Dict[Tuple[str, ...], np.ndarray]] = (
             {} if quant is not None else None)
         self.stats = new_phase_stats()
+        # The bus for the reconnect and run-tag counters (the
+        # process-global one, resolved at first use, when None).
+        self.telemetry = telemetry
+        self.run_tag = run_tag(run_id)
         self._conn: Optional[http.client.HTTPConnection] = None
+
+    def _count(self, name: str) -> None:
+        if self.telemetry is None:
+            from sparktorch_tpu_torch.obs import get_telemetry
+
+            self.telemetry = get_telemetry()
+        self.telemetry.counter(name, labels={"host": self.host,
+                                             "port": self.port})
 
     # -- connection management ---------------------------------------------
 
@@ -121,6 +151,12 @@ class BinaryTransport:
                     "attempts") from last
             conn = self._connection(timeout)
             try:
+                act = _chaos.fire("transport.request", method=method,
+                                  path=path, attempt=attempt)
+                if act and act.get("drop"):
+                    # An injected connection loss fails this attempt the
+                    # way a server-closed keep-alive socket would.
+                    raise ConnectionResetError("chaos: connection dropped")
                 conn.request(method, path, body=body, headers=headers or {})
                 resp = conn.getresponse()
                 return resp.status, resp.read()
@@ -133,6 +169,7 @@ class BinaryTransport:
                 self._drop_connection()
                 last = e
             self.stats["reconnects"] += 1
+            self._count("transport_reconnects_total")
             if attempt + 1 < _RETRIES:
                 time.sleep(_BACKOFF_S * (2 ** attempt))
         raise TransportError(
@@ -157,6 +194,9 @@ class BinaryTransport:
             raise TransportError(f"/parameters.bin -> {status}")
         st["pull_fresh"] += 1
         st["pull_bytes"] += len(body)
+        tag = wire.frame_run_tag(body)
+        if tag and self.run_tag and tag != self.run_tag:
+            self._count("transport_run_tag_mismatches_total")
         return wire.decode(body)
 
     def push(self, grads) -> None:
@@ -170,7 +210,7 @@ class BinaryTransport:
             leaves, _ = wire.quantize_tree(host, self.quant, self._residuals)
         else:
             leaves = wire.flatten_tree(host)
-        buffers = wire.encode(leaves)
+        buffers = wire.encode(leaves, run_tag=self.run_tag)
         nbytes = wire.frame_nbytes(buffers)
         t1 = time.perf_counter()
         st["push_materialize_s"] += t1 - t0

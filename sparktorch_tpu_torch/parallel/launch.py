@@ -10,9 +10,12 @@
    between steps: a dead host raises ``GangFailure`` on the survivors
    instead of wedging them in the next collective.
 
-A world of one short-circuits all of it. Not ported yet (ROADMAP,
-Queue 1): ``ft_policy`` and ``controller`` (item 9), ``telemetry``
-(item 10).
+A world of one short-circuits all of it. ``telemetry=`` reaches the
+gang worker: the gang's run id lands on the bus, and with a heartbeat
+directory (``SPARKTORCH_TPU_HEARTBEAT_DIR``) each rank publishes its
+attributed heartbeat file, on which :func:`notify_gang_step` records
+the trainers' progress. Not ported yet (ROADMAP, Queue 1): ``ft_policy``
+and ``controller`` (item 9, step 3).
 """
 
 from __future__ import annotations
@@ -50,11 +53,18 @@ def check_gang() -> None:
 
 
 def notify_gang_step(step: int) -> None:
-    """Where the trainers publish their progress on the gang heartbeat,
-    as the reference's do. The rank-attributed heartbeat records that
-    carry it (``obs/heartbeat.py``) are not ported yet (ROADMAP, Queue
-    1, item 10), so there is nothing to publish to."""
-    del step
+    """Publish this process's training progress on its gang heartbeat
+    (rank- and host-attributed, ``obs/heartbeat.py``), so any process
+    sharing the heartbeat directory can read per-rank step skew. No-op
+    without an active gang or a heartbeat directory. The trainers call
+    it beside :func:`check_gang`, once per dispatched chunk: a file
+    write only when heartbeats are on."""
+    worker = _ACTIVE_WORKER
+    if worker is None or worker.closed:
+        return
+    hb = getattr(worker, "heartbeat", None)
+    if hb is not None:
+        hb.notify_step(step)
 
 
 def _local_ip() -> str:
@@ -94,13 +104,12 @@ def bringup_multihost(
     ``start_coordinator`` says otherwise (an external process already
     runs one). ``dist_port`` is where rank 0 serves the process group's
     TCP store (NCCL with a card, gloo without, unless ``backend``
-    names one).
+    names one). ``telemetry`` is this rank's bus: the gang worker stamps
+    the gang's run id on it and mirrors its heartbeats there.
     """
     if ft_policy is not None or controller:
         raise _not_ported("ft_policy and controller",
                           "the ft supervisor and ctl/, item 9")
-    if telemetry is not None:
-        raise _not_ported("telemetry", "obs/, item 10")
     if world_size <= 1:
         return None, None
 
@@ -123,7 +132,7 @@ def bringup_multihost(
                                           "127.0.0.1")
 
     worker = GangWorker(coordinator_host, gang_port, rank,
-                        f"{_local_ip()}:{dist_port}")
+                        f"{_local_ip()}:{dist_port}", telemetry=telemetry)
     worker.barrier(0)  # the whole gang is here
     peers = worker.world()
     initialize_distributed(peers[0], num_processes=world_size,

@@ -28,9 +28,15 @@ swap, and applies serialise with the workers' compute on the card.
 
 :class:`ParamServerHttp` serves the reference's routes plus the binary
 ones (``/parameters.bin`` with a 304 for a current client,
-``/update.bin``, ``/losses.json``). Not ported yet (ROADMAP, Queue 1):
-the ``/metrics``, ``/telemetry`` and ``/delta.bin`` routes, and the
-rpctrace and goodput hooks.
+``/update.bin``, ``/losses.json``) and the server's telemetry:
+``GET /metrics`` (Prometheus text) and ``GET /telemetry`` (the same
+snapshot as JSON). The server records the JAX package's
+``param_server.*`` names into its bus (its own unless the caller passes
+one), and hosts the ``param_server.pull`` (a torn pull body) and
+``param_server.update`` (a forced 500) chaos sites. Not ported yet
+(ROADMAP, Queue 1): the ``/delta.bin`` route and the ``fleet.shard``
+chaos site (item 9, step 2), and the rpctrace and goodput hooks (item
+10, step 4).
 """
 
 from __future__ import annotations
@@ -48,8 +54,13 @@ import dill
 import numpy as np
 import torch
 
+from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.inference import _resolve_device
 from sparktorch_tpu_torch.net import wire as binwire
+from sparktorch_tpu_torch.net.transport import run_tag
+from sparktorch_tpu_torch.obs.prom import CONTENT_TYPE as PROM_CONTENT_TYPE
+from sparktorch_tpu_torch.obs.prom import render_prometheus
+from sparktorch_tpu_torch.obs.telemetry import Telemetry
 from sparktorch_tpu_torch.utils.early_stopper import EarlyStopping
 from sparktorch_tpu_torch.utils.locks import VersionedSlot
 from sparktorch_tpu_torch.utils.optim import flax_shapes
@@ -90,8 +101,11 @@ class ParameterServer:
 
     def __init__(self, torch_obj, window_len: int = 3,
                  early_stop_patience: int = -1, acquire_lock: bool = True,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, telemetry=None):
         self.spec: ModelSpec = deserialize_model(torch_obj)
+        # A server-scoped bus unless the caller brings one: each
+        # server's counters are its own, and /metrics serves this one.
+        self.telemetry = telemetry or Telemetry(run_id="param_server")
         self.device = _resolve_device(device)
         self.acquire_lock = acquire_lock  # parity knob; the single
         # writer thread always serialises applies.
@@ -129,7 +143,11 @@ class ParameterServer:
                        ) -> Optional[Tuple[int, Dict[str, torch.Tensor]]]:
         """The (version, snapshot) pair, or None when the client holds
         the current version (``GET /parameters``, server.py:93-100)."""
-        return self.slot.read_if_newer(have_version)
+        snap = self.slot.read_if_newer(have_version)
+        self.telemetry.counter("param_server.pulls")
+        if snap is not None:
+            self.telemetry.counter("param_server.pull_fresh")
+        return snap
 
     def model_state(self) -> Dict[str, torch.Tensor]:
         return self._model_state
@@ -150,15 +168,19 @@ class ParameterServer:
             raise RuntimeError("parameter server failed") from self._failed
         done = threading.Event() if wait else None
         self._queue.put((grads, done))
+        self.telemetry.counter("param_server.pushes")
+        self.telemetry.gauge("param_server.queue_depth", self._queue.qsize())
         if done is not None and not done.wait(timeout):
             raise TimeoutError("parameter server apply timed out")
 
-    def _apply(self, grads) -> None:
+    def _apply(self, grads) -> int:
+        """One optimizer step on the master weights, published as a new
+        snapshot; returns the version the step started from."""
         with torch.no_grad():
             for name, p in self._master.items():
                 p.grad = as_tensor(grads[name], p)
             self._opt.step()
-            self.slot.swap(snapshot(self._master))
+            return self.slot.swap(snapshot(self._master)) - 1
 
     def _apply_loop(self):
         while self._running:
@@ -168,11 +190,16 @@ class ParameterServer:
                 continue
             try:
                 t0 = time.perf_counter()
-                self._apply(grads)
-                self.apply_s += time.perf_counter() - t0
+                version = self._apply(grads)
+                dt = time.perf_counter() - t0
+                self.apply_s += dt
                 self._applied += 1
+                self.telemetry.counter("param_server.applies")
+                self.telemetry.observe("param_server.apply_s", dt)
+                self.telemetry.gauge("param_server.version", version + 1)
             except Exception as e:  # tolerate a bounded error count
                 self._errors += 1
+                self.telemetry.counter("param_server.apply_errors")
                 if self._errors > MAX_TOLERATED_ERRORS:
                     self._failed = e
                     self._running = False
@@ -192,6 +219,7 @@ class ParameterServer:
     def post_loss(self, loss: float) -> bool:
         """Windowed-average early-stop vote; True => stop
         (``POST /losses``, server.py:102-123)."""
+        self.telemetry.counter("param_server.losses_posted")
         with self._loss_lock:
             if self._stop_flag:
                 return True
@@ -274,7 +302,9 @@ class ParamServerHttp:
     ``{"stop": bool}``); and the binary routes ``GET /parameters.bin``
     (a wire frame, 304 when the client is current), ``POST /update.bin``
     (400 on a malformed frame) and ``POST /losses.json``. Both pull
-    routes render from one host copy per version.
+    routes render from one host copy per version. ``GET /metrics``
+    serves the server's bus as Prometheus text and ``GET /telemetry``
+    the same snapshot as JSON.
     """
 
     def __init__(self, server: ParameterServer, host: str = "127.0.0.1",
@@ -287,9 +317,14 @@ class ParamServerHttp:
 
     def start(self):
         ps = self.server
+        tele = ps.telemetry
         cache: Dict[str, Any] = {"version": None, "host": None,
                                  "dill": None, "bin": None}
         cache_lock = threading.Lock()
+        # Frames this server sends carry the tag of its bus's run id; a
+        # push tagged by another run is counted, and applied all the
+        # same (the tag is a join key, not an access check).
+        server_tag = run_tag(tele.run_id)
 
         def cached_body(fmt: str) -> Tuple[int, bytes]:
             """(version, body) from one slot read; the host copy and
@@ -303,8 +338,17 @@ class ParamServerHttp:
                     cache[fmt] = (
                         dill.dumps((version, cache["host"])) if fmt == "dill"
                         else binwire.frame_bytes(binwire.encode(
-                            cache["host"], version=version)))
+                            cache["host"], version=version,
+                            run_tag=server_tag)))
                 return version, cache[fmt]
+
+        def record_wire(route: str, direction: str, nbytes: int,
+                        t0: float) -> None:
+            """Per-route bytes and latency on the bus."""
+            tele.counter("param_server.wire_bytes_total", nbytes,
+                         labels={"route": route, "dir": direction})
+            tele.observe("param_server.wire_latency_s",
+                         time.perf_counter() - t0, labels={"route": route})
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -324,39 +368,69 @@ class ParamServerHttp:
 
             def do_GET(self):
                 route = self.path.split("?", 1)[0]
+                tele.counter("param_server.http_requests",
+                             labels={"route": route})
                 if route == "/":
                     self._send(200, b"sparktorch-tpu parameter server")
                 elif route in ("/parameters", "/parameters.bin"):
+                    t0 = time.perf_counter()
                     have = int(self.headers.get("X-Have-Version", "-1"))
                     binary = route.endswith(".bin")
                     version, body = cached_body("bin" if binary else "dill")
                     if version <= have:
                         self._send(304 if binary else 204)
-                    else:
-                        self._send(200, body, binwire.CONTENT_TYPE
-                                   if binary else None)
+                        record_wire(route, "tx", 0, t0)
+                        return
+                    act = _chaos.fire("param_server.pull", route=route)
+                    if act and act.get("truncate"):
+                        # A torn reply whose declared length is honest
+                        # for the bytes sent: the client's frame check
+                        # must catch it.
+                        body = body[: max(1, len(body) // 2)]
+                    self._send(200, body, binwire.CONTENT_TYPE
+                               if binary else None)
+                    record_wire(route, "tx", len(body), t0)
+                elif route == "/metrics":
+                    self._send(200, render_prometheus(tele.snapshot()).encode(),
+                               PROM_CONTENT_TYPE)
+                elif route == "/telemetry":
+                    self._send(200, json.dumps(tele.snapshot()).encode(),
+                               "application/json")
                 else:
                     self._send(404)
 
             def do_POST(self):
                 route = self.path.split("?", 1)[0]
+                tele.counter("param_server.http_requests",
+                             labels={"route": route})
                 raw = self.rfile.read(int(self.headers.get("Content-Length",
                                                            "0")))
                 if route in ("/update", "/update.bin"):
+                    t0 = time.perf_counter()
+                    binary = route == "/update.bin"
                     try:
-                        grads = (binwire.decode(raw)[1]
-                                 if route == "/update.bin"
+                        grads = (binwire.decode(raw)[1] if binary
                                  else dill.loads(raw))
                     except Exception:
                         # A malformed body is the client's fault: 400,
                         # never counted against the apply budget.
                         self._send(400)
                         return
+                    if binary:
+                        tag = binwire.frame_run_tag(raw)
+                        if tag and server_tag and tag != server_tag:
+                            tele.counter(
+                                "param_server.run_tag_mismatches_total")
                     try:
+                        # A chaos 500 takes the path a failed apply
+                        # takes.
+                        _chaos.fire("param_server.update", route=route)
                         ps.push_gradients(grads)
-                        self._send(200, b"OK")
                     except Exception:
                         self._send(500)
+                        return
+                    self._send(200, b"OK")
+                    record_wire(route, "rx", len(raw), t0)
                 elif route == "/losses":
                     stop = ps.post_loss(dill.loads(raw))
                     self._send(200, dill.dumps({"stop": bool(stop)}))

@@ -30,10 +30,23 @@ two packages agree step for step only on full batches.
 :func:`run_hogwild_worker` is one worker as a process of its own (a
 Spark executor, or any process given the server's URL).
 
+Telemetry and chaos, as in the JAX package: the driver, the server and
+every worker record into one bus (``telemetry``, default the
+process-global one): the ``hogwild/data_prep`` span; per worker the
+``hogwild.iters`` and ``hogwild.pushes`` counters and the
+``hogwild.pulled_version`` gauge, labelled by worker, bumped once per
+push window (never per launch), and each round's ``hogwild.<phase>``
+histograms; per round ``hogwild.round_s`` and ``hogwild.rounds``; the
+server's ``param_server.*`` names. Each grad window is a ``train_step``
+range (``profile_dir`` captures a ``torch.profiler`` trace of the
+rounds). The chaos sites ``worker.step``, ``data.batch`` and
+``train.rank`` fire before each window's pull.
+
 Not ported yet (ROADMAP, Queue 1): ``shards>1`` and ``pull_quant`` (the
-sharded fleet), ``supervise``/``ft_policy``, ``telemetry`` and
-``profile_dir``, and ``run_hogwild_worker``'s heartbeat, cancel and
-telemetry context.
+sharded fleet, item 9 step 2), ``supervise``/``ft_policy`` and
+``run_hogwild_worker``'s heartbeat and cancel context (the ft
+supervisor, item 9 step 3), and the goodput and health hooks (item 10,
+step 4).
 """
 
 from __future__ import annotations
@@ -41,7 +54,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
-import logging
 import os
 import tempfile
 import threading
@@ -54,9 +66,11 @@ import dill
 import numpy as np
 import torch
 
+from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.inference import _resolve_device
 from sparktorch_tpu_torch.ml.estimator import _not_ported
 from sparktorch_tpu_torch.models.transformer import collect_moe
+from sparktorch_tpu_torch.obs import get_logger, get_telemetry
 from sparktorch_tpu_torch.net.transport import (
     BinaryTransport,
     new_phase_stats,
@@ -80,8 +94,9 @@ from sparktorch_tpu_torch.utils.serde import (
     deserialize_model,
     meta_copy,
 )
+from sparktorch_tpu_torch.utils.tracing import profile_run, step_annotation
 
-log = logging.getLogger("sparktorch_tpu_torch.train.hogwild")
+log = get_logger("sparktorch_tpu_torch.train.hogwild")
 
 _HTTP_TIMEOUT = 10.0  # hogwild.py:34-38 parity (10 s timeout, 1 retry)
 _HTTP_PULL_TIMEOUT = 180.0
@@ -277,16 +292,28 @@ def load_params(module: torch.nn.Module, params: Dict[str, Any]) -> None:
         torch._foreach_copy_(dst, src)
 
 
+_PHASE_HISTOGRAMS = ("pull_s", "pull_place_s", "dispatch_s",
+                     "push_materialize_s", "push_wire_s", "poll_s",
+                     "drain_s", "loop_s")
+
+
 def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
                  grad_step, shard: DataBatch,
                  val_shard: Optional[DataBatch], iters: int, verbose: int,
                  early_stop: bool, seed: int, records: List[dict],
                  errors: List[BaseException], push_every: int = 1,
                  eval_loss=None, grad_windows=None,
-                 phase_out: Optional[List[dict]] = None):
+                 phase_out: Optional[List[dict]] = None, telemetry=None,
+                 phase_histograms: bool = True):
     """One worker's round: pull → gradient (or a window of them) →
     push, ``iters`` times. Losses stay on the device until the round
-    ends, unless ``verbose`` or the early stop needs one now."""
+    ends, unless ``verbose`` or the early stop needs one now. The
+    worker's counters go to ``telemetry`` (default: the process-global
+    bus) once per window; with ``phase_out`` and ``phase_histograms``
+    its round's phase seconds are mirrored there too."""
+    tele = telemetry or get_telemetry()
+    labels = {"worker": worker_id}
+    dev = shard.x.device
     try:
         transport.stats = new_phase_stats()  # per-round budget
         generator = torch.Generator().manual_seed(seed + worker_id)
@@ -297,6 +324,13 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
         t_place = t_dispatch = 0.0
         t_loop0 = time.perf_counter()
         while it < iters:
+            # The chaos sites, before the pull (this loop's fence): a
+            # seeded kill lands in ``errors`` like any real failure.
+            _chaos.fire("worker.step", worker=worker_id, step=it)
+            act = _chaos.fire("data.batch", worker=worker_id, step=it)
+            if act and act.get("poison"):
+                shard = _chaos.poison_batch(shard)
+            _chaos.straggle(worker_id, it)
             snap = transport.pull(have_version)
             if snap is not None:
                 have_version, params = snap
@@ -305,14 +339,18 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
                 t_place += time.perf_counter() - t0
             k = min(window_k, iters - it)
             t0 = time.perf_counter()
-            if window_k > 1 and grad_windows is not None:
-                fn = grad_windows[0] if k == window_k else grad_windows[1]
-                grads, losses = fn(module, shard, generator)
-            else:
-                k = 1
-                grads, losses = grad_step(module, shard, generator)
+            with step_annotation(it, telemetry=tele, device=dev):
+                if window_k > 1 and grad_windows is not None:
+                    fn = grad_windows[0] if k == window_k else grad_windows[1]
+                    grads, losses = fn(module, shard, generator)
+                else:
+                    k = 1
+                    grads, losses = grad_step(module, shard, generator)
             t_dispatch += time.perf_counter() - t0
             transport.push(grads)
+            tele.counter("hogwild.iters", k, labels=labels)
+            tele.counter("hogwild.pushes", labels=labels)
+            tele.gauge("hogwild.pulled_version", have_version, labels=labels)
             pending.append((it, k, have_version, losses, time.perf_counter()))
             it += k
             if verbose:
@@ -343,6 +381,13 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
                       drain_s=time.perf_counter() - t_drain0,
                       loop_s=time.perf_counter() - t_loop0, iters=it)
             phase_out.append(st)
+            if phase_histograms:
+                # The round's phase budget on the bus, beside the
+                # counters bumped in the loop.
+                for phase in _PHASE_HISTOGRAMS:
+                    if st.get(phase):
+                        tele.observe(f"hogwild.{phase}", float(st[phase]),
+                                     labels=labels)
     except BaseException as e:  # raised again by train_async
         errors.append(e)
 
@@ -421,7 +466,11 @@ def train_async(
     ``early_stop_patience`` counts windows. ``wire`` picks the HTTP
     wire (``binary`` or ``dill``); binary pushes are bfloat16 unless
     ``quant`` says ``int8`` or ``compress=False`` ships float32.
-    ``mesh`` is accepted for the JAX signature and unused.
+    ``mesh`` is accepted for the JAX signature and unused. The server
+    and the workers record into ``telemetry`` (default: the
+    process-global bus), so one ``/metrics`` scrape or JSONL dump tells
+    the whole run; ``profile_dir`` captures a ``torch.profiler`` trace of
+    the worker rounds there.
     """
     for setting, bad, item in (
             ("shards>1", shards and shards > 1,
@@ -429,9 +478,7 @@ def train_async(
             ("pull_quant", pull_quant is not None,
              "the sharded fleet, serve/fleet.py"),
             ("supervise/ft_policy", supervise or ft_policy is not None,
-             "the ft supervisor"),
-            ("telemetry", telemetry is not None, "the obs hooks"),
-            ("profile_dir", profile_dir is not None, "the obs hooks")):
+             "the ft supervisor")):
         if bad:
             raise _not_ported(f"train_async {setting}", item)
     if transport not in ("local", "http"):
@@ -440,9 +487,11 @@ def train_async(
     if transport == "http" and wire not in ("binary", "dill"):
         raise ValueError(f"unknown wire {wire!r}; use 'binary' or 'dill'")
     dev = _resolve_device(device)
+    tele = telemetry or get_telemetry()
     spec = deserialize_model(torch_obj)
-    train_batch, val_batch = handle_features(data, labels, validation_pct,
-                                             seed)
+    with tele.span("hogwild/data_prep"):
+        train_batch, val_batch = handle_features(data, labels,
+                                                 validation_pct, seed)
     if spec.input_shape is None:
         spec.input_shape = tuple(train_batch.x.shape[1:])
     devices = ([dev] if dev.type != "cuda" else
@@ -450,11 +499,15 @@ def train_async(
                 for j in range(torch.cuda.device_count())])
     n_workers = partitions if partitions and partitions > 0 else len(devices)
 
+    # The server records into the run's bus too: pulls, pushes and
+    # applies beside the workers' iterations.
     server = ParameterServer(spec, window_len=n_workers,
                              early_stop_patience=early_stop_patience,
-                             acquire_lock=acquire_lock, device=dev, seed=seed)
+                             acquire_lock=acquire_lock, device=dev, seed=seed,
+                             telemetry=tele)
     http: Optional[ParamServerHttp] = None
     transports: List[Any] = []
+    profiler = None
     try:
         if transport == "http":
             http = ParamServerHttp(server, port=port).start()
@@ -464,7 +517,11 @@ def train_async(
             else:
                 push_quant = quant if quant else ("bf16" if compress
                                                   else None)
-                transports = [BinaryTransport(http.url, quant=push_quant)
+                # The run's tag rides every frame: a worker aimed at
+                # another run's server is counted, never silent.
+                transports = [BinaryTransport(http.url, quant=push_quant,
+                                              telemetry=tele,
+                                              run_id=tele.run_id)
                               for _ in range(n_workers)]
             if not transports[0].alive():  # torch_distributed.py:326
                 raise RuntimeError(f"parameter server at {http.url} is down")
@@ -491,6 +548,10 @@ def train_async(
         phase_stats: List[dict] = []
         x, y, w = (a.numpy() for a in train_batch)
         shuffle_rng = np.random.default_rng(seed + 1)
+        # Exited in the outer finally, so a failed round still writes
+        # its trace.
+        profiler = profile_run(profile_dir, telemetry=tele)
+        profiler.__enter__()
         for round_idx in range(max(1, partition_shuffles)):
             # Every round shuffles, round 0 included (the reference's
             # _fit always repartitions, torch_distributed.py:288-289): a
@@ -501,6 +562,7 @@ def train_async(
                         np.array_split(y, n_workers),
                         np.array_split(w, n_workers))
             threads = []
+            t_round0 = time.perf_counter()
             for i, (xs, ys, ws) in enumerate(parts):
                 shard = DataBatch(torch.from_numpy(xs), torch.from_numpy(ys),
                                   torch.from_numpy(ws)).to(worker_devices[i])
@@ -509,12 +571,15 @@ def train_async(
                     args=(i, transports[i], modules[i], grad_step, shard,
                           val_shards[i], iters, verbose, early_stop,
                           seed + round_idx * n_workers, records, errors,
-                          push_every, eval_loss, grad_windows, phase_stats),
+                          push_every, eval_loss, grad_windows, phase_stats,
+                          tele),
                     daemon=True)
                 threads.append(t)
                 t.start()
             for t in threads:
                 t.join()
+            tele.observe("hogwild.round_s", time.perf_counter() - t_round0)
+            tele.counter("hogwild.rounds")
             if errors:
                 raise RuntimeError("hogwild worker failed") from errors[0]
             if server.should_stop:
@@ -530,6 +595,8 @@ def train_async(
         return TrainResult(params=state, metrics=records, spec=spec,
                            summary=summary)
     finally:
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
         for t in transports:
             close = getattr(t, "close", None)
             if close is not None:
@@ -565,18 +632,18 @@ def run_hogwild_worker(torch_obj, url: str, data, labels=None,
     and ``quant`` as in :func:`train_async`. The step records are
     written to ``records_path`` at completion as JSON lines, atomically
     (a temporary file, then ``os.replace``): a killed attempt publishes
-    nothing. A ``ctx`` carrying a heartbeat, a cancel event or
-    telemetry is not ported yet and raises.
+    nothing. The worker records into ``ctx.telemetry`` (default: the
+    process-global bus); a ``ctx`` carrying a heartbeat or a cancel
+    event is not ported yet and raises.
 
     Returns the worker's summary: its losses and pulled versions, the
     examples it trained on, its pushes and its loop's seconds."""
     if ctx is not None:
-        for attr, item in (("heartbeat", "the ft supervisor and ctl/, "
-                            "item 9"),
-                           ("cancel", "the ft supervisor and ctl/, item 9"),
-                           ("telemetry", "the obs hooks, item 10")):
+        for attr in ("heartbeat", "cancel"):
             if getattr(ctx, attr, None) is not None:
-                raise _not_ported(f"run_hogwild_worker's ctx.{attr}", item)
+                raise _not_ported(f"run_hogwild_worker's ctx.{attr}",
+                                  "the ft supervisor and ctl/, item 9")
+    tele = getattr(ctx, "telemetry", None) or get_telemetry()
     if wire not in ("binary", "dill"):
         raise ValueError(f"unknown wire {wire!r}; use 'binary' or 'dill'")
     if isinstance(data, str):
@@ -596,7 +663,8 @@ def run_hogwild_worker(torch_obj, url: str, data, labels=None,
     shard, val_shard = handle_features(x, y, validation_pct, seed=seed)
     if wire == "binary":
         transport = BinaryTransport(
-            url, quant=quant if quant else ("bf16" if compress else None))
+            url, quant=quant if quant else ("bf16" if compress else None),
+            telemetry=tele)
     else:
         transport = HttpTransport(url, compress=compress)
     records: List[dict] = []
@@ -614,7 +682,7 @@ def run_hogwild_worker(torch_obj, url: str, data, labels=None,
                      else None,
                      make_grad_windows(loss_fn, mini_batch, push_every,
                                        iters),
-                     phases)
+                     phases, tele, phase_histograms=False)
     finally:
         close = getattr(transport, "close", None)
         if close is not None:

@@ -44,16 +44,30 @@ straight one on full-batch runs.
 Records have the JAX package's keys: ``round, iter, loss, val_loss,
 examples, grad_norm, step_time_s``, and ``moe_drop_fraction`` for a
 model with MoE layers (not in the streaming trainer's records, as in the
-JAX package; its loss holds the aux loss all the same). Not ported yet
-(ROADMAP, Queue 1): meshes with axes other than ``dp``, pipeline
-parallelism, and the chaos, goodput, health and profiler hooks.
+JAX package; its loss holds the aux loss all the same).
+
+Telemetry and chaos, as in the JAX package: each trainer records into
+its ``telemetry`` bus (the process-global one by default) the spans
+``train/data_prep``, ``train/init``, ``train/shuffle``,
+``train/step_chunk`` (``train/step`` when every step is read back) and
+``train/checkpoint`` (``train_streaming/chunk`` in the streaming
+trainer), and through its :class:`MetricsRecorder` the ``train.*``
+(``train_streaming.*``) counters, step-time histogram and loss gauge.
+A chunk's span closes after the chunk's one read-back, so the hooks add
+no device sync. Each dispatched chunk is a ``train_step`` range
+(:func:`~sparktorch_tpu_torch.utils.tracing.step_annotation`), and
+``profile_dir`` captures a ``torch.profiler`` trace of the loop. The
+chaos sites ``worker.step``, ``data.batch`` (a poisoned batch replaces
+the resident one) and ``train.rank`` (a straggler's sleep) fire before
+each chunk's dispatch, beside the gang check. Not ported yet (ROADMAP,
+Queue 1): meshes with axes other than ``dp``, pipeline parallelism
+(item 8), and the goodput and health hooks (item 10, step 4).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-import logging
 import time
 from typing import Any, Callable, NamedTuple, Optional, Union
 
@@ -61,7 +75,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.inference import _resolve_device, torch_dtype
+from sparktorch_tpu_torch.obs import get_logger, get_telemetry
 from sparktorch_tpu_torch.parallel.launch import check_gang, notify_gang_step
 from sparktorch_tpu_torch.parallel.mesh import Mesh, build_mesh
 from sparktorch_tpu_torch.train.step import eval_step, train_step
@@ -76,13 +92,14 @@ from sparktorch_tpu_torch.utils.data import (
 from sparktorch_tpu_torch.utils.early_stopper import EarlyStopping
 from sparktorch_tpu_torch.utils.metrics import MetricsRecorder
 from sparktorch_tpu_torch.utils.optim import flax_shapes
+from sparktorch_tpu_torch.utils.tracing import profile_run, step_annotation
 from sparktorch_tpu_torch.utils.serde import (
     ModelSpec,
     deserialize_model,
     meta_copy,
 )
 
-log = logging.getLogger("sparktorch_tpu_torch.train")
+log = get_logger("sparktorch_tpu_torch.train")
 
 
 class TrainResult(NamedTuple):
@@ -265,10 +282,39 @@ def _dp_steps(n: int, module, loss_fn, optimizer, shards: "_Shards",
                        generator, mesh.group) for _ in range(n)]
 
 
+def _check_pipeline_args(n_micro: int, pipeline_schedule: str,
+                         virtual_stages: int) -> None:
+    """The pipeline-parallel knobs are accepted for the JAX signature;
+    anything but their defaults needs ``train/pipeline.py``."""
+    if (n_micro, pipeline_schedule, virtual_stages) != (4, "gpipe", 1):
+        raise NotImplementedError(
+            f"n_micro={n_micro}, pipeline_schedule={pipeline_schedule!r}, "
+            f"virtual_stages={virtual_stages}: pipeline parallelism is not "
+            "ported yet (ROADMAP, Queue 1, item 8)")
+
+
+def _fire_chaos(rank: int, step: int, batch: DataBatch,
+                kill: bool = True) -> DataBatch:
+    """The chaos sites before a chunk's dispatch, in the JAX package's
+    order: ``worker.step`` (a seeded kill raises ``ChaosKill`` here),
+    ``data.batch`` (a poisoned copy replaces the resident batch), then
+    ``train.rank`` (a straggler sleeps before the step span, so its
+    delay shows as a late arrival, not a longer step). Returns the batch
+    to dispatch."""
+    if kill:
+        _chaos.fire("worker.step", worker=rank, step=step)
+    act = _chaos.fire("data.batch", worker=rank, step=step)
+    if act and act.get("poison"):
+        batch = _chaos.poison_batch(batch)
+    _chaos.straggle(rank, step)
+    return batch
+
+
 def train_distributed(
     torch_obj: Union[str, ModelSpec],
     data: Any,
     labels: Optional[np.ndarray] = None,
+    mesh: Optional[Mesh] = None,
     iters: int = 10,
     partition_shuffles: int = 1,
     verbose: int = 0,
@@ -277,43 +323,60 @@ def train_distributed(
     early_stop_patience: int = -1,
     seed: int = 0,
     device=None,
+    metrics_hook: Optional[Callable[[dict], None]] = None,
     steps_per_call: Optional[int] = None,
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     resume: bool = False,
-    mesh: Optional[Mesh] = None,
-    metrics_hook: Optional[Callable[[dict], None]] = None,
+    profile_dir: Optional[str] = None,
     pre_sharded: bool = False,
+    n_micro: int = 4,
+    pipeline_schedule: str = "gpipe",
+    virtual_stages: int = 1,
+    telemetry=None,
 ) -> TrainResult:
     """Synchronous training of the packaged model (device: CUDA unless
     ``device`` says otherwise; raises when there is no card and no
-    device was asked for). ``data``/``labels`` as
-    :func:`~sparktorch_tpu_torch.utils.data.handle_features` takes them;
-    the other parameters as in the JAX package. ``mini_batch`` ≤ 0 or
-    None trains on the full batch each step; in a data-parallel world it
-    is per shard, so a step takes ``mini_batch × world`` rows in all.
-    ``mesh`` defaults to :func:`build_mesh` (the default process group,
-    or a world of one). ``metrics_hook`` sees every step record.
-    ``pre_sharded``: ``data`` is this rank's own :class:`DataBatch`
-    (:func:`train_distributed_multihost`)."""
+    device was asked for). The parameters are the JAX package's, in its
+    order. ``data``/``labels`` as
+    :func:`~sparktorch_tpu_torch.utils.data.handle_features` takes them.
+    ``mini_batch`` ≤ 0 or None trains on the full batch each step; in a
+    data-parallel world it is per shard, so a step takes
+    ``mini_batch × world`` rows in all. ``mesh`` defaults to
+    :func:`build_mesh` (the default process group, or a world of one).
+    ``metrics_hook`` sees every step record. ``pre_sharded``: ``data`` is
+    this rank's own :class:`DataBatch`
+    (:func:`train_distributed_multihost`). ``profile_dir`` captures a
+    ``torch.profiler`` trace of the training loop there; ``telemetry``
+    is the bus the run records into (default: the process-global one).
+    ``n_micro``, ``pipeline_schedule`` and ``virtual_stages`` take only
+    their defaults (pipeline parallelism is not ported)."""
+    _check_pipeline_args(n_micro, pipeline_schedule, virtual_stages)
     dev = _resolve_device(device)
     mesh = mesh or build_mesh()
     group = mesh.group
+    tele = telemetry or get_telemetry()
     spec = deserialize_model(torch_obj)
     if pre_sharded:
         train_batch, val_batch = data, None
+        if spec.input_shape is None:
+            spec.input_shape = tuple(train_batch.x.shape[1:])
+        shards = _Shards(train_batch, mesh, dev, seed, local=True)
     else:
-        train_batch, val_batch = handle_features(data, labels,
-                                                 validation_pct, seed)
-    if spec.input_shape is None:
-        spec.input_shape = tuple(train_batch.x.shape[1:])
-    shards = _Shards(train_batch, mesh, dev, seed, local=pre_sharded)
-    if val_batch is not None:
-        val_batch = (val_batch if group is None else
-                     shard_batch(val_batch, mesh.rank, mesh.dp)).to(dev)
+        with tele.span("train/data_prep"):
+            train_batch, val_batch = handle_features(data, labels,
+                                                     validation_pct, seed)
+            if spec.input_shape is None:
+                spec.input_shape = tuple(train_batch.x.shape[1:])
+            shards = _Shards(train_batch, mesh, dev, seed)
+            if val_batch is not None:
+                val_batch = (val_batch if group is None else
+                             shard_batch(val_batch, mesh.rank, mesh.dp)
+                             ).to(dev)
 
-    module, optimizer, loss_fn, ckpt, global_step = _dp_trainer(
-        torch_obj, spec, mesh, dev, checkpoint_dir, resume)
+    with tele.span("train/init"):
+        module, optimizer, loss_fn, ckpt, global_step = _dp_trainer(
+            torch_obj, spec, mesh, dev, checkpoint_dir, resume)
     last_ckpt_step = global_step
 
     stopper = (EarlyStopping(patience=early_stop_patience)
@@ -326,27 +389,40 @@ def train_distributed(
     mini_batch = mini_batch if mini_batch is not None and mini_batch > 0 else None
     sample_gen = torch.Generator().manual_seed(seed + mesh.rank)
 
-    recorder = MetricsRecorder()
+    recorder = MetricsRecorder(n_chips=mesh.dp, telemetry=tele)
+    # Exited in the finally: a failed run still writes its trace.
+    profiler = profile_run(profile_dir, telemetry=tele)
+    profiler.__enter__()
     completed = False
     try:
         for shuffle_round in range(max(1, partition_shuffles)):
             if shuffle_round > 0 or mini_batch is not None:
-                shards.shuffle()
+                with tele.span("train/shuffle"):
+                    shards.shuffle()
             stop = False
             i = 0
             while i < iters and not stop:
-                # A dead peer raises here, not inside the next collective.
+                # A dead peer raises here, not inside the next collective;
+                # the chaos sites sit beside the check.
                 check_gang()
                 notify_gang_step(i)
+                shards.batch = _fire_chaos(mesh.rank, i, shards.batch)
                 n = min(chunk, iters - i)
-                t0 = time.perf_counter()
-                steps = _dp_steps(n, module, loss_fn, optimizer, shards, mesh,
-                                  mini_batch, sample_gen)
-                # The chunk's one read-back: (n, 3) loss, examples, grad
-                # norm, and the MoE drop fraction where the model has one.
-                host = torch.stack([torch.stack([v for v in m if v is not None])
-                                    for m in steps]).tolist()
-                dt = (time.perf_counter() - t0) / n
+                first = (recorder.records[-1]["iter"] + 1
+                         if recorder.records else 0)
+                with tele.span("train/step_chunk" if chunk > 1
+                               else "train/step"), \
+                        step_annotation(first, telemetry=tele, device=dev):
+                    t0 = time.perf_counter()
+                    steps = _dp_steps(n, module, loss_fn, optimizer, shards,
+                                      mesh, mini_batch, sample_gen)
+                    # The chunk's one read-back: (n, 3) loss, examples,
+                    # grad norm, and the MoE drop fraction where the model
+                    # has one. The span closes after it: no extra sync.
+                    host = torch.stack(
+                        [torch.stack([v for v in m if v is not None])
+                         for m in steps]).tolist()
+                    dt = (time.perf_counter() - t0) / n
                 val_loss = (float(eval_step(module, loss_fn, val_batch, group))
                             if val_batch is not None else None)
                 for loss, examples, gnorm, *drop in host:
@@ -377,13 +453,16 @@ def train_distributed(
                         stop = True
                         break
                     i += 1
-                last_ckpt_step = _save_if_due(ckpt, module, optimizer,
-                                              global_step, last_ckpt_step,
-                                              checkpoint_every, mesh)
+                if ckpt is not None:
+                    with tele.span("train/checkpoint"):
+                        last_ckpt_step = _save_if_due(
+                            ckpt, module, optimizer, global_step,
+                            last_ckpt_step, checkpoint_every, mesh)
             if stop:
                 break
         completed = True
     finally:
+        profiler.__exit__(None, None, None)
         _finalize_checkpoint(ckpt, module, optimizer, global_step,
                              completed, mesh)
     return _result(module, spec, recorder)
@@ -545,19 +624,23 @@ def train_distributed_streaming(
     torch_obj: Union[str, ModelSpec],
     data: Any,
     labels: Optional[np.ndarray] = None,
+    mesh: Optional[Mesh] = None,
     chunk_rows: int = 65536,
     epochs: int = 1,
     steps_per_chunk: Optional[int] = None,
     mini_batch: Optional[int] = None,
     verbose: int = 0,
     seed: int = 0,
-    device=None,
+    metrics_hook: Optional[Callable[[dict], None]] = None,
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     resume: bool = False,
+    telemetry=None,
+    device=None,
 ) -> TrainResult:
     """Train on data larger than the card's memory by streaming host
-    chunks (device: as :func:`train_distributed`).
+    chunks (device: as :func:`train_distributed`). The parameters are
+    the JAX package's, in its order, then ``device``.
 
     ``data`` is a host numpy array (or an ``(x, y)`` pair), walked in
     ``chunk_rows`` slices per epoch in a fresh permutation from one
@@ -566,18 +649,24 @@ def train_distributed_streaming(
     ``chunk_rows`` with weight-0 rows, so every chunk has one shape.
     Per chunk, ``steps_per_chunk`` steps run (default: one pass,
     ``ceil(chunk_rows / mini_batch)`` minibatch steps, or 1 full-chunk
-    step) and their losses come back in one read-back. Checkpoints are
-    saved at chunk boundaries; ``resume`` continues from the newest
-    one. Records have the reference's keys; ``grad_norm`` and
-    ``val_loss`` are None. One rank only: in a data-parallel world of
-    more than one it raises, since each rank would train its own copy
-    on all the data and write to one ``checkpoint_dir``."""
-    if dist.is_initialized() and dist.get_world_size() > 1:
+    step) and their losses come back in one read-back. ``metrics_hook``
+    sees every step record; ``telemetry`` is the bus the run records
+    into (default: the process-global one). Checkpoints are saved at
+    chunk boundaries; ``resume`` continues from the newest one. Records
+    have the reference's keys; ``grad_norm`` and ``val_loss`` are None.
+    One rank only: ``mesh`` may be None or a world of one; in a
+    data-parallel world of more than one it raises, since each rank
+    would train its own copy on all the data and write to one
+    ``checkpoint_dir``."""
+    world = (mesh.dp if mesh is not None else
+             dist.get_world_size() if dist.is_initialized() else 1)
+    if world > 1:
         raise NotImplementedError(
             "train_distributed_streaming over a data-parallel world is not "
             "ported yet (ROADMAP, Queue 1: several GPUs, item 4); run it in "
             "one process, or train_distributed(mesh=...) on resident data")
     dev = _resolve_device(device)
+    tele = telemetry or get_telemetry()
     spec = deserialize_model(torch_obj)
     if isinstance(data, tuple) and len(data) == 2 and labels is None:
         data, labels = data
@@ -601,33 +690,41 @@ def train_distributed_streaming(
     sample_gen = torch.Generator().manual_seed(seed)
     feeder = _ChunkFeeder(arrays, chunk_rows, dev)
 
-    recorder = MetricsRecorder()
+    recorder = MetricsRecorder(n_chips=world, telemetry=tele,
+                               prefix="train_streaming")
     it = 0
     completed = False
     try:
         for epoch in range(max(1, epochs)):
+            check_gang()
             order = shuffle_rng.permutation(n)
             starts = range(0, n, chunk_rows)
             pending = feeder.put(order[:chunk_rows])
             for ci, lo in enumerate(starts):
-                batch = feeder.take(pending)
-                t0 = time.perf_counter()
-                metrics = [train_step(module, loss_fn, optimizer, batch,
-                                      mini_batch, sample_gen)
-                           for _ in range(steps)]
-                # The next chunk's upload rides under these steps.
-                if ci + 1 < len(starts):
-                    nxt = starts[ci + 1]
-                    pending = feeder.put(order[nxt:nxt + chunk_rows])
-                host = torch.stack([torch.stack((m.loss, m.examples))
-                                    for m in metrics]).tolist()
-                dt = (time.perf_counter() - t0) / steps
+                check_gang()
+                notify_gang_step(it)
+                batch = _fire_chaos(0, it, feeder.take(pending), kill=False)
+                with tele.span("train_streaming/chunk"):
+                    t0 = time.perf_counter()
+                    metrics = [train_step(module, loss_fn, optimizer, batch,
+                                          mini_batch, sample_gen)
+                               for _ in range(steps)]
+                    # The next chunk's upload rides under these steps.
+                    if ci + 1 < len(starts):
+                        nxt = starts[ci + 1]
+                        pending = feeder.put(order[nxt:nxt + chunk_rows])
+                    host = torch.stack([torch.stack((m.loss, m.examples))
+                                        for m in metrics]).tolist()
+                    dt = (time.perf_counter() - t0) / steps
                 for loss, examples in host:
-                    recorder.record({
+                    record = {
                         "round": epoch, "iter": it, "loss": loss,
                         "val_loss": None, "examples": examples,
                         "grad_norm": None, "step_time_s": dt,
-                    })
+                    }
+                    recorder.record(record)
+                    if metrics_hook is not None:
+                        metrics_hook(record)
                     it += 1
                 global_step += steps
                 last_ckpt_step = _save_if_due(ckpt, module, optimizer,

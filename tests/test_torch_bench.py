@@ -133,12 +133,14 @@ def test_main_raises_without_a_card(argv):
 def test_config_choices_and_unported_options():
     assert set(bench.CONFIGS) == set(bench.RECORD_KEYS) == {
         "mnist_mlp_sync", "mnist_cnn_sync", "lazy_cnn_sync",
-        "resnet18_hogwild", "bert_dp", "resnet50_inference",
-        "long_context_lm", "moe_lm", "serve_online"}
+        "resnet18_hogwild", "hogwild_wire", "bert_dp",
+        "resnet50_inference", "long_context_lm", "moe_lm", "serve_online"}
     with pytest.raises(SystemExit):
         bench.main(["--config", "moe_a2a"])  # needs an ep mesh axis
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        bench.main(["--config", "all", "--telemetry-dump", "x.jsonl"])
+    # --telemetry-dump is ported: without a card the run raises first.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--config", "mnist_mlp_sync", "--telemetry-dump",
+                    "x.jsonl"])
     assert bench.mfu_honest(98.9) == pytest.approx(0.1)
 
 

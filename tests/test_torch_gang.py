@@ -179,11 +179,14 @@ def test_trainer_aborts_when_peer_host_dies():
 
 
 def test_bringup_of_a_world_of_one_and_the_unported_options():
+    from sparktorch_tpu_torch.obs import Telemetry
+
     assert launch.bringup_multihost(0, 1) == (None, None)
+    # telemetry= is ported: a world of one still short-circuits.
+    assert launch.bringup_multihost(0, 1, telemetry=Telemetry()) == (None,
+                                                                      None)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
         launch.bringup_multihost(0, 2, ft_policy=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        launch.bringup_multihost(0, 2, telemetry=object())
 
 
 def test_a_failed_build_raises(tmp_path, monkeypatch):

@@ -331,11 +331,133 @@ def test_estimator_hogwild_mode():
     (dict(pull_quant="int8"), "fleet"),
     (dict(supervise=True), "supervisor"),
     (dict(ft_policy=object()), "supervisor"),
-    (dict(telemetry=object()), "obs"),
-    (dict(profile_dir="/nonexistent"), "obs"),
 ])
 def test_unported_settings_name_the_roadmap(setting, match):
     _, obj, _ = _pair("mlp")
     x, y = _data((48,))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
         train_async(obj, x, labels=y, iters=1, device="cpu", **setting)
+
+
+# ---------------------------------------------------------------------------
+# Telemetry and chaos (the JAX names, the same counts)
+# ---------------------------------------------------------------------------
+
+# Names of modules the port has not ported yet (ROADMAP, Queue 1, item
+# 10, step 4): the JAX workers' health ledgers and stack profiler
+# publish them, and the JAX wire client's request tracer samples 1% of
+# its requests by default.
+UNPORTED = ("health.", "profile.", "xprof.", "rpctrace.")
+# The frame tables name the leaves (Flax paths against state_dict
+# names), so the bytes on the wire differ between the packages.
+WIRE_BYTES = "param_server.wire_bytes_total"
+
+
+def _named(snap):
+    return {section: {k: (v["count"] if isinstance(v, dict) else v)
+                      for k, v in snap[section].items()
+                      if not k.startswith(UNPORTED)}
+            for section in ("counters", "gauges", "histograms", "spans",
+                            "info")}
+
+
+def _http_run(pkg_train, obj, tele, **kw):
+    x, y = _data((48,), n=48)
+    return pkg_train(obj, x, labels=y, iters=8, partitions=2, push_every=2,
+                     seed=0, transport="http", wire="binary",
+                     telemetry=tele, **kw)
+
+
+def test_http_run_telemetry_matches_jax():
+    from sparktorch_tpu import obs as jax_obs
+    from sparktorch_tpu_torch import obs
+
+    jax_obj, obj, _ = _pair("mlp")
+    jax_tele, tele = jax_obs.Telemetry(run_id="h"), obs.Telemetry(run_id="h")
+    want = _http_run(jax_train_async, jax_obj, jax_tele)
+    got = _http_run(train_async, obj, tele, device="cpu")
+    a, b = _named(tele.snapshot()), _named(jax_tele.snapshot())
+    for section in ("counters", "gauges", "histograms", "spans", "info"):
+        assert a[section].keys() == b[section].keys(), section
+    assert ({k: v for k, v in a["counters"].items()
+             if not k.startswith(WIRE_BYTES)}
+            == {k: v for k, v in b["counters"].items()
+                if not k.startswith(WIRE_BYTES)})
+    assert a["histograms"] == b["histograms"]
+    counters = a["counters"]
+    pushes = sum(v for k, v in counters.items()
+                 if k.startswith("hogwild.pushes"))
+    assert counters["param_server.applies"] == pushes == 8.0
+    assert got.summary["server_applied"] == got.summary["hogwild_budget"][
+        "pushes"] == pushes
+    assert counters["hogwild.iters{worker=0}"] == counters[
+        "hogwild.iters{worker=1}"] == 8.0
+    assert counters["hogwild.rounds"] == 1.0
+    assert counters["tracing.annotated_steps"] == 8.0  # one a window
+    assert len(want.metrics) == len(got.metrics) == 16
+
+
+def test_metrics_scrape_of_a_run_equals_its_dump(tmp_path):
+    """After an HTTP run, the run's bus served on ``/metrics`` parses to
+    the values of its JSONL dump (``tests/test_obs.py``'s check)."""
+    import urllib.request
+
+    from sparktorch_tpu_torch import obs
+
+    _, obj, _ = _pair("mlp")
+    tele = obs.Telemetry(run_id="scrape")
+    _http_run(train_async, obj, tele, device="cpu")
+    server = ps.ParameterServer(obj, telemetry=tele, device="cpu")
+    http = ps.ParamServerHttp(server, port=0).start()
+    try:
+        with urllib.request.urlopen(http.url + "/metrics", timeout=10) as r:
+            assert r.headers["Content-Type"] == obs.PROMETHEUS_CONTENT_TYPE
+            scraped = obs.parse_prometheus(r.read().decode())
+    finally:
+        http.stop()
+        server.stop()
+    snap = tele.dump(str(tmp_path / "run.jsonl"))
+    assert obs.read_jsonl(str(tmp_path / "run.jsonl"))[0]["counters"] == \
+        snap["counters"]
+    want = obs.parse_prometheus(obs.render_prometheus(snap))
+    assert scraped == want
+    assert scraped["sparktorch_param_server_applies"] == sum(
+        v for k, v in scraped.items()
+        if k.startswith("sparktorch_hogwild_pushes")) == 8.0
+
+
+@pytest.mark.parametrize("config,site", [
+    (dict(kill_worker_at={0: 2}), "worker.step"),
+    (dict(poison_batch_at={0: 2}), "data.batch"),
+    (dict(slow_rank_s={0: (1, 0.001)}), "train.rank"),
+], ids=["worker.step", "data.batch", "train.rank"])
+def test_worker_chaos_sites_match_jax(config, site):
+    from sparktorch_tpu import ft as jax_ft
+    from sparktorch_tpu_torch import ft
+
+    jax_obj, obj, _ = _pair("mlp")
+    x, y = _data((48,))
+    out = {}
+    for name, pkg, run in (
+            ("jax", jax_ft, lambda: jax_train_async(
+                jax_obj, x, labels=y, iters=4, partitions=1)),
+            ("port", ft, lambda: train_async(obj, x, labels=y, iters=4,
+                                             partitions=1, device="cpu"))):
+        with pkg.inject(pkg.ChaosConfig(**config)) as inj:
+            if site == "worker.step":
+                with pytest.raises(RuntimeError, match="hogwild worker") as e:
+                    run()
+                assert isinstance(e.value.__cause__, pkg.ChaosKill)
+                losses = None
+            else:
+                losses = [r["loss"] for r in run().metrics]
+        out[name] = (inj.events, losses)
+    assert out["port"][0] == out["jax"][0]
+    assert {e["site"] for e in out["port"][0]} == {site}
+    if site == "data.batch":
+        for losses in (out["port"][1], out["jax"][1]):
+            assert np.isfinite(losses[:2]).all()
+            assert np.isnan(losses[2:]).all()
+    if site == "train.rank":
+        np.testing.assert_allclose(out["port"][1], out["jax"][1],
+                                   atol=1e-5, rtol=1e-5)

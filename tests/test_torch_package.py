@@ -55,6 +55,24 @@ def test_import_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "sparktorch_tpu_torch.obs.log", "sparktorch_tpu_torch.obs.prom",
+    "sparktorch_tpu_torch.utils.tracing", "sparktorch_tpu_torch.utils.metrics",
+])
+def test_obs_and_tracing_modules_import_no_jax(module):
+    # The copies of the JAX package's obs/log.py and obs/prom.py, and the
+    # torch.profiler port of utils/tracing.py, each on its own.
+    code = (f"import sys, importlib; importlib.import_module({module!r})\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def _imported_roots(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):

@@ -353,9 +353,10 @@ def test_run_hogwild_worker_against_the_server(tmp_path):
     for key, value in params.items():
         np.testing.assert_allclose(value.numpy(), want.params[key].numpy(),
                                    atol=1e-6, rtol=1e-6, err_msg=key)
+    # ctx.telemetry is ported (tests/test_torch_obs_hooks.py); the
+    # heartbeat and cancel contexts wait for the ft supervisor.
     for ctx in (types.SimpleNamespace(heartbeat=object()),
-                types.SimpleNamespace(cancel=threading.Event()),
-                types.SimpleNamespace(telemetry=object())):
+                types.SimpleNamespace(cancel=threading.Event())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_hogwild_worker(obj, "http://127.0.0.1:1", (x, y), ctx=ctx,
                                device="cpu")

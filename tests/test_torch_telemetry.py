@@ -215,7 +215,8 @@ def test_obs_exports_the_core_only():
         "Span", "Telemetry", "format_key", "get_telemetry", "set_telemetry",
         "wall_ts", "JsonlSink", "read_jsonl", "write_jsonl",
         "HEARTBEAT_DIR_ENV", "HeartbeatEmitter", "gang_report",
-        "read_heartbeats"}
+        "read_heartbeats", "get_logger", "PROMETHEUS_CONTENT_TYPE",
+        "parse_prometheus", "render_prometheus"}
     assert set(obs.__all__) < set(jax_obs.__all__)
     assert obs.HEARTBEAT_DIR_ENV == jax_obs.HEARTBEAT_DIR_ENV
     assert json.loads(json.dumps(obs.Telemetry().snapshot()))["counters"] == {}
