@@ -50,7 +50,7 @@ the CPU path):
    dense CE: loss within 1e-2 (relative), grad norm within 1e-2, and a
    gradient cosine above 0.99 for every parameter;
 7. bench: the configs of ``sparktorch_tpu_torch.bench.CONFIGS`` but
-   ``serve_online`` (the port's benchmark entry: BASELINE configs 1–5,
+   ``serve_online`` and ``hogwild_ps_fleet`` (the port's benchmark entry: BASELINE configs 1–5,
    the MNIST-CNN headline, ``hogwild_wire``, the long-context LM and the
    MoE LM; those of BENCH_DEPTH at a cut depth; ``hogwild_wire`` at the
    JAX depth through the CLI's ``main`` with ``--telemetry-dump``, whose
@@ -150,10 +150,31 @@ the CPU path):
    both replicas' ``WeightPuller``s (poll 0.05 s) under a background
    load: staleness within 20 polls + 1 s, each replica at the server's
    version and serving its newest weights within 2e-2·max(1,
-   max|logit|), the swaps' ``install_params`` seconds printed.
+   max|logit|), the swaps' ``install_params`` seconds printed;
+17. fleet: the sharded parameter-server fleet — (a) the bench's
+   ``hogwild_ps_fleet`` (the 66 MB MLP, 4 shards, 6 pullers, quota 10,
+   single and fleet legs interleaved ×2 — the JAX bench's ×3 cut by
+   BENCH_DEPTH — and an int8 leg, the seeded shard kill in
+   ``train_async(shards=4)``) with every
+   JAX gate holding and its record keys; (b) BERT-base (flash) behind an
+   ``InferenceTier`` of 2 replicas whose ``WeightPuller``s read a 4-shard
+   ``ParamServerFleet`` on the card through
+   ``ShardedTransport(pull_quant="int8")``: a dense push of ones on every
+   leaf, then a sparse one on the last encoder layer and the classifier,
+   each replica's staleness within 20 polls + 1 s (serve_online (c)'s
+   bound) and its int8 delta bytes beside one f32 full pull's, every
+   leaf each replica installed within one int8 step of the fleet's
+   (peak|x| / 126.5: the error feedback's bound), 64 served rows after
+   each install within 5e-2·max(1, max|logit|) of dense attention on
+   the installed weights, 12 forward launches a batch; (c) ``train_async(transport="http", shards=4,
+   pull_quant="int8")`` of BERT-base, 2 workers × 2 steps of 8 rows:
+   records exact, applies equal to the pushed partials less the dropped
+   ones, losses finite, 12/12/12 launches a step; (d) one worker of a
+   2-layer encoder at BERT-base width, 3 steps, float32 pulls, on 4
+   shards against the single server: parameters within 1e-6·max|param|.
 
 No kernel of KERNELS lies on phases 8, 11–14, on 15 (c), (d), on 16
-(a) and on the moe phase's (d): each expects 0 launches. Phase 15 runs after every kernel is built, so its
+(a), on 17 (a) and on the moe phase's (d): each expects 0 launches. Phase 15 runs after every kernel is built, so its
 executor processes load the built kernels.
 The total wall time prints before the last two lines.
 Snapshots, the Parquet file and traces go to ``.chip_smoke_tmp/`` beside
@@ -274,16 +295,23 @@ MOE_OPTIMIZERS = [("adafactor", {}), ("lamb", {"lr": 1e-3}),
 # Keyword arguments of bench configs run at a cut depth (the JAX bench's
 # in parentheses): resnet18_hogwild 3 runs of 256 iterations (5 of 1,024;
 # the hogwild phase's legs (a)-(d) hold that path at their own depths);
-# long_context_lm and moe_lm 2 slope samples a leg (5).
+# long_context_lm and moe_lm 2 slope samples a leg (5); hogwild_ps_fleet
+# 2 interleaved single/fleet pairs (3), run by the fleet phase.
 BENCH_DEPTH = {"resnet18_hogwild": dict(iters=256, repeats=3),
                "long_context_lm": dict(repeats=2),
-               "moe_lm": dict(repeats=2)}
+               "moe_lm": dict(repeats=2),
+               "hogwild_ps_fleet": dict(pairs=2)}
 # The serving tier's phase: BERT-base (flash, bf16 compute) behind an
 # InferenceTier of SERVE_REPLICAS replicas with buckets SERVE_BUCKETS,
 # SERVE_REQUESTS open-loop single-row requests of SERVE_SEQ ids at twice
 # the serial capacity; the weight push's pullers poll every SERVE_POLL_S.
 SERVE_REPLICAS, SERVE_BUCKETS, SERVE_SEQ = 2, (1, 8, 32), 128
 SERVE_REQUESTS, SERVE_POLL_S = 300, 0.05
+# The fleet phase: FLEET_SHARDS shards; its hogwild BERT-base run takes
+# FLEET_PARTS workers of FLEET_ITERS minibatch steps of FLEET_MB rows, out
+# of FLEET_ROWS rows of BERT_SEQ ids.
+FLEET_SHARDS, FLEET_PARTS, FLEET_ITERS = 4, 2, 2
+FLEET_ROWS, FLEET_MB = 32, 8
 # Snapshots, the Parquet file and traces, deleted when each phase ends.
 SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        ".chip_smoke_tmp")
@@ -2059,8 +2087,8 @@ def bench_hogwild_wire_dump(torch, bench):
 
 def bench_phase(torch):
     """The configs of ``bench.CONFIGS`` (the port's benchmark entry; those
-    of BENCH_DEPTH at a cut depth) but ``serve_online``, which its own
-    phase runs, each record printed on a line of its own and held to the
+    of BENCH_DEPTH at a cut depth) but ``serve_online`` and
+    ``hogwild_ps_fleet``, which their own phases run, each record printed on a line of its own and held to the
     JAX config's keys less the documented omissions, with the launches
     it made; ``hogwild_wire`` runs once through the CLI with
     ``--telemetry-dump``."""
@@ -2072,7 +2100,8 @@ def bench_phase(torch):
     counts["bench_hogwild_wire"], records["hogwild_wire"] = (
         bench_hogwild_wire_dump(torch, bench))
     configs = {k: v for k, v in bench.CONFIGS.items()
-               if k not in ("serve_online", "hogwild_wire")}
+               if k not in ("serve_online", "hogwild_wire",
+                            "hogwild_ps_fleet")}
     for name, config in configs.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -3315,6 +3344,351 @@ def serve_online_phase(torch):
     return counts, out
 
 
+def fleet_check_served(torch, what, replica, leaves, ids, dense):
+    """``replica``'s rows against the dense-attention twin loaded with the
+    weights its puller installed (``leaves``: the puller's cache)."""
+    from sparktorch_tpu_torch.inference import BatchPredictor
+
+    dense.load_state_dict({p[0]: torch.as_tensor(np.asarray(v))
+                           for p, v in leaves.items()})
+    want = BatchPredictor(dense, device="cuda", chunk=CHUNK).predict(ids)
+    got = np.concatenate([replica.infer(ids[i:i + 8])
+                          for i in range(0, len(ids), 8)])
+    diff = float(np.abs(got - want).max())
+    limit = 5e-2 * max(1.0, float(np.abs(want).max()))
+    log(f"{what}: {len(ids)} rows vs dense attention on the installed "
+        f"weights: max abs diff {diff:.3e} (limit {limit:.3e})")
+    if not (np.isfinite(got).all() and diff <= limit):
+        raise AssertionError(f"{what}: served rows disagree")
+    return diff, limit
+
+
+def fleet_leaves_on_host(fleet, peaks):
+    """The fleet's leaves as host arrays, each leaf's max |x| folded into
+    ``peaks`` (its peak over every version so far)."""
+    leaves = {(n,): v.detach().float().cpu().numpy()
+              for n, v in fleet.assemble().items()}
+    for path, v in leaves.items():
+        peaks[path] = max(peaks.get(path, 0.0),
+                          float(np.abs(v).max()) if v.size else 0.0)
+    return leaves
+
+
+def fleet_check_leaves(what, pullers, want, peaks):
+    """Every leaf each puller installed against the fleet's own leaf.
+
+    An int8 pull with the server's error feedback serves a version as
+    x + r_prev - r, each residual at most half its version's scale s,
+    and s = max|x + r_prev| / 127 <= (peak + s_max / 2) / 127, so the
+    error is at most s_max <= peak / 126.5 (peak: the leaf's max |x|
+    over its versions). Returns the worst leaf's error over its limit."""
+    worst = (0.0, None)
+    for rid, puller in pullers.items():
+        cache = puller.transport._leaves
+        if set(cache) != set(want):
+            raise AssertionError(f"{what}: replica {rid} holds "
+                                 f"{len(cache)} leaves, the fleet "
+                                 f"{len(want)}")
+        for path, v in want.items():
+            err = float(np.abs(np.asarray(cache[path], np.float32) - v)
+                        .max()) if v.size else 0.0
+            limit = peaks[path] / 126.5
+            if not err <= limit:
+                raise AssertionError(
+                    f"{what}: replica {rid} leaf {path[0]} off the fleet's "
+                    f"by {err:.3e}, past one int8 step {limit:.3e}")
+            ratio = err / limit if limit else 0.0
+            if worst[1] is None or ratio > worst[0]:
+                worst = (ratio, dict(replica=rid, leaf=path[0], err=err,
+                                     limit=limit))
+    return worst
+
+
+def fleet_push_to_replicas(torch, what, fleet, tier, grads, tele, peaks,
+                           bound):
+    """One push through ``fleet.scatter_push``, then each replica's
+    staleness (push return to its install of the fleet's versions),
+    held to ``bound``, the bytes of its pulls meanwhile, and each
+    installed leaf against the fleet's."""
+    pullers = tier._pullers
+    bytes0 = {r: p.transport.stats["pull_bytes"] for r, p in pullers.items()}
+    polls0 = {r: tele.histogram("serve.weight_poll_s", {"replica": r})
+              ["count"] for r in pullers}
+    t0 = time.monotonic()
+    fleet.scatter_push(grads, wait=True)
+    pushed = sum(s.slot.version for s in fleet._shards.values())
+    t_push = time.monotonic()
+    staleness = {}
+    while (len(staleness) < len(pullers)
+           and time.monotonic() < t_push + bound + 30.0):
+        for rid, r in tier.replicas.items():
+            if rid not in staleness and r.params_version >= pushed:
+                staleness[rid] = time.monotonic() - t_push
+        time.sleep(0.005)
+    if len(staleness) < len(pullers) or max(staleness.values()) > bound:
+        raise AssertionError(
+            f"{what}: staleness {staleness} past {bound:.2f} s (replicas "
+            f"at {[r.params_version for r in tier.replicas.values()]}, "
+            f"fleet at {pushed})")
+    time.sleep(2 * SERVE_POLL_S)  # the pullers' next polls: 304s
+    worst, where = fleet_check_leaves(what, pullers,
+                                      fleet_leaves_on_host(fleet, peaks),
+                                      peaks)
+    nbytes = {r: p.transport.stats["pull_bytes"] - bytes0[r]
+              for r, p in pullers.items()}
+    installs = [tele.histogram("serve.weight_install_s", {"replica": r})
+                ["max"] for r in pullers]
+    # The slowest /delta.bin reply of each shard so far (its render —
+    # the host copy and the int8 quantization of a new version — and the
+    # send): the server's part of a pull.
+    renders = {sid: round(fleet.telemetry.histogram(
+        "param_server.wire_latency_s",
+        {"route": "/delta.bin", "shard": sid})["max"], 4)
+        for sid in fleet._shards}
+    polls = [tele.histogram("serve.weight_poll_s", {"replica": r})
+             for r in pullers]
+    log(f"{what}: {len(grads)} leaves pushed in {t_push - t0:.3f} s "
+        f"(the shards' applies); staleness {staleness} s (bound "
+        f"{bound:.2f} s); installed leaves against the fleet's: worst "
+        f"{worst:.3f} of one int8 step ({where}); int8 delta bytes "
+        f"per replica {nbytes}; slowest /delta.bin reply by shard "
+        f"{renders} s; install_params max {installs} s; slowest "
+        f"poll (pulls, dequantize, install) "
+        f"{[round(h['max'], 4) for h in polls]} s over "
+        f"{[h['count'] - polls0[r] for h, r in zip(polls, pullers)]} polls")
+    return dict(leaves=len(grads), apply_s=t_push - t0, staleness_s=staleness,
+                bound_s=bound, worst_leaf=dict(where or {}, of_step=worst),
+                delta_bytes=nbytes, install_s=installs, render_s=renders,
+                poll_max_s=[h["max"] for h in polls])
+
+
+def fleet_phase(torch):
+    """The sharded parameter-server fleet: (a) the bench's
+    ``hogwild_ps_fleet`` (2 interleaved pairs, BENCH_DEPTH), every gate
+    holding; (b)
+    BERT-base behind the serving tier, its weights in a 4-shard fleet on
+    the card and each replica pulling int8 deltas through a
+    ``ShardedTransport``, after a dense push and a sparse one; (c)
+    ``train_async(shards=4, pull_quant="int8")`` of BERT-base; (d) one
+    worker on a 4-shard fleet against the single server."""
+    from sparktorch_tpu_torch import bench, serialize_torch_obj
+    from sparktorch_tpu_torch.models import bert_base
+    from sparktorch_tpu_torch.net.sharded import ShardedTransport
+    from sparktorch_tpu_torch.obs import Telemetry
+    from sparktorch_tpu_torch.serve.fleet import ParamServerFleet
+    from sparktorch_tpu_torch.serve.router import InferenceTier
+    from sparktorch_tpu_torch.train.hogwild import train_async
+    from sparktorch_tpu_torch.utils.serde import ModelSpec
+
+    t_phase = time.perf_counter()
+    counts, out = {}, {}
+
+    # (a) the bench's hogwild_ps_fleet (BENCH_DEPTH's pairs): no kernel
+    # runs.
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = bench.CONFIGS["hogwild_ps_fleet"](**BENCH_DEPTH["hogwild_ps_fleet"])
+    wall = time.perf_counter() - t0
+    counts["fleet_bench"] = read_counts()
+    log(json.dumps(rec))
+    expect_counts("fleet (a) bench", counts["fleet_bench"], NO_KERNELS)
+    check_record_keys(bench, "hogwild_ps_fleet", rec)
+    kill = rec["shard_kill"]
+    if kill["fired"] < 1 or kill["records"] != 24 or kill["restarts"] < 1:
+        raise AssertionError(f"fleet (a): shard kill {kill}")
+    log(f"fleet (a) bench: {rec['model_mb']} MB, {rec['hot_leaves']}/"
+        f"{rec['total_leaves']} hot leaves; bandwidth x{rec['bandwidth_ratio']}"
+        f", p99 x{rec['p99_ratio']} ({rec['fleet']['pull_p99_ms']} vs "
+        f"{rec['single']['pull_p99_ms']} ms); MB per fresh pull: single "
+        f"{rec['single']['wire_mb_per_pull']}, fleet "
+        f"{rec['fleet']['wire_mb_per_pull']}, int8 "
+        f"{rec['fleet_int8']['wire_mb_per_pull']:.3f}; shard kill {kill}; "
+        f"{wall:.1f} s")
+    out["bench"] = rec
+
+    # (b) BERT-base served by a tier whose pullers read a 4-shard fleet.
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        module = bert_base(attn_impl="flash")
+        dense = bert_base(attn_impl="dense")
+    cfg = module.config
+    ids = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (64, SERVE_SEQ)).astype(np.int64)
+    torch.manual_seed(1)
+    t0 = time.perf_counter()
+    fleet = ParamServerFleet(ModelSpec(
+        module=bert_base(attn_impl="flash"), loss="cross_entropy",
+        optimizer="sgd", optimizer_params={"lr": 1e-3},
+        input_shape=(SERVE_SEQ,)), n_shards=FLEET_SHARDS,
+        device="cuda").start()
+    fleet_s = time.perf_counter() - t0
+    tele = Telemetry(run_id="fleet_tier")
+    tier = InferenceTier(module, n_replicas=SERVE_REPLICAS, telemetry=tele,
+                         buckets=SERVE_BUCKETS, max_queue_rows=1024,
+                         warm_input=ids[:1], probe_interval_s=0.05,
+                         device="cuda")
+    try:
+        probe = ShardedTransport(fleet, pull_quant=None)
+        try:
+            probe.pull(-1)
+            full_f32_bytes = probe.stats["pull_bytes"]
+        finally:
+            probe.close()
+        t0 = time.perf_counter()
+        tier.start_pullers(lambda: ShardedTransport(fleet, pull_quant="int8"),
+                           poll_s=SERVE_POLL_S)
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline and any(
+                tele.counter_value("serve.weight_updates_total",
+                                   {"replica": r}) < 1
+                for r in tier.replicas):
+            time.sleep(0.01)
+        first_sync_s = time.perf_counter() - t0
+        first_bytes = {r: p.transport.stats["pull_bytes"]
+                       for r, p in tier._pullers.items()}
+        log(f"fleet (b) BERT-base in {FLEET_SHARDS} shards on the card "
+            f"(built in {fleet_s:.2f} s): one f32 full pull "
+            f"{full_f32_bytes} B; the replicas' first int8 sync "
+            f"{first_bytes} B in {first_sync_s:.2f} s")
+        peaks = {}
+        first_worst = fleet_check_leaves(
+            "fleet (b) first sync", tier._pullers,
+            fleet_leaves_on_host(fleet, peaks), peaks)
+        log(f"fleet (b) first sync: installed leaves against the fleet's: "
+            f"worst {first_worst[0]:.3f} of one int8 step "
+            f"({first_worst[1]})")
+        names = list(fleet.assemble())
+        ones = {(n,): torch.ones_like(v)
+                for n, v in fleet.assemble().items()}
+        last = f"backbone.layers.{cfg.n_layers - 1}."
+        sparse = {p: g for p, g in ones.items()
+                  if p[0].startswith((last, "classifier."))}
+        # serve_online (c)'s bound on the single server's full pull.
+        bound = 20 * SERVE_POLL_S + 1.0
+        pushes = {}
+        for label, grads in (("dense", ones), ("sparse", sparse)):
+            what = f"fleet (b) {label} push"
+            pushes[label] = fleet_push_to_replicas(
+                torch, what, fleet, tier, grads, tele, peaks, bound)
+            b0 = sum(tele.counter_value("serve.batches_total", {"replica": r})
+                     for r in tier.replicas)
+            reset_counts()
+            diffs = {}
+            for rid, r in tier.replicas.items():
+                diffs[rid] = fleet_check_served(
+                    torch, f"{what}, replica {rid}", r,
+                    tier._pullers[rid].transport._leaves, ids, dense)
+            got = read_counts()
+            n_batches = sum(tele.counter_value("serve.batches_total",
+                                               {"replica": r})
+                            for r in tier.replicas) - b0
+            counts[f"fleet_serve_{label}"] = got
+            expect_counts(f"{what}: served batches", got,
+                          dict(NO_KERNELS, flash_fwd=cfg.n_layers
+                               * int(n_batches)))
+            pushes[label].update(diffs=diffs, batches=n_batches)
+        out["serve"] = dict(full_f32_bytes=full_f32_bytes,
+                            first_sync_s=first_sync_s,
+                            first_sync_bytes=first_bytes, fleet_s=fleet_s,
+                            params=sum(v.numel() for v in ones.values()),
+                            leaves=len(names), pushes=pushes)
+    finally:
+        tier.stop()
+        fleet.stop()
+    del module, dense, fleet, ones, sparse
+
+    # (c) hogwild BERT-base on a 4-shard fleet with int8 delta pulls.
+    x, y = bert_ids(FLEET_ROWS, 2, cfg.vocab_size)
+    torch.manual_seed(0)
+    payload = serialize_torch_obj(
+        bert_base(attn_impl="flash"), criterion="cross_entropy",
+        optimizer="adam", optimizer_params={"lr": 2e-5},
+        input_shape=(BERT_SEQ,))
+    tele = Telemetry(run_id="fleet_train")
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_async(payload, x, labels=y.astype(np.int64),
+                         iters=FLEET_ITERS, partitions=FLEET_PARTS,
+                         mini_batch=FLEET_MB, seed=0, transport="http",
+                         shards=FLEET_SHARDS, pull_quant="int8",
+                         telemetry=tele)
+    wall = time.perf_counter() - t0
+    got = counts["fleet_train"] = read_counts()
+    steps = FLEET_ITERS * FLEET_PARTS
+    expect_counts("fleet (c) train_async(shards=4, pull_quant='int8')", got,
+                  dict(NO_KERNELS, flash_fwd=cfg.n_layers * steps,
+                       flash_bwd_dq=cfg.n_layers * steps,
+                       flash_bwd_dkv=cfg.n_layers * steps))
+    summary = result.summary
+    phases = summary["hogwild_phases"]
+    pushes = sum(int(p["pushes"]) for p in phases)
+    skipped = sum(int(p.get("pushes_skipped", 0)) for p in phases)
+    owners = summary["fleet"]["shards"]
+    losses = [r["loss"] for r in result.metrics]
+    log(f"fleet (c) BERT-base hogwild, {FLEET_PARTS} workers x "
+        f"{FLEET_ITERS} iterations of {FLEET_MB} rows x {BERT_SEQ} ids on "
+        f"{owners} shards: {len(result.metrics)} records, applies "
+        f"{summary['server_applied']} (pushes {pushes} x {owners} shards, "
+        f"{skipped} partials dropped), pull MB "
+        f"{summary['hogwild_budget']['pull_bytes'] / 1e6:.1f}, push MB "
+        f"{summary['hogwild_budget']['push_bytes'] / 1e6:.1f}, losses "
+        f"{[round(v, 4) for v in losses]}, fleet {summary['fleet']}; "
+        f"{wall:.1f} s")
+    if (len(result.metrics) != steps
+            or summary["server_applied"] != pushes * owners - skipped
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"fleet (c): {summary['server_applied']} "
+                             f"applies, {len(result.metrics)} records")
+    out["train"] = dict(records=len(result.metrics), wall_s=wall,
+                        applies=summary["server_applied"], pushes=pushes,
+                        dropped=skipped, losses=losses,
+                        budget=summary["hogwild_budget"])
+    del result, payload
+
+    # (d) one worker, float32 pulls: 4 shards against the single server.
+    x, y = bert_ids(16, 3, cfg.vocab_size)
+    finals, runs = {}, {}
+    for shards in (FLEET_SHARDS, 1):
+        torch.manual_seed(0)
+        payload = serialize_torch_obj(
+            bert_base(attn_impl="flash", n_layers=2),
+            criterion="cross_entropy", optimizer="adam",
+            optimizer_params={"lr": 2e-5}, input_shape=(BERT_SEQ,))
+        reset_counts()
+        t0 = time.perf_counter()
+        result = train_async(payload, x, labels=y.astype(np.int64),
+                             iters=3, partitions=1, seed=0,
+                             transport="http", shards=shards,
+                             telemetry=Telemetry(run_id=f"fleet_d{shards}"))
+        runs[shards] = time.perf_counter() - t0
+        got = counts[f"fleet_parity_{shards}"] = read_counts()
+        expect_counts(f"fleet (d) shards={shards}", got,
+                      dict(NO_KERNELS, flash_fwd=6, flash_bwd_dq=6,
+                           flash_bwd_dkv=6))
+        finals[shards] = result
+    worst, exact = 0.0, True
+    for key, want in finals[1].params.items():
+        have = finals[FLEET_SHARDS].params[key]
+        diff = float((have - want).abs().max())
+        exact = exact and diff == 0.0
+        limit = 1e-6 * float(want.abs().max())
+        worst = max(worst, diff / max(limit, 1e-30))
+        if not diff <= limit:
+            raise AssertionError(f"fleet (d): {key} off by {diff:.3e} "
+                                 f"(limit {limit:.3e})")
+    log(f"fleet (d) 2-layer BERT-base-width encoder, one worker, 3 "
+        f"iterations: {FLEET_SHARDS} shards vs the single server, "
+        f"parameters {'bit-equal' if exact else 'within 1e-6 x max|param|'} "
+        f"(worst {worst:.3f} of the limit), losses "
+        f"{[r['loss'] for r in finals[FLEET_SHARDS].metrics]} vs "
+        f"{[r['loss'] for r in finals[1].metrics]}; {runs[FLEET_SHARDS]:.1f}"
+        f" s vs {runs[1]:.1f} s")
+    out["parity"] = dict(bit_equal=exact, worst_of_limit=worst, wall_s=runs)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"fleet phase: {out['wall_s']:.1f} s")
+    return counts, out
+
+
 START = time.perf_counter()
 
 
@@ -3395,6 +3769,8 @@ def run_phases(torch) -> int:
     done("spark")
     serve_online_counts, serve_online = serve_online_phase(torch)
     done("serve_online")
+    fleet_counts, fleet = fleet_phase(torch)
+    done("fleet")
 
     # Each kernel's numbers at its main path's shape: the serving chunk
     # for the forward, the LM training step for the other four.
@@ -3417,6 +3793,7 @@ def run_phases(torch) -> int:
                    **{path: c[name] for path, c in moe_counts.items()},
                    **{path: c[name]
                       for path, c in serve_online_counts.items()},
+                   **{path: c[name] for path, c in fleet_counts.items()},
                    **{path: c[name]
                       for path, c in bench_counts_by_path.items()}}
         cases = main_cases[name]
@@ -3440,7 +3817,7 @@ def run_phases(torch) -> int:
                     "hogwild": hogwild, "serve_resnet50": resnet50_serve,
                     "serve_resnet50_stream": resnet50_stream,
                     "bench": bench, "dp": dp, "spark": spark, "moe": moe,
-                    "serve_online": serve_online}))
+                    "serve_online": serve_online, "fleet": fleet}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

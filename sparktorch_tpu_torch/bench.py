@@ -13,10 +13,13 @@ Configs (each keeps the JAX config's sizes, seeds and record keys):
 plus ``mnist_cnn_sync`` (the headline's workload), ``hogwild_wire``
 (the dill wire against the binary one on real sockets),
 ``long_context_lm`` (the flash kernels at s = 8192), ``moe_lm`` (an
-8-expert switch causal LM beside its dense twin) and ``serve_online``
+8-expert switch causal LM beside its dense twin), ``serve_online``
 (the online serving tier's gates: continuous batching against the
 fixed-window ``BatchPredictor`` under Poisson load, a replica kill, a
-live weight push). Weights are seeded, never pretrained.
+live weight push) and ``hogwild_ps_fleet`` (the 4-shard parameter-server
+fleet's gates against the single server: pull bandwidth, p99 pull
+latency, delta and int8 bytes, a seeded shard kill). Weights are seeded,
+never pretrained.
 
 The sync configs run :func:`_sync_epoch_bench`: data-parallel over the
 mesh of :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` (the
@@ -162,6 +165,12 @@ RECORD_KEYS = {
          "offered_rate_rps", "throughput_ratio", "p99_ratio",
          "cont_rows_per_s", "baseline", "continuous", "replica_kill",
          "weight_push", "serve_drift", "phase_s"}, set(), set()),
+    "hogwild_ps_fleet": (
+        {"config", "unit", "value", "n_shards", "workers", "quota",
+         "model_mb", "hot_leaves", "total_leaves", "bandwidth_ratio",
+         "p99_ratio", "single", "fleet", "fleet_int8",
+         "delta_bytes_saved_pct", "int8_bytes_saved_pct", "shard_kill",
+         "phase_s"}, set(), set()),
 }
 
 
@@ -965,6 +974,290 @@ def poisson_leg(submit_fn, pool: np.ndarray, arrivals: np.ndarray,
     }
 
 
+def check_fleet_gates(rec: dict, timing: bool = True) -> None:
+    """The JAX ``hogwild_ps_fleet`` gates on a record; raises on the
+    first that fails. The byte gates (deltas ship fewer bytes than full
+    pulls, int8 deltas fewer than f32 ones) and the shard-kill gates
+    (the kill fired, no record lost, at least one monitored restart)
+    are deterministic; ``timing=False`` leaves out the two that are
+    not (aggregate pull bandwidth and p99 pull latency against the
+    single server)."""
+    single, fleet, int8 = rec["single"], rec["fleet"], rec["fleet_int8"]
+    kill = rec["shard_kill"]
+    if timing and not rec["bandwidth_ratio"] > 1.0:
+        raise AssertionError(
+            f"fleet aggregate pull bandwidth did not beat the single "
+            f"server: {fleet['state_mb_per_s']:.0f} vs "
+            f"{single['state_mb_per_s']:.0f} MB/s "
+            f"(x{rec['bandwidth_ratio']:.2f})")
+    if timing and not rec["p99_ratio"] < 1.0:
+        raise AssertionError(
+            f"fleet p99 pull latency did not beat the single server: "
+            f"{fleet['pull_p99_ms']:.0f} vs {single['pull_p99_ms']:.0f} ms "
+            f"(x{rec['p99_ratio']:.2f})")
+    if not fleet["wire_mb_per_pull"] < single["wire_mb_per_pull"]:
+        raise AssertionError(
+            f"delta pulls did not ship fewer bytes than full pulls: "
+            f"{fleet['wire_mb_per_pull']:.2f} vs "
+            f"{single['wire_mb_per_pull']:.2f} MB/pull")
+    if not int8["wire_mb_per_pull"] < fleet["wire_mb_per_pull"]:
+        raise AssertionError(
+            f"int8 delta pulls did not ship fewer bytes than f32 deltas: "
+            f"{int8['wire_mb_per_pull']:.2f} vs "
+            f"{fleet['wire_mb_per_pull']:.2f} MB/pull")
+    if kill["fired"] < 1:
+        raise AssertionError("seeded shard kill never fired")
+    if kill["records"] != kill["expected_records"]:
+        raise AssertionError(
+            f"shard-kill run lost records: {kill['records']} != "
+            f"{kill['expected_records']}")
+    if kill["restarts"] < 1:
+        raise AssertionError("shard kill produced no monitored restart "
+                             "(fleet.shard_restarts_total empty)")
+
+
+def bench_hogwild_ps_fleet(device=None, width: int = 1024, quota: int = 10,
+                           pairs: int = 3, timing_gates: bool = True) -> dict:
+    """The JAX bench's ``hogwild_ps_fleet``: the sharded tier must beat
+    the single server where it claims to, or this raises.
+
+    Workload: the MLP ``features=[width]*16+[10]`` on 784 inputs (66 MB
+    of float32 parameters at the JAX width, 1,024), SGD lr 1e-2, under a
+    sparse-update pusher (a stable hot quarter of the leaves gets
+    closed-loop pushes) while 6 stateful pullers each complete
+    ``quota`` fresh pulls at a 5 ms cadence. The single server re-ships
+    the whole tree on every fresh pull (and applies dense zero
+    gradients); the 4-shard fleet ships per-tensor deltas and applies
+    the sparse partials shard-parallel. Single and fleet legs run
+    interleaved ``pairs`` times, then one int8-pull fleet leg; the
+    record holds the medians. Then a seeded shard kill
+    (``ChaosConfig(kill_shard_at={1: 4})``) in a ``train_async(shards=4)``
+    run of ``ClassificationNet``. :func:`check_fleet_gates` holds the
+    record to the JAX gates (``timing_gates=False``: the deterministic
+    ones only). On the card the shards and the single server keep their
+    parameters on the device; every pull renders from a host copy."""
+    import threading
+
+    from sparktorch_tpu_torch import ft, serialize_torch_obj
+    from sparktorch_tpu_torch.models import ClassificationNet
+    from sparktorch_tpu_torch.models.simple import MLP
+    from sparktorch_tpu_torch.net import wire as _wire
+    from sparktorch_tpu_torch.net.sharded import ShardedTransport
+    from sparktorch_tpu_torch.net.transport import BinaryTransport
+    from sparktorch_tpu_torch.obs import Telemetry
+    from sparktorch_tpu_torch.serve.fleet import ParamServerFleet
+    from sparktorch_tpu_torch.serve.param_server import (
+        ParameterServer,
+        ParamServerHttp,
+    )
+    from sparktorch_tpu_torch.train.hogwild import train_async
+
+    dev = _resolve_device(device)
+    n_shards, workers, cadence_s = 4, 6, 0.005
+    with _Phase(dev, "init") as p_init:
+        torch.manual_seed(0)
+        spec = _spec(MLP([width] * 16 + [10], in_features=784),
+                     optimizer="sgd", optimizer_params={"lr": 1e-2},
+                     input_shape=(784,))
+
+    def swarm_leg(make_pull, push_fn) -> dict:
+        """A closed-loop pusher and ``workers`` stateful pullers, each
+        completing ``quota`` fresh pulls; every transport opened here is
+        closed before the leg returns."""
+        stop = threading.Event()
+        lat: List[float] = []
+        lock = threading.Lock()
+        wire_bytes = [0]
+        opened: list = []
+
+        def pusher():
+            while not stop.is_set():
+                push_fn()  # waits for the apply: versions at apply pace
+                time.sleep(cadence_s)
+
+        def puller():
+            pull, bytes_fn, transport = make_pull()
+            with lock:
+                opened.append(transport)
+            # An untimed first sync (both legs ship the whole model); the
+            # quota is steady-state pulls, where delta and full differ.
+            have = -1
+            snap = pull(have)
+            if snap is not None:
+                have = snap[0]
+            done, mine, b0 = 0, [], bytes_fn()
+            # A server whose writer died mints no versions: fail the
+            # gate instead of hanging.
+            deadline = time.monotonic() + 120.0
+            while done < quota and time.monotonic() < deadline:
+                t0 = time.perf_counter()
+                snap = pull(have)
+                dt = time.perf_counter() - t0
+                if snap is not None:
+                    have, done = snap[0], done + 1
+                    mine.append(dt)
+                time.sleep(cadence_s)
+            with lock:
+                lat.extend(mine)
+                wire_bytes[0] += bytes_fn() - b0
+
+        pt = threading.Thread(target=pusher, daemon=True)
+        pt.start()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=puller, daemon=True)
+                   for _ in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        stop.set()
+        pt.join()
+        for transport in opened:
+            transport.close()
+        pulls = workers * quota
+        if len(lat) < pulls:
+            raise AssertionError(
+                f"swarm leg stalled: {len(lat)}/{pulls} fresh pulls "
+                "completed before the 120 s deadline — the server stopped "
+                "minting versions (dead writer?)")
+        return {
+            "wall_s": wall,
+            "state_mb_per_s": pulls * model_nbytes / wall / 1e6,
+            "wire_mb_per_s": wire_bytes[0] / wall / 1e6,
+            "wire_mb_per_pull": wire_bytes[0] / pulls / 1e6,
+            "pull_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "pull_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        }
+
+    def single_leg() -> dict:
+        server = ParameterServer(spec, window_len=workers, device=dev)
+        http = ParamServerHttp(server, port=0).start()
+        try:
+            _, params = server.slot.read()
+            zero_full = {k: np.zeros(tuple(v.shape), np.float32)
+                         for k, v in params.items()}
+
+            def push():
+                try:
+                    server.push_gradients(zero_full, wait=True)
+                except Exception:  # noqa: BLE001 - a raced stop
+                    pass
+
+            def make_pull():
+                t = BinaryTransport(http.url, quant=None)
+                return (lambda have: t.pull(have)), (
+                    lambda: t.stats["pull_bytes"]), t
+
+            push()
+            server.drain()
+            pull, _b, t = make_pull()  # warm the render and the connection
+            pull(-1)
+            t.close()
+            return swarm_leg(make_pull, push)
+        finally:
+            http.stop()
+            server.stop()
+
+    def fleet_leg(pull_quant=None) -> dict:
+        fleet = ParamServerFleet(spec, n_shards=n_shards, device=dev).start()
+        try:
+            def push():
+                try:
+                    fleet.scatter_push(hot_partial, wait=True)
+                except Exception:  # noqa: BLE001 - a raced stop
+                    pass
+
+            def make_pull():
+                t = ShardedTransport(fleet, pull_quant=pull_quant)
+                return (lambda have: t.pull(have)), (
+                    lambda: t.stats["pull_bytes"]), t
+
+            push()
+            fleet.drain()
+            pull, _b, t = make_pull()
+            pull(-1)
+            t.close()
+            return swarm_leg(make_pull, push)
+        finally:
+            fleet.stop()
+
+    with _Phase(dev, "compile_warmup") as p_warm:
+        # One throwaway fleet: the leaf partition, the shards' first
+        # optimizer steps and the hot set.
+        probe = ParamServerFleet(spec, n_shards=n_shards, device=dev)
+        flat = dict(_wire.flatten_tree(probe.assemble()))
+        model_nbytes = sum(a.numel() * a.element_size()
+                           for a in flat.values())
+        paths = sorted(flat)
+        hot = paths[:max(1, len(paths) // 4)]
+        hot_partial = {p: np.zeros(tuple(flat[p].shape), np.float32)
+                       for p in hot}
+        probe.scatter_push(hot_partial, wait=True)
+        probe.stop()
+
+    with _Phase(dev, "measure") as p_measure:
+        singles, fleets = [], []
+        for _ in range(pairs):  # interleaved: host noise hits both legs
+            singles.append(single_leg())
+            fleets.append(fleet_leg())
+        int8 = fleet_leg(pull_quant="int8")
+
+    def median(legs, key):
+        return float(np.median([leg[key] for leg in legs]))
+
+    single = {k: round(median(singles, k), 3) for k in singles[0]}
+    fleet = {k: round(median(fleets, k), 3) for k in fleets[0]}
+    bw_ratio = fleet["state_mb_per_s"] / max(single["state_mb_per_s"], 1e-9)
+    p99_ratio = fleet["pull_p99_ms"] / max(single["pull_p99_ms"], 1e-9)
+
+    with _Phase(dev, "shard_kill") as p_kill:
+        rng = np.random.default_rng(0)
+        x = np.concatenate([rng.normal(0, 1, (100, 10)),
+                            rng.normal(2, 1, (100, 10))]).astype(np.float32)
+        y = np.concatenate([np.zeros(100), np.ones(100)]).astype(np.float32)
+        torch.manual_seed(0)
+        clf = serialize_torch_obj(
+            ClassificationNet(n_classes=2), criterion="cross_entropy",
+            optimizer="adam", optimizer_params={"lr": 5e-3},
+            input_shape=(10,))
+        kill_tele = Telemetry(run_id="bench_ps_fleet_kill")
+        iters, parts = 12, 2
+        with ft.inject(ft.ChaosConfig(kill_shard_at={1: 4}, seed=0),
+                       telemetry=kill_tele) as inj:
+            result = train_async(clf, x, labels=y, iters=iters,
+                                 partitions=parts, seed=0, transport="http",
+                                 shards=n_shards, telemetry=kill_tele,
+                                 device=dev)
+        kill = {"fired": len([e for e in inj.events
+                              if e["site"] == "fleet.shard"]),
+                "records": len(result.metrics),
+                "restarts": int(result.summary["fleet"]["shard_restarts"])}
+
+    rec = {
+        "config": "hogwild_ps_fleet", "unit": "x (bandwidth ratio)",
+        "value": round(bw_ratio, 3),
+        "n_shards": n_shards, "workers": workers, "quota": quota,
+        "model_mb": round(model_nbytes / 1e6, 1),
+        "hot_leaves": len(hot), "total_leaves": len(paths),
+        "bandwidth_ratio": round(bw_ratio, 3),
+        "p99_ratio": round(p99_ratio, 3),
+        "single": single, "fleet": fleet, "fleet_int8": int8,
+        "delta_bytes_saved_pct": round(
+            100 * (1 - fleet["wire_mb_per_pull"]
+                   / single["wire_mb_per_pull"]), 1),
+        "int8_bytes_saved_pct": round(
+            100 * (1 - int8["wire_mb_per_pull"]
+                   / fleet["wire_mb_per_pull"]), 1),
+        "shard_kill": kill,
+        "phase_s": _phase_s(init=p_init, compile_warmup=p_warm,
+                            measure=p_measure, shard_kill=p_kill),
+    }
+    check_fleet_gates(dict(rec, shard_kill=dict(
+        kill, expected_records=iters * parts)), timing=timing_gates)
+    return rec
+
+
 def bench_serve_online(device=None, n_requests: int = 300) -> dict:
     """The online serving gate (the JAX bench's ``serve_online``): the
     continuous-batching tier must beat the fixed-window tool where it
@@ -1310,6 +1603,7 @@ CONFIGS: Dict[str, Callable[[], dict]] = {
     "long_context_lm": bench_long_context_lm,
     "moe_lm": bench_moe_lm,
     "serve_online": bench_serve_online,
+    "hogwild_ps_fleet": bench_hogwild_ps_fleet,
 }
 
 

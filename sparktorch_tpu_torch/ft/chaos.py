@@ -13,10 +13,11 @@ The port's injection points: ``serve.replica`` (kill and slow, in
 client), ``param_server.pull`` and ``param_server.update`` (a torn pull
 body, a forced 500, in the parameter server's HTTP routes), and
 ``worker.step``, ``data.batch`` and ``train.rank`` (kill, poison,
-straggle, in the sync, streaming and hogwild trainers' step loops).
-``fleet.shard`` and ``ctl.process`` wait for the fleet and the
-supervisor (ROADMAP, Queue 1, item 9); their verdicts are evaluated
-here all the same.
+straggle, in the sync, streaming and hogwild trainers' step loops), and
+``fleet.shard`` (a shard frontend's death at its Nth request, a
+straggler's delay, in the fleet shards' HTTP routes). ``ctl.process``
+waits for the supervisor (ROADMAP, Queue 1, item 9, step 3); its
+verdicts are evaluated here all the same.
 
 Install is process-global (``with inject(config): ...``) because the
 faults must reach code deep inside worker threads without threading a

@@ -33,6 +33,7 @@ from sparktorch_tpu_torch.ml.estimator import SparkTorchModel, _encode_bundle
 from sparktorch_tpu_torch.ml.pipeline import PipelineModel
 from sparktorch_tpu_torch.obs import get_telemetry
 from sparktorch_tpu_torch.utils.serde import ModelSpec, meta_copy
+from sparktorch_tpu_torch.utils.streams import copy_stream
 
 
 def _resolve_device(device=None) -> torch.device:
@@ -102,9 +103,12 @@ class BatchPredictor:
         """Serve new weights (a ``state_dict``, buffers included). They
         are loaded into a fresh device copy of the module, which is then
         installed by one attribute assignment: a concurrent ``predict``
-        chunk runs on the old or the new weights whole, never a mix."""
+        chunk runs on the old or the new weights whole, never a mix. The
+        load's copies run off the device's current stream, where a
+        concurrent ``predict`` queues its work (:func:`copy_stream`)."""
         fresh = copy.deepcopy(self.module)
-        fresh.load_state_dict(params)
+        with copy_stream(self.device):
+            fresh.load_state_dict(params)
         self.module = fresh.eval()
 
     def _chunks(self, x, n: int):

@@ -1,11 +1,11 @@
-"""Framed binary tensor wire — the port of ``sparktorch_tpu/net/wire.py`` (version-1 frames).
+"""Framed binary tensor wire — the port of ``sparktorch_tpu/net/wire.py``.
 
 A frame is a fixed header, a JSON table that mirrors the tree, and the
 tensors' raw bytes:
 
     offset  size  field
     0       4     magic  b"STWR"
-    4       1     wire format version (1)
+    4       1     wire format version (1, or 2 for a delta frame)
     5       1     flags (bit 0: a 25-byte trace-context extension follows
                   the header; this encoder never sets it, the decoder
                   steps over it)
@@ -15,7 +15,8 @@ tensors' raw bytes:
     20      8     payload length in bytes (uint64 LE)
     28      ...   table: UTF-8 JSON; interior nodes are objects, leaves
                   ``[dtype-str, shape]`` (+ ``{"scale": s, "d": dtype}``
-                  for an int8-quantized tensor)
+                  for an int8-quantized tensor); a version-2 leaf is
+                  ``[dtype-str, shape, quant-or-null, leaf_version]``
     28+T    ...   payload: C-contiguous little-endian buffers in the
                   table's depth-first order
 
@@ -31,8 +32,15 @@ decodes to a read-only numpy view of the body.
 
 :func:`quantize_tree` implements the error-feedback push compression
 (bf16 or per-tensor int8): the quantization residual stays with the
-sender and is added to its next push. Not ported yet (ROADMAP): the
-version-2 DELTA frames of the sharded fleet (``decode_delta``).
+sender and is added to its next push.
+
+Version 2 is the DELTA frame the sharded fleet's ``/delta.bin`` route
+serves (:func:`encode` with ``leaf_versions``, :func:`decode_delta`):
+each leaf carries its own version tag beside the frame's snapshot
+version, and the tree may hold only the leaves that advanced, for the
+client to merge into its cached tree. :func:`decode` reads version-1
+frames only and rejects a delta frame loudly, so a v1 consumer never
+mistakes a partial tree for a whole one.
 """
 
 from __future__ import annotations
@@ -46,6 +54,9 @@ import torch
 
 MAGIC = b"STWR"
 WIRE_VERSION = 1
+# Delta frames: the same header and payload layout; each leaf entry
+# carries a 4th element (its version tag) and the tree may be partial.
+WIRE_VERSION_DELTA = 2
 # magic, version, flags, run tag, snapshot version, table len, payload len
 _HEADER = struct.Struct("<4sBBHqIQ")
 HEADER_SIZE = _HEADER.size
@@ -219,14 +230,16 @@ def quantize_tree(tree: Any, mode: str,
 
 
 def _encode_node(node: Any, table_out: Any, buffers: Buffers,
-                 offset: int) -> int:
+                 offset: int, prefix: Tuple[str, ...] = (),
+                 leaf_versions: Optional[Mapping] = None) -> int:
     if isinstance(node, Mapping):
         for k in node:
             if not isinstance(k, str):
                 raise WireError(
                     f"wire trees are string-keyed mappings; got key {k!r}")
             entry: Any = {} if isinstance(node[k], Mapping) else []
-            offset = _encode_node(node[k], entry, buffers, offset)
+            offset = _encode_node(node[k], entry, buffers, offset,
+                                  prefix + (k,), leaf_versions)
             table_out[k] = entry
         return offset
     if isinstance(node, (list, tuple)):
@@ -239,18 +252,24 @@ def _encode_node(node: Any, table_out: Any, buffers: Buffers,
         dtype, arr = _wire_array(node if isinstance(node, torch.Tensor)
                                  else np.asarray(node))
         quant = None
-    table_out.extend([dtype, list(arr.shape)]
-                     + ([quant] if quant is not None else []))
+    if leaf_versions is None:
+        table_out.extend([dtype, list(arr.shape)]
+                         + ([quant] if quant is not None else []))
+    else:
+        table_out.extend([dtype, list(arr.shape), quant,
+                          int(leaf_versions.get(prefix, -1))])
     if arr.nbytes:
         buffers.append(memoryview(arr.reshape(-1).view(np.uint8)))
     return offset + arr.nbytes
 
 
-def encode(tree_or_leaves: Any, version: int = -1,
-           run_tag: int = 0) -> Buffers:
+def encode(tree_or_leaves: Any, version: int = -1, run_tag: int = 0,
+           leaf_versions: Optional[Mapping] = None) -> Buffers:
     """Frame a tree (or the flattened/quantized leaves of one) for the
     wire: ``[header+table bytes, buffer, buffer, ...]``, each buffer a
-    view of the array's own memory."""
+    view of the array's own memory. ``leaf_versions`` (``{path-tuple:
+    int}``) makes it a version-2 delta frame, each leaf tagged with its
+    version (-1 where the map has none)."""
     if isinstance(tree_or_leaves, list) and (
             not tree_or_leaves
             or (isinstance(tree_or_leaves[0], tuple)
@@ -260,9 +279,10 @@ def encode(tree_or_leaves: Any, version: int = -1,
         tree = tree_or_leaves
     buffers: Buffers = []
     table: Any = {} if isinstance(tree, Mapping) else []
-    payload_len = _encode_node(tree, table, buffers, 0)
+    payload_len = _encode_node(tree, table, buffers, 0, (), leaf_versions)
     table_bytes = json.dumps(table, separators=(",", ":")).encode()
-    header = _HEADER.pack(MAGIC, WIRE_VERSION, 0, int(run_tag) & 0xFFFF,
+    wire_ver = WIRE_VERSION if leaf_versions is None else WIRE_VERSION_DELTA
+    header = _HEADER.pack(MAGIC, wire_ver, 0, int(run_tag) & 0xFFFF,
                           int(version), len(table_bytes), payload_len)
     return [header + table_bytes, *buffers]
 
@@ -287,12 +307,10 @@ def frame_run_tag(data: Union[bytes, bytearray, memoryview]) -> int:
     return int(tag)
 
 
-def decode(data: Union[bytes, bytearray, memoryview]) -> Tuple[int, Any]:
-    """``(snapshot_version, tree)`` of a version-1 frame. Numpy leaves
-    are read-only views of ``data``; bfloat16 leaves are
-    ``torch.bfloat16`` tensors; int8-quantized leaves come back
-    dequantized. Raises :class:`WireError` on anything malformed or
-    truncated."""
+def _decode_impl(data: Union[bytes, bytearray, memoryview], want: int
+                 ) -> Tuple[int, Any, Dict[Tuple[str, ...], int]]:
+    """``(version, tree, {path: leaf_version})`` of a frame of wire
+    version ``want`` (the map is empty for version 1)."""
     mv = memoryview(data)
     if len(mv) < HEADER_SIZE:
         raise WireError(f"frame truncated: {len(mv)} < header {HEADER_SIZE}")
@@ -300,7 +318,11 @@ def decode(data: Union[bytes, bytearray, memoryview]) -> Tuple[int, Any]:
         _HEADER.unpack_from(mv, 0))
     if magic != MAGIC:
         raise WireError(f"bad magic {magic!r}")
-    if wire_ver != WIRE_VERSION:
+    if wire_ver == WIRE_VERSION_DELTA and want == WIRE_VERSION:
+        raise WireError("got a delta (v2) frame; read it with decode_delta")
+    if wire_ver == WIRE_VERSION and want == WIRE_VERSION_DELTA:
+        raise WireError("expected a delta (v2) frame, got v1")
+    if wire_ver != want:
         raise WireError(f"unsupported wire version {wire_ver}")
     body_off = HEADER_SIZE + (TRACE_EXT_SIZE if flags & FLAG_TRACE else 0)
     if len(mv) != body_off + table_len + payload_len:
@@ -314,8 +336,10 @@ def decode(data: Union[bytes, bytearray, memoryview]) -> Tuple[int, Any]:
     if not isinstance(table, (dict, list)):
         raise WireError("tensor table is neither object nor leaf")
     payload = mv[body_off + table_len:]
+    leaf_versions: Dict[Tuple[str, ...], int] = {}
 
-    def read_leaf(entry: list, offset: int) -> Tuple[Any, int]:
+    def read_leaf(entry: list, offset: int,
+                  path: Tuple[str, ...]) -> Tuple[Any, int]:
         try:
             name = entry[0]
             dtype = _dtype_of(name)
@@ -324,6 +348,11 @@ def decode(data: Union[bytes, bytearray, memoryview]) -> Tuple[int, Any]:
             if quant is not None:
                 quant = (float(quant["scale"]),
                          _dtype_of(quant["d"]).newbyteorder("="))
+            if wire_ver == WIRE_VERSION_DELTA:
+                if len(entry) < 4:
+                    raise WireError(
+                        f"delta frame leaf missing version tag: {entry!r}")
+                leaf_versions[path] = int(entry[3])
         except (IndexError, KeyError, TypeError, ValueError) as e:
             if isinstance(e, WireError):
                 raise
@@ -354,19 +383,41 @@ def decode(data: Union[bytes, bytearray, memoryview]) -> Tuple[int, Any]:
                     .view(torch.bfloat16), offset + nbytes)
         return arr, offset + nbytes
 
-    def read_node(node: Any, offset: int) -> Tuple[Any, int]:
+    def read_node(node: Any, offset: int,
+                  path: Tuple[str, ...]) -> Tuple[Any, int]:
         if isinstance(node, dict):
             out = {}
             for k, child in node.items():
-                out[k], offset = read_node(child, offset)
+                out[k], offset = read_node(child, offset, path + (k,))
             return out, offset
         if not isinstance(node, list):
             raise WireError(f"malformed table node {node!r}")
-        return read_leaf(node, offset)
+        return read_leaf(node, offset, path)
 
-    tree, consumed = read_node(table, 0)
+    tree, consumed = read_node(table, 0, ())
     if consumed != payload_len:
         raise WireError(
             f"payload length {payload_len} != tensor bytes {consumed}")
-    return int(version), tree
+    return int(version), tree, leaf_versions
+
+
+def decode(data: Union[bytes, bytearray, memoryview]) -> Tuple[int, Any]:
+    """``(snapshot_version, tree)`` of a version-1 frame. Numpy leaves
+    are read-only views of ``data``; bfloat16 leaves are
+    ``torch.bfloat16`` tensors; int8-quantized leaves come back
+    dequantized. Raises :class:`WireError` on anything malformed or
+    truncated, and on a delta (v2) frame."""
+    version, tree, _ = _decode_impl(data, WIRE_VERSION)
+    return version, tree
+
+
+def decode_delta(data: Union[bytes, bytearray, memoryview]
+                 ) -> Tuple[int, Dict[Tuple[str, ...], Any],
+                            Dict[Tuple[str, ...], int]]:
+    """``(snapshot_version, {path: leaf}, {path: leaf_version})`` of a
+    delta (v2) frame, flat by path, ready to merge into a cached tree.
+    Leaves decode as :func:`decode`'s do. Raises :class:`WireError` on
+    a v1 frame: a full snapshot must never pass for a delta."""
+    version, tree, vers = _decode_impl(data, WIRE_VERSION_DELTA)
+    return version, dict(flatten_tree(tree)), vers
 

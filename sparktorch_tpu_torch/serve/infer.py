@@ -14,9 +14,10 @@ small requests arriving continuously, each with its own deadline:
   request whose deadline lapses while queued is expired without a
   batch slot.
 - **Live weight updates** (:class:`WeightPuller`): a background thread
-  pulls version-tagged full snapshots from a parameter server over the
-  binary wire (a 304 when current) and swaps the serving module
-  BETWEEN batches.
+  pulls version-tagged snapshots from a parameter server over the
+  binary wire (a 304 when current) — per-tensor deltas from a fleet's
+  ``/delta.bin`` when the transport has ``pull_delta``, full snapshots
+  otherwise — and swaps the serving module BETWEEN batches.
 - **Observability**: batch fill, queue depth, request latency and
   batch execution land on the telemetry bus under the JAX package's
   ``serve.*`` names; per-replica heartbeats give the router its
@@ -30,10 +31,9 @@ replica's batch loop enters ``torch.inference_mode()`` itself (the mode
 is thread-local) and launches its kernels on its thread's current
 stream. A replica runs on CUDA unless ``device="cpu"`` is passed.
 
-Not ported yet: the fleet's delta pulls (``/delta.bin``, a
-``ShardedTransport``; ROADMAP, Queue 1, item 9), RPC trace contexts
-(``trace_ctx``, ``obs.rpctrace``; item 10) and the ctl worker context
-of :func:`run_replica_server` with its stack profiler (``obs.profile``;
+Not ported yet: RPC trace contexts (``trace_ctx``, ``obs.rpctrace``;
+ROADMAP, Queue 1, item 10) and the ctl worker context of
+:func:`run_replica_server` with its stack profiler (``obs.profile``;
 items 9 and 10). Each raises ``NotImplementedError``.
 """
 
@@ -50,7 +50,7 @@ import torch
 
 from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.net import wire as _wire
-from sparktorch_tpu_torch.net.transport import TransportError
+from sparktorch_tpu_torch.net.transport import BinaryTransport, TransportError
 from sparktorch_tpu_torch.obs.telemetry import wall_ts
 from sparktorch_tpu_torch.utils.locks import VersionedSlot
 
@@ -253,6 +253,11 @@ class InferenceReplica:
                                    labels=self._labels)
 
     def start(self) -> "InferenceReplica":
+        if (self._thread is not None and self._thread.is_alive()
+                and (self._dead or self._stopped)):
+            # A killed or stopped loop returns at its next wake-up: wait
+            # for it, or this restart would leave the replica dead.
+            self._thread.join(timeout=5.0)
         if self._thread is None or not self._thread.is_alive():
             self._dead = False
             self._stopped = False
@@ -528,25 +533,32 @@ class InferenceReplica:
 class WeightPuller:
     """Background weight refresh for one replica.
 
-    ``transport`` speaks the hogwild pull contract: a
-    :class:`~sparktorch_tpu_torch.net.transport.BinaryTransport`
-    making version-tagged full pulls against one parameter server
-    (either package's). Every fresh pull installs via
-    :meth:`InferenceReplica.install_params`; a pull failure counts and
+    ``transport`` speaks the hogwild pull contract (either package's
+    server):
+
+    - a :class:`~sparktorch_tpu_torch.net.transport.BinaryTransport` —
+      version-tagged pulls against one server; when the server also
+      serves ``/delta.bin`` (a fleet's gateway, or a shard that owns the
+      whole tree), per-tensor DELTA pulls are used (only the advanced
+      leaves ship, int8 when ``quant='int8'``); a 404 from a server
+      without the route falls back to full pulls, once, for good. A
+      shard of a fleet of several serves only its hash range: point the
+      transport at the gateway, or use a ShardedTransport;
+    - a :class:`~sparktorch_tpu_torch.net.sharded.ShardedTransport` —
+      delta scatter/gather over the fleet's shards (its ``pull`` is
+      delta-based already).
+
+    Every fresh pull installs via :meth:`InferenceReplica.install_params`;
+    a changed server epoch (a rebuilt slot) clears the leaf cache and
+    pulls everything again, counted on
+    ``serve.weight_epoch_resyncs_total``. A pull failure counts and
     leaves the replica serving its last-good weights (staleness is the
-    correct degraded mode for serving — never an outage). A transport
-    with delta pulls (the fleet gateway's ``/delta.bin``, a
-    ``ShardedTransport``) raises ``NotImplementedError``: the fleet is
-    not ported yet (ROADMAP, Queue 1, item 9).
+    correct degraded mode for serving — never an outage).
     """
 
     def __init__(self, replica: InferenceReplica, transport,
                  poll_s: float = 0.05, quant: Optional[str] = None,
                  telemetry=None):
-        if hasattr(transport, "pull_delta"):
-            raise NotImplementedError(
-                "delta pulls (the fleet's /delta.bin, ShardedTransport) are "
-                "not ported yet (ROADMAP, Queue 1, item 9)")
         self.replica = replica
         self.transport = transport
         self.poll_s = float(poll_s)
@@ -554,6 +566,13 @@ class WeightPuller:
         self.telemetry = telemetry or replica.telemetry
         self._labels = dict(replica._labels)
         self._have = -1
+        self._epoch: Optional[int] = None
+        self._leaves: Dict[Tuple[str, ...], object] = {}
+        # None: undecided (try /delta.bin first); False: the server
+        # answered 404 — full pulls from then on.
+        self._use_delta: Optional[bool] = (
+            None if hasattr(transport, "pull_delta") else False)
+        self._buf: Optional[torch.Tensor] = None
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -583,7 +602,10 @@ class WeightPuller:
         """One pull sweep; True when fresh weights were installed."""
         t0 = time.perf_counter()
         try:
-            fresh = self._poll_full()
+            if self._use_delta is not False:
+                fresh = self._poll_delta()
+            else:
+                fresh = self._poll_full()
         finally:
             self.telemetry.observe("serve.weight_poll_s",
                                    time.perf_counter() - t0,
@@ -593,8 +615,57 @@ class WeightPuller:
                                    labels=self._labels)
         return fresh
 
+    def _poll_delta(self) -> bool:
+        try:
+            res = self.transport.pull_delta(lambda: self._have,
+                                            quant=self.quant)
+        except TransportError as e:
+            if self._use_delta is None and "404" in str(e):
+                # A server without the delta route: full pulls for good.
+                self._use_delta = False
+                return self._poll_full()
+            raise
+        self._use_delta = True
+        epoch = res.get("epoch")
+        if (epoch is not None and self._epoch is not None
+                and epoch != self._epoch):
+            # The server's slot was rebuilt: its versions restarted, so
+            # our version and leaf cache mean nothing — resync.
+            self._have = -1
+            self._leaves.clear()
+            self.telemetry.counter("serve.weight_epoch_resyncs_total",
+                                   labels=self._labels)
+            res = self.transport.pull_delta(lambda: self._have,
+                                            quant=self.quant)
+            epoch = res.get("epoch")
+        if epoch is not None:
+            self._epoch = epoch
+        if not res.get("fresh"):
+            return False
+        self._leaves.update(res["leaves"])
+        self._have = int(res["version"])
+        tree = _wire.unflatten_tree(list(self._leaves.items()))
+        self.replica.install_params(tree, version=self._have)
+        return True
+
+    def _recv_buffer(self, nbytes: int) -> np.ndarray:
+        """The buffer a full pull's body lands in, kept from pull to
+        pull (pinned where a card is present), so the body's pages are
+        not faulted in anew for each pull and the install's host-to-card
+        copies run at the pinned rate. The pulled tree's arrays are
+        views of it; the install has copied them out before the next
+        pull overwrites it."""
+        if self._buf is None or self._buf.numel() < nbytes:
+            self._buf = None  # the smaller one goes first
+            self._buf = torch.empty(nbytes, dtype=torch.uint8,
+                                    pin_memory=torch.cuda.is_available())
+        return self._buf.numpy()
+
     def _poll_full(self) -> bool:
-        snap = self.transport.pull(self._have)
+        if isinstance(self.transport, BinaryTransport):
+            snap = self.transport.pull(self._have, into=self._recv_buffer)
+        else:
+            snap = self.transport.pull(self._have)
         if snap is None:
             return False
         version, tree = snap
@@ -663,8 +734,6 @@ def run_replica_server(torch_obj, replica_id="0",
     )
     puller = None
     if server_url:
-        from sparktorch_tpu_torch.net.transport import BinaryTransport
-
         puller = WeightPuller(
             replica, BinaryTransport(server_url, quant=pull_quant),
             poll_s=pull_poll_s, telemetry=telemetry,

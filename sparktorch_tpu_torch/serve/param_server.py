@@ -33,10 +33,18 @@ ones (``/parameters.bin`` with a 304 for a current client,
 snapshot as JSON). The server records the JAX package's
 ``param_server.*`` names into its bus (its own unless the caller passes
 one), and hosts the ``param_server.pull`` (a torn pull body) and
-``param_server.update`` (a forced 500) chaos sites. Not ported yet
-(ROADMAP, Queue 1): the ``/delta.bin`` route and the ``fleet.shard``
-chaos site (item 9, step 2), and the rpctrace and goodput hooks (item
-10, step 4).
+``param_server.update`` (a forced 500) chaos sites.
+
+For the sharded fleet (:mod:`~sparktorch_tpu_torch.serve.fleet`), when
+the backing server has ``render_delta`` (a fleet shard, or the fleet's
+gateway) :class:`ParamServerHttp` also serves ``GET /delta.bin``, the
+per-tensor delta pull, each reply (304s too) carrying ``X-Slot-Epoch``
+and, with ``ring_version_fn``, ``X-Ring-Version``; ``shard=`` labels
+the wire metrics with the shard id and arms the ``fleet.shard`` chaos
+site (the frontend's kill, the straggler's delay), and
+``extra_json_routes`` mounts small JSON routes (``/fleet.json``). Not
+ported yet (ROADMAP, Queue 1, item 10, step 4): the rpctrace and
+goodput hooks; a ``trace_ctx`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,10 +53,11 @@ import copy
 import json
 import queue
 import socket as _socket
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import dill
 import numpy as np
@@ -57,7 +66,7 @@ import torch
 from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.inference import _resolve_device
 from sparktorch_tpu_torch.net import wire as binwire
-from sparktorch_tpu_torch.net.transport import run_tag
+from sparktorch_tpu_torch.net.transport import no_trace, run_tag, tree_to_host
 from sparktorch_tpu_torch.obs.prom import CONTENT_TYPE as PROM_CONTENT_TYPE
 from sparktorch_tpu_torch.obs.prom import render_prometheus
 from sparktorch_tpu_torch.obs.telemetry import Telemetry
@@ -92,7 +101,8 @@ def build_module(spec: ModelSpec, seed: int) -> torch.nn.Module:
 def snapshot(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A copy of ``tensors`` made by one fused copy."""
     out = {k: torch.empty_like(v) for k, v in tensors.items()}
-    torch._foreach_copy_(list(out.values()), list(tensors.values()))
+    if out:
+        torch._foreach_copy_(list(out.values()), list(tensors.values()))
     return out
 
 
@@ -159,11 +169,12 @@ class ParameterServer:
     # -- gradient path -----------------------------------------------------
 
     def push_gradients(self, grads, wait: bool = True,
-                       timeout: float = 60.0) -> None:
+                       timeout: float = 60.0, trace_ctx=None) -> None:
         """Queue a gradient tree (parameter name → gradient) for the
         writer thread. With ``wait`` the call returns once this
         gradient is applied, so a worker's next pull sees its own push
         (``POST /update``, server.py:125-147)."""
+        no_trace(trace_ctx, "trace_ctx")
         if self._failed is not None:
             raise RuntimeError("parameter server failed") from self._failed
         done = threading.Event() if wait else None
@@ -258,15 +269,13 @@ class ParameterServer:
 # ---------------------------------------------------------------------------
 
 
-def _to_host(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in tree.items()}
-
-
 class _KeepAliveHTTPServer(ThreadingHTTPServer):
     """A ThreadingHTTPServer whose ``stop`` also closes the kept-alive
     client connections, so a stopped server goes dark."""
 
     daemon_threads = True
+    # A fleet's monitor restarts a killed shard frontend on its old port.
+    allow_reuse_address = True
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -282,6 +291,13 @@ class _KeepAliveHTTPServer(ThreadingHTTPServer):
         with self._live_lock:
             self._live_requests.discard(request)
         super().shutdown_request(request)
+
+    def handle_error(self, request, client_address):
+        # A client that hung up, or a kill closing the connection under
+        # a request: nothing the server did wrong, so no traceback.
+        if isinstance(sys.exc_info()[1], ConnectionError):
+            return
+        super().handle_error(request, client_address)
 
     def close_all_connections(self):
         with self._live_lock:
@@ -305,13 +321,24 @@ class ParamServerHttp:
     routes render from one host copy per version. ``GET /metrics``
     serves the server's bus as Prometheus text and ``GET /telemetry``
     the same snapshot as JSON.
+
+    Fleet mode: ``GET /delta.bin`` when the server has ``render_delta``
+    (the leaves past ``X-Have-Version``, int8 with ``X-Pull-Quant:
+    int8``; ``X-Slot-Epoch`` and ``X-Ring-Version`` on every reply);
+    ``shard`` labels the wire metrics and arms the ``fleet.shard``
+    chaos site; ``extra_json_routes`` maps a route to a callable whose
+    result is served as JSON.
     """
 
     def __init__(self, server: ParameterServer, host: str = "127.0.0.1",
-                 port: int = 3000):
+                 port: int = 3000, shard: Optional[str] = None,
+                 extra_json_routes=None, ring_version_fn=None):
         self.server = server
         self.host = host
         self.port = port
+        self.shard = str(shard) if shard is not None else None
+        self.extra_json_routes = dict(extra_json_routes or {})
+        self.ring_version_fn = ring_version_fn
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -326,50 +353,137 @@ class ParamServerHttp:
         # same (the tag is a join key, not an access check).
         server_tag = run_tag(tele.run_id)
 
-        def cached_body(fmt: str) -> Tuple[int, bytes]:
+        def cached_body(fmt: str) -> Tuple[int, Union[bytes, list]]:
             """(version, body) from one slot read; the host copy and
-            each rendering are made once per version."""
+            each rendering are made once per version. The binary body
+            is the frame's buffers, views of the host copy, sent one
+            after another: joining a BERT-base frame would copy 0.44 GB
+            before the first byte goes out."""
             with cache_lock:
                 version, params = ps.slot.read()
                 if cache["version"] != version:
-                    cache.update(version=version, host=_to_host(params),
-                                 dill=None, bin=None)
+                    # The old copy goes first: its pinned memory then
+                    # serves the new one unless a reply still sends it.
+                    cache.update(version=None, host=None, dill=None,
+                                 bin=None)
+                    cache.update(version=version, host=tree_to_host(params))
                 if cache[fmt] is None:
                     cache[fmt] = (
                         dill.dumps((version, cache["host"])) if fmt == "dill"
-                        else binwire.frame_bytes(binwire.encode(
-                            cache["host"], version=version,
-                            run_tag=server_tag)))
+                        else binwire.encode(cache["host"], version=version,
+                                            run_tag=server_tag))
                 return version, cache[fmt]
+
+        psh = self
+        shard_label = self.shard
+        extra_json = self.extra_json_routes
+        ring_version_fn = self.ring_version_fn
 
         def record_wire(route: str, direction: str, nbytes: int,
                         t0: float) -> None:
-            """Per-route bytes and latency on the bus."""
+            """Per-route bytes and latency on the bus, labelled by shard
+            on a fleet shard."""
+            labels = {"route": route, "dir": direction}
+            hist_labels = {"route": route}
+            if shard_label is not None:
+                labels["shard"] = hist_labels["shard"] = shard_label
             tele.counter("param_server.wire_bytes_total", nbytes,
-                         labels={"route": route, "dir": direction})
+                         labels=labels)
             tele.observe("param_server.wire_latency_s",
-                         time.perf_counter() - t0, labels={"route": route})
+                         time.perf_counter() - t0, labels=hist_labels)
+
+        def fire_shard_chaos(handler, route: str) -> bool:
+            """The fleet's ``fleet.shard`` site: a straggler's delay, or
+            this frontend's death at its Nth request. True when the
+            request must be dropped unanswered, as a dying shard's
+            is."""
+            if shard_label is None:
+                return False
+            act = _chaos.fire("fleet.shard", shard=shard_label, route=route)
+            if act and act.get("delay"):
+                time.sleep(float(act["delay"]))
+            if act and act.get("die"):
+                # stop() from another thread: it joins the machinery
+                # this handler thread is part of.
+                threading.Thread(target=psh.stop, daemon=True).start()
+                handler.close_connection = True
+                return True
+            return False
+
+        def delta_headers() -> Dict[str, str]:
+            """Resync metadata on every delta reply: the slot's epoch
+            (a rebuilt server), the ring version (a shard added or
+            drained)."""
+            out = {}
+            epoch = getattr(ps.slot, "epoch", None)
+            if epoch is not None:
+                out["X-Slot-Epoch"] = str(int(epoch))
+            if ring_version_fn is not None:
+                out["X-Ring-Version"] = str(int(ring_version_fn()))
+            return out
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # A reply is two writes (headers, body): with Nagle on, a
+            # small body waits for the client's delayed ACK (~40 ms).
+            disable_nagle_algorithm = True
 
             def log_message(self, *a):
                 pass
 
-            def _send(self, code: int, body: bytes = b"",
-                      content_type: Optional[str] = None):
+            def _send(self, code: int, body: Union[bytes, list] = b"",
+                      content_type: Optional[str] = None,
+                      extra_headers: Optional[Dict[str, str]] = None):
+                """``body``: bytes, or a frame's buffers (a list)."""
+                chunks = body if isinstance(body, list) else [body]
                 self.send_response(code)
                 if content_type:
                     self.send_header("Content-Type", content_type)
-                self.send_header("Content-Length", str(len(body)))
+                for k, v in (extra_headers or {}).items():
+                    self.send_header(k, v)
+                self.send_header("Content-Length",
+                                 str(binwire.frame_nbytes(chunks)))
                 self.end_headers()
-                if body:
-                    self.wfile.write(body)
+                for chunk in chunks:
+                    if len(chunk):
+                        self.wfile.write(chunk)
 
             def do_GET(self):
                 route = self.path.split("?", 1)[0]
+                if fire_shard_chaos(self, route):
+                    return
                 tele.counter("param_server.http_requests",
                              labels={"route": route})
+                if route == "/delta.bin" and hasattr(ps, "render_delta"):
+                    t0 = time.perf_counter()
+                    have = int(self.headers.get("X-Have-Version", "-1"))
+                    quant = self.headers.get("X-Pull-Quant") or None
+                    try:
+                        _version, body = ps.render_delta(
+                            have, quant=quant, run_tag=server_tag)
+                    except ValueError:
+                        self._send(400)
+                        return
+                    hdrs = delta_headers()
+                    if body is None:
+                        self._send(304, extra_headers=hdrs)
+                        record_wire(route, "tx", 0, t0)
+                        return
+                    act = _chaos.fire("param_server.pull", route=route)
+                    if act and act.get("truncate"):
+                        body = body[: max(1, len(body) // 2)]
+                    self._send(200, body, binwire.CONTENT_TYPE, hdrs)
+                    record_wire(route, "tx", len(body), t0)
+                    return
+                if route in extra_json:
+                    try:
+                        doc = extra_json[route]()
+                    except Exception:
+                        self._send(500)
+                        return
+                    self._send(200, json.dumps(doc).encode(),
+                               "application/json")
+                    return
                 if route == "/":
                     self._send(200, b"sparktorch-tpu parameter server")
                 elif route in ("/parameters", "/parameters.bin"):
@@ -386,10 +500,13 @@ class ParamServerHttp:
                         # A torn reply whose declared length is honest
                         # for the bytes sent: the client's frame check
                         # must catch it.
+                        if binary:
+                            body = binwire.frame_bytes(body)
                         body = body[: max(1, len(body) // 2)]
                     self._send(200, body, binwire.CONTENT_TYPE
                                if binary else None)
-                    record_wire(route, "tx", len(body), t0)
+                    record_wire(route, "tx", binwire.frame_nbytes(
+                        body if isinstance(body, list) else [body]), t0)
                 elif route == "/metrics":
                     self._send(200, render_prometheus(tele.snapshot()).encode(),
                                PROM_CONTENT_TYPE)
@@ -401,6 +518,8 @@ class ParamServerHttp:
 
             def do_POST(self):
                 route = self.path.split("?", 1)[0]
+                if fire_shard_chaos(self, route):
+                    return
                 tele.counter("param_server.http_requests",
                              labels={"route": route})
                 raw = self.rfile.read(int(self.headers.get("Content-Length",
@@ -448,7 +567,10 @@ class ParamServerHttp:
 
         self._httpd = _KeepAliveHTTPServer((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]  # resolve port 0
+        # A short poll: stop() waits out one (a fleet stops five
+        # frontends, and its monitor restarts a killed one).
         self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        kwargs={"poll_interval": 0.05},
                                         daemon=True)
         self._thread.start()
         return self
@@ -458,8 +580,10 @@ class ParamServerHttp:
         return f"http://{self.host}:{self.port}"
 
     def stop(self):
-        if self._httpd is not None:
-            self._httpd.shutdown()
-            self._httpd.close_all_connections()
-            self._httpd.server_close()
-            self._httpd = None
+        # Taken first: a chaos kill's thread and the owner may both stop
+        # the frontend, and the fleet's monitor reads None as "dead".
+        httpd, self._httpd = self._httpd, None
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.close_all_connections()
+            httpd.server_close()

@@ -21,7 +21,12 @@ Transports: ``local`` (in-process; the snapshot is copied device to
 device into the worker's module) or ``http``, on the binary wire
 (:class:`~sparktorch_tpu_torch.net.transport.BinaryTransport`,
 ``quant`` None, ``bf16`` or ``int8``) or the reference's dill wire
-(:class:`HttpTransport`).
+(:class:`HttpTransport`). With ``shards=N`` the server is a fleet of N
+shards (:class:`~sparktorch_tpu_torch.serve.fleet.ParamServerFleet`):
+binary workers fan per-tensor delta pulls and scattered pushes over it
+through a :class:`~sparktorch_tpu_torch.net.sharded.ShardedTransport`
+(``pull_quant='int8'``: int8 pulls with the server's error feedback),
+and dill workers go through its gateway.
 
 Minibatch offsets come from a host ``torch.Generator`` seeded per worker
 and round (the JAX worker draws them from a ``jax.random`` key), so the
@@ -42,8 +47,7 @@ range (``profile_dir`` captures a ``torch.profiler`` trace of the
 rounds). The chaos sites ``worker.step``, ``data.batch`` and
 ``train.rank`` fire before each window's pull.
 
-Not ported yet (ROADMAP, Queue 1): ``shards>1`` and ``pull_quant`` (the
-sharded fleet, item 9 step 2), ``supervise``/``ft_policy`` and
+Not ported yet (ROADMAP, Queue 1): ``supervise``/``ft_policy`` and
 ``run_hogwild_worker``'s heartbeat and cancel context (the ft
 supervisor, item 9 step 3), and the goodput and health hooks (item 10,
 step 4).
@@ -471,16 +475,21 @@ def train_async(
     process-global bus), so one ``/metrics`` scrape or JSONL dump tells
     the whole run; ``profile_dir`` captures a ``torch.profiler`` trace of
     the worker rounds there.
+
+    ``shards=N`` (with ``transport='http'``) replaces the single server
+    with an N-shard fleet on ``device``: the parameters consistent-hashed
+    over N shard servers, binary workers on a ``ShardedTransport``
+    (``pull_quant='int8'`` for int8 delta pulls), dill workers through
+    the fleet's gateway. The summary's ``fleet`` holds the shard count,
+    the ring version and this run's shard restarts. A fleet runs the
+    optimizer per leaf; see :mod:`~sparktorch_tpu_torch.serve.fleet`.
     """
-    for setting, bad, item in (
-            ("shards>1", shards and shards > 1,
-             "the sharded fleet, serve/fleet.py"),
-            ("pull_quant", pull_quant is not None,
-             "the sharded fleet, serve/fleet.py"),
-            ("supervise/ft_policy", supervise or ft_policy is not None,
-             "the ft supervisor")):
-        if bad:
-            raise _not_ported(f"train_async {setting}", item)
+    if supervise or ft_policy is not None:
+        raise _not_ported("train_async supervise/ft_policy",
+                          "the ft supervisor, item 9 step 3")
+    if shards and shards > 1 and transport != "http":
+        raise ValueError("shards>1 requires transport='http' (the fleet "
+                         "is an HTTP tier; local workers need no fleet)")
     if transport not in ("local", "http"):
         raise ValueError(f"unknown transport {transport!r}; use 'local' "
                          "or 'http'")
@@ -499,24 +508,56 @@ def train_async(
                 for j in range(torch.cuda.device_count())])
     n_workers = partitions if partitions and partitions > 0 else len(devices)
 
+    def restarts_total() -> float:
+        return sum(v for k, v in tele.snapshot().get("counters", {}).items()
+                   if k.startswith("fleet.shard_restarts_total"))
+
     # The server records into the run's bus too: pulls, pushes and
     # applies beside the workers' iterations.
-    server = ParameterServer(spec, window_len=n_workers,
-                             early_stop_patience=early_stop_patience,
-                             acquire_lock=acquire_lock, device=dev, seed=seed,
-                             telemetry=tele)
+    fleet = None
+    if shards and shards > 1:
+        from sparktorch_tpu_torch.serve.fleet import ParamServerFleet
+
+        # A shared bus's counters span runs: this run's restarts are
+        # counted from here.
+        restarts_baseline = restarts_total()
+        server = fleet = ParamServerFleet(
+            spec, n_shards=shards, window_len=n_workers,
+            early_stop_patience=early_stop_patience, seed=seed,
+            telemetry=tele, device=dev)
+    else:
+        server = ParameterServer(spec, window_len=n_workers,
+                                 early_stop_patience=early_stop_patience,
+                                 acquire_lock=acquire_lock, device=dev,
+                                 seed=seed, telemetry=tele)
     http: Optional[ParamServerHttp] = None
     transports: List[Any] = []
     profiler = None
     try:
-        if transport == "http":
+        push_quant = quant if quant else ("bf16" if compress else None)
+        if fleet is not None:
+            from sparktorch_tpu_torch.net.sharded import ShardedTransport
+
+            fleet.start(port=port)
+            if wire == "dill":
+                # Legacy workers train through the fleet's gateway.
+                transports = [HttpTransport(fleet.gateway_url,
+                                            compress=compress)
+                              for _ in range(n_workers)]
+            else:
+                transports = [ShardedTransport(fleet, quant=push_quant,
+                                               pull_quant=pull_quant,
+                                               telemetry=tele,
+                                               run_id=tele.run_id)
+                              for _ in range(n_workers)]
+            if not transports[0].alive():
+                raise RuntimeError("parameter-server fleet is down")
+        elif transport == "http":
             http = ParamServerHttp(server, port=port).start()
             if wire == "dill":
                 transports = [HttpTransport(http.url, compress=compress)
                               for _ in range(n_workers)]
             else:
-                push_quant = quant if quant else ("bf16" if compress
-                                                  else None)
                 # The run's tag rides every frame: a worker aimed at
                 # another run's server is counted, never silent.
                 transports = [BinaryTransport(http.url, quant=push_quant,
@@ -592,6 +633,13 @@ def train_async(
                        "hogwild_budget": _budget(phase_stats),
                        "server_applied": server.applied_updates,
                        "server_apply_s": server.apply_s}
+        if fleet is not None:
+            summary = dict(summary or {})
+            summary["fleet"] = {
+                "shards": len(fleet.urls()),
+                "ring_version": fleet.ring_version,
+                "shard_restarts": int(restarts_total() - restarts_baseline),
+            }
         return TrainResult(params=state, metrics=records, spec=spec,
                            summary=summary)
     finally:

@@ -134,7 +134,8 @@ def test_config_choices_and_unported_options():
     assert set(bench.CONFIGS) == set(bench.RECORD_KEYS) == {
         "mnist_mlp_sync", "mnist_cnn_sync", "lazy_cnn_sync",
         "resnet18_hogwild", "hogwild_wire", "bert_dp",
-        "resnet50_inference", "long_context_lm", "moe_lm", "serve_online"}
+        "resnet50_inference", "long_context_lm", "moe_lm", "serve_online",
+        "hogwild_ps_fleet"}
     with pytest.raises(SystemExit):
         bench.main(["--config", "moe_a2a"])  # needs an ep mesh axis
     # --telemetry-dump is ported: without a card the run raises first.
@@ -142,6 +143,33 @@ def test_config_choices_and_unported_options():
         bench.main(["--config", "mnist_mlp_sync", "--telemetry-dump",
                     "x.jsonl"])
     assert bench.mfu_honest(98.9) == pytest.approx(0.1)
+
+
+def test_hogwild_ps_fleet_byte_and_kill_gates_hold_on_the_cpu():
+    # The JAX config's legs, gates and record keys at a small size
+    # (width 256, quota 3, one interleaved pair): the call raises if a
+    # byte gate or a shard-kill gate fails. The timing gates are the
+    # card's (bench.check_fleet_gates(rec) there).
+    rec = bench.bench_hogwild_ps_fleet(device="cpu", width=256, quota=3,
+                                       pairs=1, timing_gates=False)
+    jax_keys, omitted, added = bench.RECORD_KEYS["hogwild_ps_fleet"]
+    assert set(rec) == (jax_keys - omitted) | added
+    assert (rec["n_shards"], rec["workers"], rec["quota"]) == (4, 6, 3)
+    assert (rec["hot_leaves"], rec["total_leaves"]) == (8, 34)
+    assert rec["fleet"]["wire_mb_per_pull"] < rec["single"][
+        "wire_mb_per_pull"]
+    assert rec["fleet_int8"]["wire_mb_per_pull"] < rec["fleet"][
+        "wire_mb_per_pull"]
+    kill = rec["shard_kill"]
+    assert kill["fired"] >= 1 and kill["records"] == 24
+    assert kill["restarts"] >= 1
+    assert set(rec["phase_s"]) == {"init", "compile_warmup", "measure",
+                                   "shard_kill"}
+    broken = dict(rec, fleet_int8=dict(rec["fleet_int8"],
+                                       wire_mb_per_pull=1e9))
+    with pytest.raises(AssertionError, match="int8 delta pulls"):
+        bench.check_fleet_gates(dict(broken, shard_kill=dict(
+            kill, expected_records=24)), timing=False)
 
 
 def test_serve_online_gates_hold_on_the_cpu():

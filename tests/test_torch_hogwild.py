@@ -193,6 +193,48 @@ def test_http_single_worker_matches_local():
         torch.testing.assert_close(remote.params[key], value, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("optimizer,params,tol", [
+    ("sgd", {"lr": 0.1}, 2e-5),
+    ("adam", {"lr": 1e-2}, 1e-4),
+])
+def test_single_worker_on_a_fleet_matches_jax(optimizer, params, tol):
+    # shards=2 over HTTP, float32 pushes and pulls: the port's fleet and
+    # the JAX package's from the same init give the same losses and
+    # parameters (each shard steps its leaves per leaf).
+    jax_obj, obj, module = _pair("mlp", optimizer, params)
+    x, y = _data((48,))
+    kw = dict(iters=4, partitions=1, transport="http", shards=2,
+              compress=False)
+    want = jax_train_async(jax_obj, x, labels=y, **kw)
+    got = train_async(obj, x, labels=y, device="cpu", **kw)
+    np.testing.assert_allclose([r["loss"] for r in got.metrics],
+                               [r["loss"] for r in want.metrics],
+                               atol=1e-5, rtol=1e-5)
+    assert got.summary["fleet"] == want.summary["fleet"] == {
+        "shards": 2, "ring_version": 1, "shard_restarts": 0}
+    expected = state_dict_from_flax(_flax_state(want), module)
+    for key, value in got.params.items():
+        np.testing.assert_allclose(value.numpy(), expected[key].numpy(),
+                                   atol=tol, rtol=tol, err_msg=key)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_fleet_single_worker_equals_the_single_server(optimizer):
+    # One worker, float32 both ways: per-leaf element-wise steps on
+    # three shards give the single server's parameters bit for bit.
+    _, obj, _ = _pair("mlp", optimizer, {"lr": 0.05})
+    x, y = _data((48,))
+    kw = dict(iters=4, partitions=1, transport="http", compress=False,
+              device="cpu")
+    single = train_async(obj, x, labels=y, **kw)
+    sharded = train_async(obj, x, labels=y, shards=3, **kw)
+    assert ([r["loss"] for r in sharded.metrics]
+            == [r["loss"] for r in single.metrics])
+    for key, value in single.params.items():
+        torch.testing.assert_close(sharded.params[key], value, atol=0,
+                                   rtol=0)
+
+
 def test_push_every_windows_with_a_remainder():
     _, obj, _ = _pair("mlp")
     x, y = _data((48,), n=64)
@@ -327,8 +369,6 @@ def test_estimator_hogwild_mode():
 
 
 @pytest.mark.parametrize("setting,match", [
-    (dict(shards=2, transport="http"), "fleet"),
-    (dict(pull_quant="int8"), "fleet"),
     (dict(supervise=True), "supervisor"),
     (dict(ft_policy=object()), "supervisor"),
 ])

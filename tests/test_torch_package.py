@@ -38,7 +38,8 @@ def test_import_pulls_in_no_jax():
         "sparktorch_tpu_torch.native, sparktorch_tpu_torch.native.gang, "
         "sparktorch_tpu_torch.ops.roofline, sparktorch_tpu_torch.native.rowpack, "
         "sparktorch_tpu_torch.obs, sparktorch_tpu_torch.ft, "
-        "sparktorch_tpu_torch.serve.infer, sparktorch_tpu_torch.serve.router\n"
+        "sparktorch_tpu_torch.serve.infer, sparktorch_tpu_torch.serve.router, "
+        "sparktorch_tpu_torch.serve.fleet, sparktorch_tpu_torch.net.sharded\n"
         "from sparktorch_tpu_torch import SparkTorch\n"
         "from sparktorch_tpu_torch.spark import localsession\n"
         "assert localsession.install()\n"
@@ -58,10 +59,12 @@ def test_import_pulls_in_no_jax():
 @pytest.mark.parametrize("module", [
     "sparktorch_tpu_torch.obs.log", "sparktorch_tpu_torch.obs.prom",
     "sparktorch_tpu_torch.utils.tracing", "sparktorch_tpu_torch.utils.metrics",
+    "sparktorch_tpu_torch.serve.fleet", "sparktorch_tpu_torch.net.sharded",
 ])
 def test_obs_and_tracing_modules_import_no_jax(module):
-    # The copies of the JAX package's obs/log.py and obs/prom.py, and the
-    # torch.profiler port of utils/tracing.py, each on its own.
+    # The copies of the JAX package's obs/log.py and obs/prom.py, the
+    # torch.profiler port of utils/tracing.py and the sharded fleet's
+    # two halves, each on its own.
     code = (f"import sys, importlib; importlib.import_module({module!r})\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
@@ -128,6 +131,19 @@ def test_hogwild_refuses_cpu_without_being_asked():
                           torchObj=obj, iters=1, mode="hogwild")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         est.fit({"features": [[0.0] * 784], "label": [0.0]})
+
+
+def test_fleet_refuses_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from sparktorch_tpu_torch.serve.fleet import ParamServerFleet
+
+    obj = port.serialize_torch_obj(MnistMLP(), input_shape=(784,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParamServerFleet(obj, n_shards=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_async(obj, [[0.0] * 784], labels=[0], iters=1,
+                    transport="http", shards=2)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

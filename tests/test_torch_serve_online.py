@@ -309,6 +309,21 @@ def test_router_least_outstanding_weighted_by_latency(trained):
     router.stop()
 
 
+def test_a_restart_right_after_a_kill_brings_the_replica_back(trained):
+    """``start`` straight after ``kill``, before the dying loop thread
+    has returned, must still leave a live replica that serves."""
+    x = trained[2]
+    r = _replica(trained, Telemetry(run_id="t_restart")).start()
+    try:
+        for _ in range(5):
+            r.kill()
+            r.start()
+            assert r.alive()
+            assert r.infer(x[:1]).shape == (1, 1)
+    finally:
+        r.stop()
+
+
 def test_router_evicts_and_readmits(trained):
     """A dead replica is evicted on the failed hop (the request is
     re-routed, not dropped); once it comes back, the health probe
@@ -624,8 +639,12 @@ def test_unported_paths_raise_and_name_their_item(trained):
     try:
         with pytest.raises(NotImplementedError, match="item 10"):
             rep.submit(x[:1], trace_ctx=object())
-        with pytest.raises(NotImplementedError, match="item 9"):
-            WeightPuller(rep, types.SimpleNamespace(pull_delta=None))
+        # Delta pulls are ported: a transport with pull_delta is taken,
+        # and a 304 from it installs nothing.
+        puller = WeightPuller(rep, types.SimpleNamespace(
+            pull_delta=lambda have, quant=None: {"fresh": False,
+                                                 "epoch": 7}))
+        assert puller.poll_once() is False and puller.version == -1
     finally:
         rep.stop()
     with pytest.raises(NotImplementedError, match="item 10"):

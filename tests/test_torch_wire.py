@@ -99,6 +99,84 @@ def test_quantized_pushes_and_residuals_match(mode):
             got["bias"]).float()), np.asarray(want["bias"], np.float32))
 
 
+def _delta_leaves(pkg, quant, seed=5):
+    """A partial tree's leaves (nested paths, an int leaf, an empty one)
+    and their version tags; int8 leaves quantized by ``pkg``'s wire."""
+    rng = np.random.default_rng(seed)
+    leaves = [(("enc", "w"), rng.standard_normal((4, 3)).astype(np.float32)),
+              (("enc", "b"), rng.standard_normal(3).astype(np.float32)),
+              (("steps",), np.arange(2, dtype=np.int64)),
+              (("empty",), np.zeros((0, 2), np.float32))]
+    if quant == "int8":
+        leaves = [(p, pkg.quantize_leaf_int8(a)[0] if p[0] == "enc" else a)
+                  for p, a in leaves]
+    return leaves, {("enc", "w"): 7, ("enc", "b"): 3, ("steps",): 7}
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_delta_frames_are_byte_identical(quant):
+    # Version-2 frames: a per-leaf version tag in each entry (-1 where
+    # the map has none), the same bytes as the JAX package's.
+    jax_leaves, vers = _delta_leaves(jax_wire, quant)
+    want = jax_wire.frame_bytes(jax_wire.encode(
+        jax_leaves, version=9, run_tag=4, leaf_versions=vers))
+    leaves, vers = _delta_leaves(wire, quant)
+    got = wire.frame_bytes(wire.encode(leaves, version=9, run_tag=4,
+                                       leaf_versions=vers))
+    assert got == want and got[4] == wire.WIRE_VERSION_DELTA == 2
+    version, flat, got_vers = wire.decode_delta(got)
+    assert version == 9 and got_vers == {**vers, ("empty",): -1}
+    assert set(flat) == {p for p, _ in leaves}
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_each_package_decodes_the_others_delta_frames(direction):
+    for quant in (None, "int8"):
+        enc, dec = ((jax_wire, wire) if direction == "jax_to_port"
+                    else (wire, jax_wire))
+        leaves, vers = _delta_leaves(enc, quant)
+        frame = enc.frame_bytes(enc.encode(leaves, version=2,
+                                           leaf_versions=vers))
+        version, got, got_vers = dec.decode_delta(frame)
+        _, want, want_vers = enc.decode_delta(frame)
+        assert version == 2 and got_vers == want_vers
+        assert set(got) == set(want)
+        for path in want:
+            _leaves_equal(got[path], want[path])
+
+
+def test_v1_and_v2_decoders_reject_each_others_frames():
+    delta = wire.frame_bytes(wire.encode({"w": np.ones(2, np.float32)},
+                                         leaf_versions={("w",): 1}))
+    full = wire.frame_bytes(wire.encode({"w": np.ones(2, np.float32)}))
+    with pytest.raises(wire.WireError, match="decode_delta"):
+        wire.decode(delta)
+    with pytest.raises(wire.WireError, match="v1"):
+        wire.decode_delta(full)
+    with pytest.raises(wire.WireError, match="v1"):
+        wire.decode_delta(jax_wire.frame_bytes(jax_wire.encode(
+            {"w": np.ones(2, np.float32)})))
+    bad = bytearray(delta)
+    bad[4] = 3
+    with pytest.raises(wire.WireError, match="unsupported wire version"):
+        wire.decode_delta(bytes(bad))
+
+
+def test_bfloat16_delta_leaves_stay_torch_tensors():
+    values = np.random.default_rng(6).standard_normal(6).astype(np.float32)
+    frame = jax_wire.frame_bytes(jax_wire.encode(
+        {"g": values.astype(ml_dtypes.bfloat16)}, leaf_versions={("g",): 4}))
+    port = wire.frame_bytes(wire.encode(
+        {"g": torch.from_numpy(values).to(torch.bfloat16)},
+        leaf_versions={("g",): 4}))
+    assert port == frame
+    _, flat, vers = wire.decode_delta(frame)
+    assert flat[("g",)].dtype == torch.bfloat16 and vers == {("g",): 4}
+    np.testing.assert_array_equal(
+        flat[("g",)].float().numpy(),
+        values.astype(ml_dtypes.bfloat16).astype(np.float32))
+
+
 def test_int8_leaf_quantization_matches():
     value = np.random.default_rng(4).standard_normal((5, 5)).astype(
         np.float32)
