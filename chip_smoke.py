@@ -51,8 +51,9 @@ the CPU path):
    gradient cosine above 0.99 for every parameter;
 7. bench: the configs of ``sparktorch_tpu_torch.bench.CONFIGS`` but
    ``serve_online`` and ``hogwild_ps_fleet`` (the port's benchmark entry: BASELINE configs 1–5,
-   the MNIST-CNN headline, ``hogwild_wire``, the long-context LM and the
-   MoE LM; those of BENCH_DEPTH at a cut depth; ``hogwild_wire`` at the
+   the MNIST-CNN headline, ``hogwild_wire``, the long-context LM, the
+   MoE LM, ``hogwild_chaos`` and ``hogwild_chaos_soak``, whose JAX gates
+   raise inside them; those of BENCH_DEPTH at a cut depth; ``hogwild_wire`` at the
    JAX depth through the CLI's ``main`` with ``--telemetry-dump``, whose
    dump must hold the ``bench/*`` spans), each record printed on its own
    line and held to the JAX config's record keys less the documented
@@ -121,16 +122,17 @@ the CPU path):
    world of one's (a correctness check: gloo stages through the host);
 15. spark: BASELINE config 4's topology through the port's localspark
    runtime (``sparktorch_tpu_torch.spark``, executors as processes): (a)
-   BERT-base fitted by ``SparkTorch(deployMode="barrier", partitions=1)``
-   in an executor on the card (128 × 128 ids, Adam 2e-5, 4 steps), its
-   parameters within 1e-6 × max|param| of the in-process fit's, and one
+   BERT-base fitted by ``SparkTorch(deployMode="barrier", partitions=1,
+   supervise=True)`` in an executor on the card (128 × 128 ids, Adam
+   2e-5, 4 steps; the stage under ``ft.supervise_run``, no restart), its
+   parameters equal to the in-process fit's bit for bit, and one
    executor BERT step shipped through ``rdd.barrier().mapPartitions``
    launching 12/12/12/0/0 with no jax imported there; (b) 2,000 rows
    through the pandas UDF, 12 forward launches a UDF batch, argmaxes
    equal to the estimator's on the same batches; (c) config 2's lazy
    MnistCNN through the barrier path, its loss falling; (d) config 3's
    ResNet-18 hogwild on two executor processes against the driver's
-   server (binary wire, bf16 pushes, 128 iterations each): applies ==
+   server (binary wire, bf16 pushes, 64 iterations each): applies ==
    pushes, the loss falling; (e) a Pipeline holding (a)'s model saved and
    loaded through the carrier, its predictions (b)'s bit for bit; (f)
    ``setMesh`` on a world-of-one mesh bit for bit. Without pandas, (b),
@@ -171,10 +173,26 @@ the CPU path):
    records exact, applies equal to the pushed partials less the dropped
    ones, losses finite, 12/12/12 launches a step; (d) one worker of a
    2-layer encoder at BERT-base width, 3 steps, float32 pulls, on 4
-   shards against the single server: parameters within 1e-6·max|param|.
+   shards against the single server: parameters within 1e-6·max|param|;
+18. supervise: the ft supervisor and ``ctl/`` on the LM of phase 5 at
+   s = 2,048 (no remat) on 2 rows — (a) ``train_async(supervise=True,
+   ft_policy=...)`` over local transport, 8 steps clean and under
+   ``kill_worker_at={0: 3}``: one restart, the clean run's record count,
+   ``ft_recovery_latency_s`` ≤ 10 s, the loss finite and falling, 4/4/4/1/1
+   launches of every step either run computed (the killed attempt's 3
+   too); (b) this process serving the LM from ``ParameterServer`` +
+   ``ParamServerHttp`` while a ``ctl.spawn_worker(kind="hogwild_worker")``
+   child trains it on the card for 4 steps under a ``Supervisor``, and
+   ``kill_process_at={0: 2}`` SIGKILLs the first child: one restart, the
+   rerun's first pull at the current version, the server's applies equal
+   to the killed child's pushes plus the rerun's, exit codes -9 and 0,
+   with the kill → relaunch latency, each child's start and the rerun's
+   push times; (c) is phase 15 (a): the barrier fit under
+   ``supervise=True``.
 
 No kernel of KERNELS lies on phases 8, 11–14, on 15 (c), (d), on 16
-(a), on 17 (a) and on the moe phase's (d): each expects 0 launches. Phase 15 runs after every kernel is built, so its
+(a), on 17 (a), on the bench's chaos configs, in this process during
+18 (b) and on the moe phase's (d): each expects 0 launches. Phase 15 runs after every kernel is built, so its
 executor processes load the built kernels.
 The total wall time prints before the last two lines.
 Snapshots, the Parquet file and traces go to ``.chip_smoke_tmp/`` beside
@@ -185,6 +203,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -293,13 +312,24 @@ MOE_OPTIMIZERS = [("adafactor", {}), ("lamb", {"lr": 1e-3}),
                   ("lion", {"lr": 1e-4}),
                   ("rmsprop", {"lr": 1e-3, "centered": True})]
 # Keyword arguments of bench configs run at a cut depth (the JAX bench's
-# in parentheses): resnet18_hogwild 3 runs of 256 iterations (5 of 1,024;
-# the hogwild phase's legs (a)-(d) hold that path at their own depths);
-# long_context_lm and moe_lm 2 slope samples a leg (5); hogwild_ps_fleet
-# 2 interleaved single/fleet pairs (3), run by the fleet phase.
-BENCH_DEPTH = {"resnet18_hogwild": dict(iters=256, repeats=3),
-               "long_context_lm": dict(repeats=2),
-               "moe_lm": dict(repeats=2),
+# in parentheses): resnet18_hogwild 2 runs of 128 iterations and 2 slope
+# samples of its sync twin (5 of 1,024, 5; the hogwild phase's legs
+# (a)-(d) hold that path at their own depths); mnist_mlp_sync,
+# mnist_cnn_sync, lazy_cnn_sync, bert_dp, long_context_lm and moe_lm 2
+# slope samples a leg (5); every sync leg's long span grown to a
+# BENCH_SPAN_S difference (bench.SYNC_SPAN_S, 1.6 s); hogwild_chaos_soak
+# 2 rounds and 1 freeze round (4 and 2); hogwild_ps_fleet 2 interleaved
+# single/fleet pairs (3), run by the fleet phase.
+BENCH_SPAN_S = 0.8
+_SYNC_DEPTH = dict(repeats=2)
+BENCH_DEPTH = {"resnet18_hogwild": dict(iters=128, **_SYNC_DEPTH),
+               "mnist_mlp_sync": _SYNC_DEPTH,
+               "mnist_cnn_sync": _SYNC_DEPTH,
+               "lazy_cnn_sync": _SYNC_DEPTH,
+               "bert_dp": _SYNC_DEPTH,
+               "long_context_lm": _SYNC_DEPTH,
+               "moe_lm": _SYNC_DEPTH,
+               "hogwild_chaos_soak": dict(rounds=2, freeze_rounds=1),
                "hogwild_ps_fleet": dict(pairs=2)}
 # The serving tier's phase: BERT-base (flash, bf16 compute) behind an
 # InferenceTier of SERVE_REPLICAS replicas with buckets SERVE_BUCKETS,
@@ -812,16 +842,11 @@ def slice_phase(torch):
         BatchPredictor,
         create_spark_torch_model,
         deserialize_model,
-        serialize_torch_obj,
     )
     from sparktorch_tpu_torch.models import bert_base
 
-    torch.manual_seed(0)
     t0 = time.perf_counter()
-    payload = serialize_torch_obj(bert_base(attn_impl="flash"),
-                                  criterion="cross_entropy", optimizer="adam",
-                                  optimizer_params={"lr": 2e-5},
-                                  input_shape=(SLICE_SEQ,))
+    payload = bert_payload(torch, 2)
     module = deserialize_model(payload).make_module()
     cfg = module.config
     stm = create_spark_torch_model(module, inputCol="features",
@@ -936,17 +961,13 @@ def lm_step_counts(steps):
 
 
 def train_lm_phase(torch):
-    from sparktorch_tpu_torch import deserialize_model, serialize_torch_obj
-    from sparktorch_tpu_torch.models import CausalLM
+    from sparktorch_tpu_torch import deserialize_model
     from sparktorch_tpu_torch.train.step import train_step
     from sparktorch_tpu_torch.utils.data import DataBatch
 
     cfg = lm_config(LM_SEQ, "flash")
-    torch.manual_seed(0)
     t0 = time.perf_counter()
-    payload = serialize_torch_obj(CausalLM(cfg), criterion="cross_entropy",
-                                  optimizer="adamw",
-                                  optimizer_params={"lr": 3e-4})
+    payload = lm_payload(torch, 0)
     n_params = sum(p.numel() for p in
                    deserialize_model(payload).abstract_module().parameters())
     log(f"train LM: CausalLM vocab={cfg.vocab_size} d_model={cfg.d_model} "
@@ -1180,18 +1201,26 @@ def train_parity_phase(torch):
     return dict(rel_loss=rel_loss, rel_grad_norm=rel_norm, min_cosine=worst)
 
 
-def train_bert_phase(torch, bench_rec):
+@functools.cache
+def bert_payload(torch, seed, layers=12):
+    """BERT-base (flash) packaged under ``seed`` with Adam 2e-5; one
+    packaging a (seed, depth), shared by the phases that fit it."""
     from sparktorch_tpu_torch import serialize_torch_obj
     from sparktorch_tpu_torch.models import bert_base
 
-    torch.manual_seed(2)
-    model = bert_base(attn_impl="flash")
-    layers = model.config.n_layers
-    payload = serialize_torch_obj(model, criterion="cross_entropy",
-                                  optimizer="adam",
-                                  optimizer_params={"lr": 2e-5})
+    torch.manual_seed(seed)
+    return serialize_torch_obj(bert_base(attn_impl="flash", n_layers=layers),
+                               criterion="cross_entropy", optimizer="adam",
+                               optimizer_params={"lr": 2e-5})
+
+
+def train_bert_phase(torch, bench_rec):
+    from sparktorch_tpu_torch.models.transformer import TransformerConfig
+
+    layers, vocab = 12, TransformerConfig().vocab_size
+    payload = bert_payload(torch, 2)
     rng = np.random.default_rng(2)
-    ids = rng.integers(0, model.config.vocab_size, (BERT_ROWS, BERT_SEQ))
+    ids = rng.integers(0, vocab, (BERT_ROWS, BERT_SEQ))
     frame = {"features": list(ids.astype(np.float32)),
              "label": rng.integers(0, 2, BERT_ROWS).astype(np.float32)}
     n = BERT_ITERS
@@ -1212,7 +1241,10 @@ def train_bert_phase(torch, bench_rec):
                         examples_per_s=bench_rec["examples_per_sec_per_chip"])
 
 
+@functools.cache
 def lm_payload(torch, seed):
+    """The phase-5 LM packaged under ``seed``; one packaging a seed
+    (the payload is an immutable string, so phases share it)."""
     from sparktorch_tpu_torch import serialize_torch_obj
     from sparktorch_tpu_torch.models import CausalLM
 
@@ -1273,7 +1305,7 @@ def train_lm_streaming_phase(torch, resident_tokens_per_s):
         latest_step,
     )
 
-    payload = lm_payload(torch, 6)
+    payload = lm_payload(torch, 0)
     x, y = lm_ids(STREAM_ROWS, 6)
     d = os.path.join(SCRATCH, "stream_ckpt")
     per_epoch = (STREAM_ROWS // STREAM_CHUNK) * (STREAM_CHUNK // STREAM_MB)
@@ -1357,7 +1389,7 @@ def train_lm_resume_phase(torch):
     from sparktorch_tpu_torch import SparkTorch
     from sparktorch_tpu_torch.utils.checkpoint import latest_step
 
-    payload = lm_payload(torch, 7)
+    payload = lm_payload(torch, 0)
     x, y = lm_ids(LM_BATCH, 7)
     frame = {"features": list(x), "label": list(y)}
     total = {}
@@ -2087,10 +2119,11 @@ def bench_hogwild_wire_dump(torch, bench):
 
 def bench_phase(torch):
     """The configs of ``bench.CONFIGS`` (the port's benchmark entry; those
-    of BENCH_DEPTH at a cut depth) but ``serve_online`` and
-    ``hogwild_ps_fleet``, which their own phases run, each record printed on a line of its own and held to the
-    JAX config's keys less the documented omissions, with the launches
-    it made; ``hogwild_wire`` runs once through the CLI with
+    of BENCH_DEPTH at a cut depth, the sync legs' span at BENCH_SPAN_S)
+    but ``serve_online`` and ``hogwild_ps_fleet``, which their own phases
+    run, each record printed on a line of its own and held to the JAX
+    config's keys less the documented omissions, with the launches it
+    made; ``hogwild_wire`` runs once through the CLI with
     ``--telemetry-dump``."""
     import gc
 
@@ -2099,9 +2132,11 @@ def bench_phase(torch):
     records, counts = {}, {}
     counts["bench_hogwild_wire"], records["hogwild_wire"] = (
         bench_hogwild_wire_dump(torch, bench))
+    span_s, bench.SYNC_SPAN_S = bench.SYNC_SPAN_S, BENCH_SPAN_S
+    chaos = ("hogwild_chaos", "hogwild_chaos_soak")
     configs = {k: v for k, v in bench.CONFIGS.items()
                if k not in ("serve_online", "hogwild_wire",
-                            "hogwild_ps_fleet")}
+                            "hogwild_ps_fleet", *chaos)}
     for name, config in configs.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -2122,6 +2157,20 @@ def bench_phase(torch):
         counts[f"bench_{name}"] = got
         records[name] = rec
         log(f"bench {name}: {wall:.1f} s")
+    for name in chaos:
+        # The JAX gates raise inside the config; no kernel runs.
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = bench.CONFIGS[name](**BENCH_DEPTH.get(name, {}))
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        log(json.dumps(rec))
+        check_record_keys(bench, name, rec)
+        expect_counts(f"bench {name}", got, NO_KERNELS)
+        counts[f"bench_{name}"] = got
+        records[name] = rec
+        log(f"bench {name}: {wall:.1f} s")
+    bench.SYNC_SPAN_S = span_s
     if not 0 < records["bert_dp"]["mfu_honest"] < 1:
         raise AssertionError(f"bench bert_dp: mfu {records['bert_dp']}")
     moe = records["moe_lm"]
@@ -2662,7 +2711,7 @@ def dp_phase(torch):
 # steps: from the lazy model's unseeded init the loss may first rise
 # (2.7167 -> 6.1758 -> ... -> 2.8118 over 8 steps in one run), so 8 steps
 # need not end below the first.
-SPARK_SERVE_ROWS, SPARK_HW_ITERS, SPARK_CNN_ITERS = 2000, 128, 32
+SPARK_SERVE_ROWS, SPARK_HW_ITERS, SPARK_CNN_ITERS = 2000, 64, 32
 
 
 def spark_session():
@@ -2748,28 +2797,28 @@ def executor_bert_step(rows, seq, layers, seed):
 
 def spark_bert_fit(torch, spark, rows=BERT_ROWS, iters=BERT_ITERS, layers=12):
     """(a): BERT-base (flash) through ``SparkTorch(deployMode="barrier",
-    partitions=1, device="cuda")`` — one executor process trains on the
-    card — against the same fit in this process through
-    ``ml.estimator.SparkTorch``: every parameter within 1e-6 ×
-    max|param|. Each fit is timed with nothing beside it; the barrier fit
-    launches no kernel in this process. Returns (fitted model, counts by
-    path, numbers)."""
-    from sparktorch_tpu_torch import SparkTorch, serialize_torch_obj
-    from sparktorch_tpu_torch.models import bert_base
+    partitions=1, supervise=True, device="cuda")`` — one executor process
+    trains on the card, its stage under ``ft.supervise_run`` (supervise
+    phase (c): no kill, so no restart) — against the same fit in this
+    process through ``ml.estimator.SparkTorch``: every parameter equal
+    bit for bit. Each fit is timed with nothing beside it; the barrier
+    fit launches no kernel in this process. Returns (fitted model,
+    counts by path, numbers)."""
+    from sparktorch_tpu_torch import SparkTorch
+    from sparktorch_tpu_torch.models.transformer import TransformerConfig
+    from sparktorch_tpu_torch.obs import get_telemetry
     from sparktorch_tpu_torch.spark.torch_distributed import (
         SparkTorch as BarrierSparkTorch,
     )
 
-    torch.manual_seed(2)
-    model = bert_base(attn_impl="flash", n_layers=layers)
-    payload = serialize_torch_obj(model, criterion="cross_entropy",
-                                  optimizer="adam",
-                                  optimizer_params={"lr": 2e-5})
-    x, y = bert_ids(rows, 2, model.config.vocab_size)
-    del model
+    payload = bert_payload(torch, 2, layers)
+    x, y = bert_ids(rows, 2, TransformerConfig().vocab_size)
     est = BarrierSparkTorch(inputCol="features", labelCol="label",
                             torchObj=payload, iters=iters,
-                            deployMode="barrier", partitions=1, device="cuda")
+                            deployMode="barrier", partitions=1,
+                            supervise=True, ftMaxRestarts=2, device="cuda")
+    stage = {"worker": "spark_barrier_stage"}
+    restarts0 = get_telemetry().counter_value("ft_restarts_total", stage)
     frame = spark_frame(spark, x, y)
     reset_counts()
     t0 = time.perf_counter()
@@ -2781,6 +2830,8 @@ def spark_bert_fit(torch, spark, rows=BERT_ROWS, iters=BERT_ITERS, layers=12):
     losses = [r["loss"] for r in est._last_metrics]
     if len(losses) != iters or not np.isfinite(losses).all():
         raise AssertionError(f"spark (a): losses {losses}")
+    restarts = get_telemetry().counter_value("ft_restarts_total",
+                                             stage) - restarts0
 
     t0 = time.perf_counter()
     reference = SparkTorch(inputCol="features", labelCol="label",
@@ -2794,17 +2845,17 @@ def spark_bert_fit(torch, spark, rows=BERT_ROWS, iters=BERT_ITERS, layers=12):
     scale = max(float(v.abs().max()) for v in want.values())
     worst = max(float((got[k].float() - v.float()).abs().max())
                 for k, v in want.items())
-    log(f"spark (a) barrier BERT-base fit (1 executor, {layers} layers): "
-        f"{iters} steps of {rows} x {BERT_SEQ} ids, losses "
-        f"{[round(v, 4) for v in losses]}; fit {fit_s:.2f} s (executor "
-        f"start, payload and result included) against the in-process fit's "
-        f"{ref_s:.2f} s; largest parameter difference {worst:.3e} (limit "
-        f"{1e-6 * scale:.3e})")
-    if not worst <= 1e-6 * scale:
-        raise AssertionError("spark (a): the barrier fit disagrees with the "
-                             "in-process fit")
+    log(f"spark (a) barrier BERT-base fit (1 executor, {layers} layers, "
+        f"supervise=True: supervise (c)): {iters} steps of {rows} x "
+        f"{BERT_SEQ} ids, losses {[round(v, 4) for v in losses]}, "
+        f"{restarts:.0f} stage restarts; fit {fit_s:.2f} s (executor start, "
+        f"payload and result included) against the in-process fit's "
+        f"{ref_s:.2f} s; largest parameter difference {worst:.3e}")
+    if worst != 0.0 or restarts != 0:
+        raise AssertionError("spark (a): the supervised barrier fit is not "
+                             "the in-process fit bit for bit, or restarted")
     return fitted, counts, dict(fit_s=fit_s, in_process_fit_s=ref_s,
-                                max_abs_diff=worst, limit=1e-6 * scale,
+                                max_abs_diff=worst, restarts=restarts,
                                 losses=losses)
 
 
@@ -3599,11 +3650,7 @@ def fleet_phase(torch):
 
     # (c) hogwild BERT-base on a 4-shard fleet with int8 delta pulls.
     x, y = bert_ids(FLEET_ROWS, 2, cfg.vocab_size)
-    torch.manual_seed(0)
-    payload = serialize_torch_obj(
-        bert_base(attn_impl="flash"), criterion="cross_entropy",
-        optimizer="adam", optimizer_params={"lr": 2e-5},
-        input_shape=(BERT_SEQ,))
+    payload = bert_payload(torch, 2)
     tele = Telemetry(run_id="fleet_train")
     reset_counts()
     t0 = time.perf_counter()
@@ -3689,6 +3736,231 @@ def fleet_phase(torch):
     return counts, out
 
 
+# The supervised paths: the LM of phase 5 at s = SUP_SEQ on SUP_ROWS
+# rows. (a) train_async under the ft supervisor in this process, on
+# phase 5's remat payload, SUP_ITERS full-batch steps, clean and with
+# worker 0 killed at step SUP_KILL_AT; (b) a ctl.worker child running the
+# hogwild worker for SUP_CHILD_ITERS steps against this process's binary
+# parameter server, SIGKILLed once its heartbeat reports step
+# SUP_CHILD_KILL_AT, on the same LM without remat (a fresh process's
+# first non-reentrant torch.utils.checkpoint imports torch._dynamo, ~8 s
+# on the card's host, which each child would pay).
+SUP_ROWS, SUP_SEQ, SUP_ITERS, SUP_KILL_AT = 2, 2048, 8, 3
+SUP_CHILD_ITERS, SUP_CHILD_KILL_AT = 4, 2
+
+
+def sup_policy():
+    from sparktorch_tpu_torch.ft import FtPolicy, RestartPolicy
+
+    return FtPolicy(restart=RestartPolicy(max_restarts=2,
+                                          backoff_base_s=0.05), seed=0)
+
+
+def sup_lm(torch):
+    """The LM at SUP_SEQ without remat, its payload and SUP_ROWS rows of
+    ids with next-token labels (leg (b)'s child)."""
+    from sparktorch_tpu_torch import serialize_torch_obj
+    from sparktorch_tpu_torch.models import CausalLM
+
+    from sparktorch_tpu_torch.models.transformer import TransformerConfig
+
+    torch.manual_seed(4)
+    cfg = TransformerConfig(max_len=SUP_SEQ, attn_impl="flash",
+                            **dict(LM, remat=False))
+    payload = serialize_torch_obj(CausalLM(cfg), criterion="cross_entropy",
+                                  optimizer="adamw",
+                                  optimizer_params={"lr": 3e-4})
+    ids = np.random.default_rng(4).integers(0, LM["vocab_size"],
+                                            (SUP_ROWS, SUP_SEQ + 1))
+    return payload, ids[:, :-1].astype(np.float32), ids[:, 1:]
+
+
+def sup_hogwild(torch, payload, x, y):
+    """(a) train_async(supervise=True) over local transport, clean and
+    under kill_worker_at={0: SUP_KILL_AT}: one restart, the clean run's
+    record count, recovery within 10 s, the loss finite and falling, and
+    the launches of every step the two runs computed (the killed
+    attempt's SUP_KILL_AT steps among them): with remat, two forwards
+    (with lse), one dq and one dk/dv a layer and one CE forward and
+    backward a step."""
+    from sparktorch_tpu_torch.ft import ChaosConfig, inject
+    from sparktorch_tpu_torch.obs import Telemetry
+    from sparktorch_tpu_torch.train.hogwild import train_async
+
+    kw = dict(labels=y, iters=SUP_ITERS, seed=0, supervise=True,
+              ft_policy=sup_policy(), device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    clean = train_async(payload, x, telemetry=Telemetry(run_id="sup_clean"),
+                        **kw)
+    clean_s = time.perf_counter() - t0
+    tele = Telemetry(run_id="sup_chaos")
+    t0 = time.perf_counter()
+    with inject(ChaosConfig(kill_worker_at={0: SUP_KILL_AT}, seed=0),
+                telemetry=tele) as inj:
+        result = train_async(payload, x, telemetry=tele, **kw)
+    chaos_s = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("supervise (a) hogwild LM, clean and killed", counts,
+                  lm_step_counts(2 * SUP_ITERS + SUP_KILL_AT))
+    restarts = result.summary["ft"]["restarts_total"]
+    recovery = tele.histogram("ft_recovery_latency_s", labels={"worker": "0"})
+    losses = [r["loss"] for r in result.metrics]
+    log(f"supervise (a) hogwild LM (remat, s={SUP_SEQ}, {SUP_ROWS} rows, "
+        f"{SUP_ITERS} steps, local): clean {clean_s:.2f} s, killed at step "
+        f"{SUP_KILL_AT} {chaos_s:.2f} s; {restarts} restart, recovery "
+        f"{recovery['max']:.3f} s; {len(result.metrics)} records (clean "
+        f"{len(clean.metrics)}); losses {[round(v, 4) for v in losses]}; "
+        f"chaos events {[e['site'] for e in inj.events]}")
+    if (restarts != 1 or clean.summary["ft"]["restarts_total"] != 0
+            or len(result.metrics) != len(clean.metrics)
+            or recovery["count"] != 1 or not recovery["max"] <= 10.0
+            or not np.isfinite(losses).all() or not losses[-1] < losses[0]):
+        raise AssertionError("supervise (a): the supervised hogwild run "
+                             "failed its checks")
+    return counts, dict(clean_s=clean_s, chaos_s=chaos_s, restarts=restarts,
+                        recovery_s=recovery["max"], records=len(losses),
+                        losses=losses)
+
+
+def sup_child(torch, payload, x, y):
+    """(b) The parent serves the LM from ParameterServer + ParamServerHttp;
+    a ``ctl.worker`` child (kind ``hogwild_worker``) trains it on the
+    card under a Supervisor holding its ``ctl.proc.ProcessWorker``, and
+    ``kill_process_at`` SIGKILLs the first child once. The rerun pulls
+    the current version, the server's applies equal the killed child's
+    pushes plus the rerun's, one ``ft_restarts_total``, exit code
+    EXIT_OK. Prints the kill -> relaunch latency and each child's start
+    (spawn to its first step: ``import torch``, the card's context, the
+    model)."""
+    from sparktorch_tpu_torch.ctl import EXIT_OK, spawn_worker
+    from sparktorch_tpu_torch.ft import ChaosConfig, inject
+    from sparktorch_tpu_torch.ft.supervisor import Supervisor
+    from sparktorch_tpu_torch.obs import Telemetry
+    from sparktorch_tpu_torch.serve.param_server import (
+        ParameterServer,
+        ParamServerHttp,
+    )
+
+    root = os.path.join(SCRATCH, "supervise")
+    hb_dir = os.path.join(root, "hb")
+    os.makedirs(hb_dir, exist_ok=True)
+    shard = os.path.join(root, "shard.npz")
+    np.savez(shard, x=x, y=y)
+    records = os.path.join(root, "records.jsonl")
+    tele = Telemetry(run_id="sup_child")
+    server = ParameterServer(payload, window_len=1, device="cuda",
+                             telemetry=tele)
+    http = ParamServerHttp(server, port=0).start()
+    spawned, handles = [], []
+
+    def start(attempt):
+        spawned.append(time.perf_counter())
+        handle = spawn_worker(
+            kind="hogwild_worker", rank=0, heartbeat_dir=hb_dir,
+            name=f"lm{attempt}", payload_dir=root, telemetry=tele,
+            kwargs=dict(torch_obj=payload, url=http.url, data=shard,
+                        iters=SUP_CHILD_ITERS, records_path=records,
+                        device="cuda"))
+        handles.append(handle)
+        return handle
+
+    first_step, ended = {}, {}
+    watching = threading.Event()
+
+    def watch():
+        # Each child's first reported step (its heartbeat's pid tells
+        # the attempts apart) and its end.
+        while not watching.is_set():
+            for i, h in enumerate(list(handles)):
+                rec = h.heartbeat_record() or {}
+                if (i not in first_step and rec.get("pid") == h.pid
+                        and rec.get("step") is not None):
+                    first_step[i] = time.perf_counter()
+                if i not in ended and h.process.poll() is not None:
+                    ended[i] = time.perf_counter()
+            time.sleep(0.01)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    sup = Supervisor(policy=sup_policy(), telemetry=tele, name="sup_child")
+    sup.add("lm", start, rank=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with inject(ChaosConfig(kill_process_at={0: SUP_CHILD_KILL_AT},
+                                seed=0), telemetry=tele) as inj:
+            summary = sup.run(poll_interval_s=0.05, deadline_s=240)
+        wall = time.perf_counter() - t0
+        applied = server.applied_updates
+    finally:
+        watching.set()
+        watcher.join()
+        http.stop()
+        server.stop()
+    counts = read_counts()
+    expect_counts("supervise (b) parent while the child trains", counts,
+                  NO_KERNELS)
+    with open(records) as f:
+        rerun = [json.loads(line) for line in f]
+    shutil.rmtree(root, ignore_errors=True)
+    recovery = tele.histogram("ft_recovery_latency_s",
+                              labels={"worker": "lm"})
+    starts = [first_step[i] - spawned[i] for i in sorted(first_step)]
+    # The rerun's push stamps (perf_counter reads CLOCK_MONOTONIC, one
+    # clock for both processes): its first step, then one a step.
+    pushes = [r["t"] for r in rerun]
+    log(f"supervise (b) timeline, s from the first spawn: spawns "
+        f"{[round(t - t0, 2) for t in spawned]}, first steps "
+        f"{[round(first_step[i] - t0, 2) for i in sorted(first_step)]}, "
+        f"ends {[round(ended[i] - t0, 2) for i in sorted(ended)]}; the "
+        f"rerun's pushes {[round(t - t0, 2) for t in pushes]}")
+    fired = [e for e in inj.events if e["site"] == "ctl.process"]
+    log(f"supervise (b) ctl.worker child (hogwild_worker, LM s={SUP_SEQ}) "
+        f"SIGKILLed at heartbeat step {fired[0]['step'] if fired else None}: "
+        f"restarts {summary['restarts']}, kill -> relaunch "
+        f"{recovery['max']:.3f} s; child start (spawn -> first step: "
+        f"import torch, the card's context, the model) "
+        f"{[round(v, 2) for v in starts]} s; the rerun pulled version "
+        f"{rerun[0]['version']} and pushed {len(rerun)}, the server applied "
+        f"{applied}; exit codes {[h.process.returncode for h in handles]}; "
+        f"{wall:.1f} s")
+    for h in handles:
+        h.cleanup()
+    if (summary["restarts"] != {"lm": 1} or len(fired) != 1
+            or tele.counter_value("ft_restarts_total",
+                                  labels={"worker": "lm"}) != 1
+            or handles[-1].process.returncode != EXIT_OK
+            or handles[0].process.returncode != -9
+            or not rerun[0]["version"] >= SUP_CHILD_KILL_AT
+            or len(rerun) != SUP_CHILD_ITERS
+            or applied != rerun[0]["version"] + len(rerun)
+            or not np.isfinite([r["loss"] for r in rerun]).all()):
+        raise AssertionError("supervise (b): the process worker failed its "
+                             "checks")
+    return counts, dict(wall_s=wall, recovery_s=recovery["max"],
+                        child_start_s=starts, applied=applied,
+                        rerun_first_version=rerun[0]["version"])
+
+
+def supervise_phase(torch):
+    """The ft supervisor and ``ctl/`` on the card: (a) supervised hogwild
+    in-process under a worker kill, on phase 5's remat LM, (b) a
+    ``ctl.worker`` child under SIGKILL, on the LM without remat (see
+    ``sup_hogwild`` and ``sup_child``); (c), the supervised Spark fit, is
+    the spark phase's (a)."""
+    t_phase = time.perf_counter()
+    payload, x, y = sup_lm(torch)
+    counts, out = {}, {}
+    counts["supervise_hogwild"], out["hogwild"] = sup_hogwild(
+        torch, lm_payload(torch, 0), x, y)
+    torch.cuda.empty_cache()
+    counts["supervise_child"], out["child"] = sup_child(torch, payload, x, y)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"supervise phase: {out['wall_s']:.1f} s")
+    return counts, out
+
+
 START = time.perf_counter()
 
 
@@ -3771,6 +4043,8 @@ def run_phases(torch) -> int:
     done("serve_online")
     fleet_counts, fleet = fleet_phase(torch)
     done("fleet")
+    supervise_counts, supervise = supervise_phase(torch)
+    done("supervise")
 
     # Each kernel's numbers at its main path's shape: the serving chunk
     # for the forward, the LM training step for the other four.
@@ -3795,6 +4069,8 @@ def run_phases(torch) -> int:
                       for path, c in serve_online_counts.items()},
                    **{path: c[name] for path, c in fleet_counts.items()},
                    **{path: c[name]
+                      for path, c in supervise_counts.items()},
+                   **{path: c[name]
                       for path, c in bench_counts_by_path.items()}}
         cases = main_cases[name]
         kernels.append({
@@ -3817,7 +4093,8 @@ def run_phases(torch) -> int:
                     "hogwild": hogwild, "serve_resnet50": resnet50_serve,
                     "serve_resnet50_stream": resnet50_stream,
                     "bench": bench, "dp": dp, "spark": spark, "moe": moe,
-                    "serve_online": serve_online, "fleet": fleet}))
+                    "serve_online": serve_online, "fleet": fleet,
+                    "supervise": supervise}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,8 +18,11 @@ plus ``mnist_cnn_sync`` (the headline's workload), ``hogwild_wire``
 fixed-window ``BatchPredictor`` under Poisson load, a replica kill, a
 live weight push) and ``hogwild_ps_fleet`` (the 4-shard parameter-server
 fleet's gates against the single server: pull bandwidth, p99 pull
-latency, delta and int8 bytes, a seeded shard kill). Weights are seeded,
-never pretrained.
+latency, delta and int8 bytes, a seeded shard kill), ``hogwild_chaos``
+(a supervised hogwild run clean and under a seeded worker kill: one
+restart, exact records, the recovery latency) and ``hogwild_chaos_soak``
+(seeded kills, connection drops and heartbeat freezes over many
+supervised rounds). Weights are seeded, never pretrained.
 
 The sync configs run :func:`_sync_epoch_bench`: data-parallel over the
 mesh of :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` (the
@@ -84,8 +87,13 @@ import numpy as np
 import torch
 
 from sparktorch_tpu_torch.obs import get_telemetry
+# The ledger's peak and mfu_honest division, so /goodput and a bench
+# record divide alike.
+from sparktorch_tpu_torch.obs.goodput import (  # noqa: F401
+    H100_BF16_PEAK_TFLOPS,
+    mfu_honest,
+)
 from sparktorch_tpu_torch.ops.roofline import (
-    PEAK_FLOPS,
     attention_flops,
     ce_ops,
     flash_bwd_flops,
@@ -99,7 +107,10 @@ from sparktorch_tpu_torch.ops.roofline import (
 # 2,745.1 examples/s.
 REFERENCE_BASELINE_EXAMPLES_PER_SEC = 2745.1
 
-H100_BF16_PEAK_TFLOPS = PEAK_FLOPS["bfloat16"] / 1e12
+# The least difference, in seconds, between a sync config's long and
+# short span (the JAX bench's 1.6 s); a harness that runs the configs at
+# a cut depth may set it lower.
+SYNC_SPAN_S = 1.6
 
 _SYNC_KEYS = {"examples_per_sec_per_chip", "rate_best", "rate_samples",
               "rate_spread_pct", "n_chips", "final_loss", "phase_s",
@@ -171,13 +182,16 @@ RECORD_KEYS = {
          "p99_ratio", "single", "fleet", "fleet_int8",
          "delta_bytes_saved_pct", "int8_bytes_saved_pct", "shard_kill",
          "phase_s"}, set(), set()),
+    "hogwild_chaos": (
+        {"config", "unit", "value", "recovery_latency_s", "restarts",
+         "wall_clean_s", "wall_chaos_s", "overhead_pct", "kill_at_step",
+         "victim_worker", "iters", "n_chips", "final_loss_clean",
+         "final_loss_chaos", "phase_s"}, set(), set()),
+    "hogwild_chaos_soak": (
+        {"config", "unit", "value", "rounds", "freeze_rounds", "kills",
+         "freezes", "drops", "restarts", "stall_preemptions",
+         "records_exact", "n_chips", "wall_s", "per_round"}, set(), set()),
 }
-
-
-def mfu_honest(achieved_tflops_per_chip: float,
-               peak_tflops: float = H100_BF16_PEAK_TFLOPS) -> float:
-    """Model-FLOPs utilization from honest achieved TFLOPs per chip."""
-    return achieved_tflops_per_chip / peak_tflops
 
 
 def _resolve_device(device=None) -> torch.device:
@@ -324,9 +338,9 @@ def _sync_epoch_bench(spec, x, y, batch_size: int, iters: int = 30,
     back), each ended by its read-back; the per-step time is
     ``(T_long - T_short) / ((n_long - 1) * iters)``, which cancels the
     constant cost of a span's end. The long span doubles until the
-    difference is at least 1.6 s (or 512 calls), and the grown span
-    carries over to the remaining repeats. Reports the median over
-    ``max(2, repeats)`` samples after a symmetric trim (samples at or
+    difference is at least ``SYNC_SPAN_S`` seconds or 512 calls, and the
+    grown span carries over to the remaining repeats. Reports the median
+    over ``max(2, repeats)`` samples after a symmetric trim (samples at or
     below 0, or under 20% of the positive median, are dropped), with
     best and spread. ``batch_size`` is the global batch: each rank of
     the mesh steps its shard."""
@@ -377,7 +391,7 @@ def _sync_epoch_bench(spec, x, y, batch_size: int, iters: int = 30,
                 # Every rank must run the same calls (each step is an
                 # all-reduce), so the ranks grow the span on one choice:
                 # the slowest rank's difference.
-                if (_world_max(t_long - t_short, group, dev) >= 1.6
+                if (_world_max(t_long - t_short, group, dev) >= SYNC_SPAN_S
                         or n_long >= 512):
                     break
                 n_long *= 2
@@ -431,8 +445,9 @@ def _spec(module, **kw):
     return ModelSpec(module=module, loss="cross_entropy", **kw)
 
 
-def bench_mnist_mlp_sync(device=None) -> dict:
-    """BASELINE config 1 (examples/simple_dnn.py workload)."""
+def bench_mnist_mlp_sync(device=None, repeats: int = 5) -> dict:
+    """BASELINE config 1 (examples/simple_dnn.py workload); ``repeats``
+    slope samples (the JAX bench's 5)."""
     from sparktorch_tpu_torch.models import MnistMLP
 
     _resolve_device(device)
@@ -440,12 +455,13 @@ def bench_mnist_mlp_sync(device=None) -> dict:
     torch.manual_seed(0)
     spec = _spec(MnistMLP(), optimizer="adam", optimizer_params={"lr": 1e-3},
                  input_shape=(784,))
-    out = _sync_epoch_bench(spec, x, y, batch, device=device)
+    out = _sync_epoch_bench(spec, x, y, batch, repeats=repeats, device=device)
     return {"config": "mnist_mlp_sync", "unit": "examples/sec/chip", **out}
 
 
-def bench_mnist_cnn_sync(device=None) -> dict:
-    """The headline workload (examples/simple_cnn.py)."""
+def bench_mnist_cnn_sync(device=None, repeats: int = 5) -> dict:
+    """The headline workload (examples/simple_cnn.py); ``repeats`` slope
+    samples (the JAX bench's 5)."""
     from sparktorch_tpu_torch.models import MnistCNN
 
     _resolve_device(device)
@@ -453,11 +469,11 @@ def bench_mnist_cnn_sync(device=None) -> dict:
     torch.manual_seed(0)
     spec = _spec(MnistCNN(), optimizer="adam", optimizer_params={"lr": 1e-3},
                  input_shape=(784,))
-    out = _sync_epoch_bench(spec, x, y, batch, device=device)
+    out = _sync_epoch_bench(spec, x, y, batch, repeats=repeats, device=device)
     return {"config": "mnist_cnn_sync", "unit": "examples/sec/chip", **out}
 
 
-def bench_lazy_cnn_sync(device=None) -> dict:
+def bench_lazy_cnn_sync(device=None, repeats: int = 5) -> dict:
     """BASELINE config 2: the lazy serialization path — the model class
     ships unmaterialized and is first instantiated here."""
     from sparktorch_tpu_torch.models import MnistCNN
@@ -475,7 +491,7 @@ def bench_lazy_cnn_sync(device=None) -> dict:
     spec = deserialize_model(payload)
     lazy_materialize_s = time.perf_counter() - t0
     x, y, batch = _mnist()
-    out = _sync_epoch_bench(spec, x, y, batch, device=device)
+    out = _sync_epoch_bench(spec, x, y, batch, repeats=repeats, device=device)
     return {"config": "lazy_cnn_sync", "unit": "examples/sec/chip",
             "lazy_materialize_s": round(lazy_materialize_s, 4), **out}
 
@@ -486,8 +502,9 @@ def bench_resnet18_hogwild(device=None, iters: int = 1024,
     parameter server, ``repeats`` runs of ``iters`` iterations per worker
     (the JAX bench's 5 of 1,024: 256 push windows; the median is
     reported), a leg over the HTTP transport of ``max(64, iters // 4)``,
-    and a sync ResNet-18 leg at the same minibatch per chip, so the
-    async efficiency (hogwild rate / sync rate) is measured."""
+    and a sync ResNet-18 leg at the same minibatch per chip (``repeats``
+    slope samples), so the async efficiency (hogwild rate / sync rate)
+    is measured."""
     from sparktorch_tpu_torch.models import resnet18
     from sparktorch_tpu_torch.parallel.mesh import build_mesh
     from sparktorch_tpu_torch.train.hogwild import train_async
@@ -558,7 +575,7 @@ def bench_resnet18_hogwild(device=None, iters: int = 1024,
     xs = np.tile(x, (reps, 1, 1, 1))[:n_sync]
     ys = np.tile(y, reps)[:n_sync]
     sync = _sync_epoch_bench(spec, xs, ys, n_sync, iters=16, warmup=2,
-                             chunks=4, device=dev)
+                             chunks=4, repeats=repeats, device=dev)
     sync_rate = sync["examples_per_sec_per_chip"]
     return {
         "config": "resnet18_hogwild", "unit": "examples/sec/chip",
@@ -712,7 +729,7 @@ def _bert_flops_accounting(module, batch: int, seq: int) -> dict:
     }
 
 
-def bench_bert_dp(device=None) -> dict:
+def bench_bert_dp(device=None, repeats: int = 5) -> dict:
     """BASELINE config 4: BERT-base encoder fine-tune step, sync DP,
     with the flash kernels. MFU from the honest model FLOPs
     (``_bert_flops_accounting``), cross-checked against the counted
@@ -729,7 +746,8 @@ def bench_bert_dp(device=None) -> dict:
     spec = _spec(module, optimizer="adam", optimizer_params={"lr": 2e-5},
                  input_shape=(seq,))
     out = _sync_epoch_bench(spec, x, y, batch, iters=10, warmup=2, chunks=3,
-                            with_cost_analysis=True, device=device)
+                            repeats=repeats, with_cost_analysis=True,
+                            device=device)
 
     acct = _bert_flops_accounting(module, batch, seq)
     steps_per_sec = out["examples_per_sec_per_chip"] * out["n_chips"] / batch
@@ -1592,6 +1610,264 @@ def bench_serve_online(device=None, n_requests: int = 300) -> dict:
     }
 
 
+def _n_workers(dev: torch.device) -> int:
+    """``train_async``'s default worker count: one per card (the JAX
+    bench's ``len(jax.devices())``), one on the CPU."""
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def bench_hogwild_chaos(device=None) -> dict:
+    """The JAX bench's ``hogwild_chaos`` fault-tolerance gate: the same
+    hogwild workload (MnistMLP, 2,048 rows, minibatch 128, Adam, 64
+    iterations) run clean and under a seeded kill of one worker at step
+    16, both supervised. Raises unless the chaos run restarts exactly
+    one worker, keeps the clean run's record count, recovers within
+    10 s (``ft_recovery_latency_s``) and costs at most 300% over the
+    clean run's wall. The headline value is the recovery latency."""
+    from sparktorch_tpu_torch.ft import (
+        ChaosConfig,
+        FtPolicy,
+        RestartPolicy,
+        inject,
+    )
+    from sparktorch_tpu_torch.models import MnistMLP
+    from sparktorch_tpu_torch.obs import Telemetry
+    from sparktorch_tpu_torch.train.hogwild import train_async
+
+    dev = _resolve_device(device)
+    with _Phase(dev, "data") as p_data:
+        rng = np.random.default_rng(0)
+        n, mb = 2048, 128
+        x = rng.normal(0, 1, (n, 784)).astype(np.float32)
+        y = rng.integers(0, 10, (n,)).astype(np.int32)
+    with _Phase(dev, "init") as p_init:
+        torch.manual_seed(0)
+        spec = _spec(MnistMLP(), optimizer="adam",
+                     optimizer_params={"lr": 1e-3}, input_shape=(784,))
+    iters, kill_at = 64, 16
+    # The victim must be a worker that exists: one a card.
+    n_workers = _n_workers(dev)
+    victim = 1 if n_workers > 1 else 0
+    policy = FtPolicy(restart=RestartPolicy(max_restarts=2,
+                                            backoff_base_s=0.05), seed=0)
+    with _Phase(dev, "compile_warmup") as p_warm:
+        train_async(spec, x, labels=y, iters=8, mini_batch=mb, seed=0,
+                    device=dev)
+    with _Phase(dev, "measure") as p_measure:
+        t0 = time.perf_counter()
+        clean = train_async(spec, x, labels=y, iters=iters, mini_batch=mb,
+                            seed=0, supervise=True, ft_policy=policy,
+                            device=dev)
+        t_clean = time.perf_counter() - t0
+        run_tele = Telemetry(run_id="bench_hogwild_chaos")
+        t0 = time.perf_counter()
+        with inject(ChaosConfig(kill_worker_at={victim: kill_at}, seed=0),
+                    telemetry=run_tele):
+            result = train_async(spec, x, labels=y, iters=iters,
+                                 mini_batch=mb, seed=0, supervise=True,
+                                 ft_policy=policy, telemetry=run_tele,
+                                 device=dev)
+        t_chaos = time.perf_counter() - t0
+
+    restarts = (result.summary or {}).get("ft", {}).get("restarts_total", -1)
+    recovery = run_tele.histogram("ft_recovery_latency_s",
+                                  labels={"worker": str(victim)})
+    overhead_pct = 100.0 * (t_chaos - t_clean) / max(t_clean, 1e-9)
+    if restarts != 1:
+        raise AssertionError(f"expected exactly 1 restart, got {restarts}")
+    if len(result.metrics) != len(clean.metrics):
+        raise AssertionError(
+            f"chaos run lost records: {len(result.metrics)} vs "
+            f"{len(clean.metrics)} clean")
+    if recovery["count"] < 1 or recovery["max"] > 10.0:
+        raise AssertionError(f"recovery latency out of budget: {recovery}")
+    if overhead_pct > 300.0:
+        raise AssertionError(
+            f"recovery overhead {overhead_pct:.0f}% exceeds 300% budget")
+    return {
+        "config": "hogwild_chaos", "unit": "s (recovery latency)",
+        "value": round(recovery["max"], 4),
+        "recovery_latency_s": round(recovery["max"], 4),
+        "restarts": int(restarts),
+        "wall_clean_s": round(t_clean, 3),
+        "wall_chaos_s": round(t_chaos, 3),
+        "overhead_pct": round(overhead_pct, 1),
+        "kill_at_step": kill_at,
+        "victim_worker": victim,
+        "iters": iters,
+        "n_chips": n_workers,
+        "final_loss_clean": clean.metrics[-1]["loss"],
+        "final_loss_chaos": result.metrics[-1]["loss"],
+        "phase_s": _phase_s(data=p_data, init=p_init, compile_warmup=p_warm,
+                            measure=p_measure),
+    }
+
+
+def bench_hogwild_chaos_soak(device=None, rounds: int = 4, iters: int = 16,
+                             freeze_rounds: int = 2,
+                             worker_steps: int = 60) -> dict:
+    """The JAX bench's ``hogwild_chaos_soak``: a seeded random schedule
+    of faults over many supervised rounds, in two legs.
+
+    - Hogwild leg: each round runs ``train_async`` over real sockets
+      (MnistMLP, 1,024 rows, minibatch 64) under a random schedule: with
+      probability 3/4 a random worker is killed at a random step, and
+      0-2 keep-alive connections drop. Each round must restart exactly
+      its kills and keep an exact record count.
+    - Freeze leg: three supervised heartbeat-emitting workers, one of
+      which goes silent mid-run on its first attempt; the barrier
+      deadline (0.3 s) must preempt it and the rerun must finish.
+
+    Raises when restarts differ from kills, stall preemptions from
+    freezes, or records are lost or doubled."""
+    import tempfile
+    import threading
+
+    from sparktorch_tpu_torch.ft import (
+        ChaosConfig,
+        FtPolicy,
+        RestartPolicy,
+        inject,
+    )
+    from sparktorch_tpu_torch.ft.policy import BarrierPolicy
+    from sparktorch_tpu_torch.ft.supervisor import Supervisor, ThreadWorker
+    from sparktorch_tpu_torch.models import MnistMLP
+    from sparktorch_tpu_torch.obs import HeartbeatEmitter, Telemetry
+    from sparktorch_tpu_torch.train.hogwild import train_async
+
+    dev = _resolve_device(device)
+    rng = np.random.default_rng(7)
+    tele = Telemetry(run_id="bench_chaos_soak")
+    t_start = time.perf_counter()
+
+    # The hogwild leg: kills and drops over real sockets.
+    n_workers = _n_workers(dev)
+    torch.manual_seed(0)
+    spec = _spec(MnistMLP(), optimizer="adam", optimizer_params={"lr": 1e-3},
+                 input_shape=(784,))
+    x = rng.normal(0, 1, (1024, 784)).astype(np.float32)
+    y = rng.integers(0, 10, (1024,)).astype(np.int32)
+    policy = FtPolicy(restart=RestartPolicy(max_restarts=2,
+                                            backoff_base_s=0.05), seed=0)
+    train_async(spec, x, labels=y, iters=4, mini_batch=64, seed=0,
+                device=dev)  # warm-up
+
+    kills_total = drops_total = 0
+    per_round = []
+    for r in range(rounds):
+        kills = {}
+        if rng.random() < 0.75:
+            kills[int(rng.integers(0, n_workers))] = int(rng.integers(2, 8))
+        drops = int(rng.integers(0, 3))
+        cfg = ChaosConfig(kill_worker_at=kills, drop_connections=drops,
+                          seed=r)
+        with inject(cfg, telemetry=tele) as inj:
+            result = train_async(spec, x, labels=y, iters=iters,
+                                 mini_batch=64, seed=r, transport="http",
+                                 supervise=True, ft_policy=policy,
+                                 telemetry=tele, device=dev)
+        restarts = (result.summary or {}).get("ft", {}).get(
+            "restarts_total", 0)
+        fired = [e["site"] for e in inj.events]
+        if restarts != len(kills):
+            raise AssertionError(
+                f"soak round {r}: {restarts} restarts != {len(kills)} "
+                f"injected kills (chaos events: {fired})")
+        if fired.count("worker.step") != len(kills):
+            raise AssertionError(
+                f"soak round {r}: kill schedule {kills} but fired {fired}")
+        # A killed attempt flushes nothing; its rerun repays the round.
+        if len(result.metrics) != iters * n_workers:
+            raise AssertionError(
+                f"soak round {r}: {len(result.metrics)} records != "
+                f"{iters * n_workers} expected")
+        kills_total += len(kills)
+        drops_total += fired.count("transport.request")
+        per_round.append({"round": r, "kills": list(kills.items()),
+                          "drops": fired.count("transport.request"),
+                          "restarts": int(restarts)})
+
+    def total(prefix: str) -> float:
+        return sum(v for k, v in tele.snapshot()["counters"].items()
+                   if k.startswith(prefix))
+
+    if total("ft_restarts_total") != kills_total:
+        raise AssertionError(
+            f"bus ft_restarts_total {total('ft_restarts_total')} != "
+            f"{kills_total} injected kills across the soak")
+
+    # The freeze leg: stall-preempted heartbeats through the supervisor.
+    freezes_total = 0
+    for r in range(freeze_rounds):
+        freeze_rank = int(rng.integers(0, 3))
+        freeze_at = int(rng.integers(3, 8))
+        freezes_total += 1
+        with tempfile.TemporaryDirectory() as hb_dir:
+            done_counts = {i: 0 for i in range(3)}
+            lock = threading.Lock()
+
+            def make_start(rank, hb_dir=hb_dir, done_counts=done_counts,
+                           lock=lock, freeze_rank=freeze_rank,
+                           freeze_at=freeze_at):
+                def start(attempt):
+                    # Freshen the slot before the handle exists: the
+                    # frozen file's stale age must not preempt the rerun.
+                    HeartbeatEmitter(hb_dir, rank).beat()
+
+                    def target(cancel):
+                        emitter = HeartbeatEmitter(hb_dir, rank)
+                        frozen = attempt == 0 and rank == freeze_rank
+                        for step in range(worker_steps):
+                            if cancel.is_set():
+                                return  # cooperative preemption
+                            if not (frozen and step >= freeze_at):
+                                emitter.notify_step(step)
+                            time.sleep(0.02)
+                        with lock:
+                            done_counts[rank] += 1
+                        emitter.close()
+
+                    return ThreadWorker(f"soak{rank}", target,
+                                        pass_cancel=True)
+
+                return start
+
+            fpol = FtPolicy(
+                restart=RestartPolicy(max_restarts=2, backoff_base_s=0.05),
+                barrier=BarrierPolicy(deadline_s=0.3), seed=r)
+            sup = Supervisor(policy=fpol, telemetry=tele,
+                             heartbeat_dir=hb_dir, name=f"soak_freeze{r}")
+            for rank in range(3):
+                sup.add(str(rank), make_start(rank), rank=rank)
+            sup.run(deadline_s=60)
+            if any(v != 1 for v in done_counts.values()):
+                raise AssertionError(
+                    f"freeze round {r}: completion counts {done_counts}")
+
+    preempts = total("ft_stall_preemptions_total")
+    if preempts != freezes_total:
+        raise AssertionError(f"{preempts} stall preemptions != "
+                             f"{freezes_total} injected freezes")
+    restarts_all = total("ft_restarts_total")
+    if restarts_all != kills_total + freezes_total:
+        raise AssertionError(
+            f"total restarts {restarts_all} != kills {kills_total} + "
+            f"freezes {freezes_total}")
+    return {
+        "config": "hogwild_chaos_soak", "unit": "restarts",
+        "value": int(restarts_all),
+        "rounds": rounds, "freeze_rounds": freeze_rounds,
+        "kills": int(kills_total), "freezes": int(freezes_total),
+        "drops": int(drops_total),
+        "restarts": int(restarts_all),
+        "stall_preemptions": int(preempts),
+        "records_exact": True,
+        "n_chips": n_workers,
+        "wall_s": round(time.perf_counter() - t_start, 2),
+        "per_round": per_round,
+    }
+
+
 CONFIGS: Dict[str, Callable[[], dict]] = {
     "mnist_mlp_sync": bench_mnist_mlp_sync,
     "mnist_cnn_sync": bench_mnist_cnn_sync,
@@ -1604,6 +1880,8 @@ CONFIGS: Dict[str, Callable[[], dict]] = {
     "moe_lm": bench_moe_lm,
     "serve_online": bench_serve_online,
     "hogwild_ps_fleet": bench_hogwild_ps_fleet,
+    "hogwild_chaos": bench_hogwild_chaos,
+    "hogwild_chaos_soak": bench_hogwild_chaos_soak,
 }
 
 

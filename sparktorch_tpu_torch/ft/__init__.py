@@ -1,15 +1,14 @@
-"""sparktorch_tpu_torch.ft — the fault-tolerance subsystem, less the supervisor.
+"""sparktorch_tpu_torch.ft — the fault-tolerance subsystem, a copy of ``sparktorch_tpu/ft/``.
 
-Declarative policies (:mod:`ft.policy`) and the seeded
-chaos-injection harness that makes the recovery paths testable
-(:mod:`ft.chaos`), both copies of the JAX package's. Neither imports
-anything from the rest of the package, so the injection points in
-``serve/`` and ``obs/`` import them without cycles.
+Three parts: declarative policies (:mod:`ft.policy`), the gang
+supervisor that acts on heartbeats and process liveness
+(:mod:`ft.supervisor`), and the seeded chaos-injection harness that
+makes the recovery paths testable (:mod:`ft.chaos`).
 
-The gang supervisor (``Supervisor``, ``ThreadWorker``,
-``ProcessWorker``, ``WorkerFailed``, ``WorkerPreempted``,
-``supervise_run``) is not ported yet: reaching it raises
-``NotImplementedError`` (ROADMAP, Queue 1, item 9).
+``policy`` and ``chaos`` import nothing from the rest of the package,
+so the injection points in ``net/``, ``serve/``, ``obs/`` and
+``train/`` import them without cycles; the supervisor (which needs
+``obs``) loads lazily through the module's ``__getattr__``.
 """
 
 from sparktorch_tpu_torch.ft.chaos import (
@@ -29,15 +28,15 @@ from sparktorch_tpu_torch.ft.policy import (
     StragglerPolicy,
 )
 
-_SUPERVISOR = ("Supervisor", "ThreadWorker", "ProcessWorker", "WorkerFailed",
-               "WorkerPreempted", "supervise_run")
+_LAZY = ("Supervisor", "ThreadWorker", "ProcessWorker", "WorkerFailed",
+         "WorkerPreempted", "supervise_run")
 
 
 def __getattr__(name):
-    if name in _SUPERVISOR:
-        raise NotImplementedError(
-            f"ft.{name}: the gang supervisor (ft/supervisor.py) is not "
-            "ported yet (ROADMAP, Queue 1, item 9)")
+    if name in _LAZY:
+        from sparktorch_tpu_torch.ft import supervisor
+
+        return getattr(supervisor, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -51,4 +50,5 @@ __all__ = [
     "FtPolicy",
     "RestartPolicy",
     "StragglerPolicy",
+    *_LAZY,
 ]

@@ -15,9 +15,9 @@ body, a forced 500, in the parameter server's HTTP routes), and
 ``worker.step``, ``data.batch`` and ``train.rank`` (kill, poison,
 straggle, in the sync, streaming and hogwild trainers' step loops), and
 ``fleet.shard`` (a shard frontend's death at its Nth request, a
-straggler's delay, in the fleet shards' HTTP routes). ``ctl.process``
-waits for the supervisor (ROADMAP, Queue 1, item 9, step 3); its
-verdicts are evaluated here all the same.
+straggler's delay, in the fleet shards' HTTP routes), and
+``ctl.process`` (a raw SIGKILL of a ``ctl.worker`` child, in
+:meth:`~sparktorch_tpu_torch.ctl.proc.ProcessWorker.is_alive`).
 
 Install is process-global (``with inject(config): ...``) because the
 faults must reach code deep inside worker threads without threading a

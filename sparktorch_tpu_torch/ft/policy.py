@@ -6,9 +6,9 @@ for workers that are alive-but-wedged. In the port the serving tier
 acts on them: the router spaces re-admission probes by
 ``RestartPolicy.delay_s`` and evicts a replica whose heartbeat ages
 past ``BarrierPolicy.deadline_s``; ``InferenceTier`` restarts a dead
-replica under the same backoff. The gang supervisor that the JAX
-package drives with them is not ported yet (ROADMAP, Queue 1, item 9).
-The seeded ``FtPolicy.rng()`` gives the JAX package's backoff
+replica under the same backoff; the gang supervisor
+(:mod:`~sparktorch_tpu_torch.ft.supervisor`) and the elastic controller
+restart workers under them. The seeded ``FtPolicy.rng()`` gives the JAX package's backoff
 sequences for the same seed.
 
 Policies are plain frozen dataclasses so they dill/pickle cleanly and

@@ -20,13 +20,18 @@ in a collective. With a heartbeat directory (``heartbeat_dir=`` or the
 rank's attributed heartbeat file
 (:class:`~sparktorch_tpu_torch.obs.heartbeat.HeartbeatEmitter`: rank,
 host, pid, the step the trainers last reported), which either
-package's ``gang_report`` reads. Not ported yet (ROADMAP, Queue 1): the
-HTTP exporter (``GangMetricsExporter``) and ``resize`` (item 9, step 3).
+package's ``gang_report`` reads.
+
+:class:`GangMetricsExporter` is the gang's HTTP surface (``/metrics``,
+``/telemetry``, ``/heartbeats`` and, with a control registry,
+``POST /ctl``); :meth:`GangCoordinator.resize` changes the world size
+live for the elastic controller (:mod:`sparktorch_tpu_torch.ctl.elastic`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import threading
 from typing import List, Optional
@@ -42,6 +47,182 @@ class GangFailure(RuntimeError):
     pass
 
 
+class GangMetricsExporter:
+    """The gang's HTTP surface, a copy of the JAX package's.
+
+    ``GET /metrics`` serves the attached telemetry snapshot
+    as Prometheus text with the heartbeat table folded in as per-rank
+    gauges (liveness, step, last-seen age, step skew — derived at
+    scrape time from the shared heartbeat directory, so a dead rank
+    shows up as a growing age even though it stopped publishing), plus
+    coordinator state (registered/failed/dead_rank) when a
+    :class:`GangCoordinator` is attached. ``GET /telemetry`` is the
+    same merged view as JSON; ``GET /heartbeats`` just the per-rank
+    table. Runs on a daemon thread like :class:`ParamServerHttp`; all
+    three pieces (telemetry, heartbeat dir, coordinator) are optional,
+    so the exporter serves whatever the deployment actually has.
+    """
+
+    def __init__(self, heartbeat_dir: Optional[str] = None,
+                 coordinator: Optional["GangCoordinator"] = None,
+                 telemetry=None, host: str = "127.0.0.1", port: int = 0,
+                 ctl=None):
+        self.heartbeat_dir = heartbeat_dir or os.environ.get(HEARTBEAT_DIR_ENV)
+        self.coordinator = coordinator
+        self.telemetry = telemetry
+        self.host = host
+        self.port = port
+        # Control surface (``POST /ctl``): a
+        # :class:`sparktorch_tpu_torch.ctl.CtlRegistry` (duck-typed — anything with ``check_token``
+        # and ``handle``) lets an elastic controller manage this
+        # process (kill/drain/resize verbs) over HTTP when it holds no
+        # local handle on it. None = the route answers 404 (the
+        # original read-only exporter).
+        self.ctl = ctl
+        self._httpd = None
+        self._thread: Optional[threading.Thread] = None
+
+    def _merged_snapshot(self) -> dict:
+        from sparktorch_tpu_torch.obs import Telemetry, gang_report
+
+        tele = self.telemetry
+        snap = (tele.snapshot() if tele is not None
+                else Telemetry(run_id="gang_exporter").snapshot())
+        gauges = snap.setdefault("gauges", {})
+        if self.heartbeat_dir:
+            report = gang_report(self.heartbeat_dir)
+            snap["gang_report"] = report
+            for rank, rec in report.get("ranks", {}).items():
+                gauges[f"gang.hb_alive{{rank={rank}}}"] = (
+                    1.0 if rec["alive"] else 0.0
+                )
+                gauges[f"gang.hb_last_seen_age_s{{rank={rank}}}"] = (
+                    rec["last_seen_age_s"]
+                )
+                if rec.get("step") is not None:
+                    gauges[f"gang.hb_step{{rank={rank}}}"] = float(rec["step"])
+            if "step_skew" in report:
+                gauges["gang.hb_step_skew"] = float(report["step_skew"])
+            gauges["gang.hb_ranks"] = float(report.get("n_ranks", 0))
+        coord = self.coordinator
+        if coord is not None:
+            gauges["gang.coordinator_registered"] = float(coord.registered)
+            gauges["gang.coordinator_failed"] = 1.0 if coord.failed else 0.0
+            gauges["gang.coordinator_dead_rank"] = float(coord.dead_rank)
+            gauges["gang.coordinator_world_size"] = float(coord.world_size)
+            gauges["gang.coordinator_generation"] = float(coord.generation)
+            if getattr(coord, "run_id", None):
+                # The gang run_id rides the scrape like a build_info
+                # string, so a collector can correlate this exporter
+                # with the rank streams without parsing REG lines.
+                snap.setdefault("info", {})["gang.run_id"] = coord.run_id
+        return snap
+
+    def start(self) -> "GangMetricsExporter":
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from sparktorch_tpu_torch.obs import (
+            PROMETHEUS_CONTENT_TYPE,
+            render_prometheus,
+        )
+
+        exporter = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _send(self, code: int, body: bytes = b"",
+                      content_type: Optional[str] = None):
+                self.send_response(code)
+                if content_type:
+                    self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if body:
+                    self.wfile.write(body)
+
+            def do_GET(self):
+                route = self.path.split("?", 1)[0]
+                if route == "/":
+                    self._send(200, b"sparktorch-tpu gang exporter")
+                elif route == "/metrics":
+                    snap = exporter._merged_snapshot()
+                    snap.pop("gang_report", None)  # gauges carry it
+                    self._send(200, render_prometheus(snap).encode(),
+                               content_type=PROMETHEUS_CONTENT_TYPE)
+                elif route == "/telemetry":
+                    self._send(200,
+                               json.dumps(
+                                   exporter._merged_snapshot()).encode(),
+                               content_type="application/json")
+                elif route == "/heartbeats":
+                    from sparktorch_tpu_torch.obs import gang_report
+
+                    report = (gang_report(exporter.heartbeat_dir)
+                              if exporter.heartbeat_dir else {"n_ranks": 0,
+                                                              "ranks": {},
+                                                              "alive": []})
+                    self._send(200, json.dumps(report).encode(),
+                               content_type="application/json")
+                else:
+                    self._send(404)
+
+            def do_POST(self):
+                route = self.path.split("?", 1)[0]
+                if route != "/ctl" or exporter.ctl is None:
+                    self._send(404)
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    body = json.loads(self.rfile.read(length) or b"{}")
+                    if not isinstance(body, dict):
+                        raise ValueError("ctl body must be an object")
+                except (ValueError, TypeError) as e:
+                    self._send(400, str(e).encode())
+                    return
+                if not exporter.ctl.check_token(
+                        self.headers.get("X-Ctl-Token")):
+                    self._send(403, b"bad ctl token")
+                    return
+                verb = body.get("verb")
+                args = body.get("args") or {}
+                try:
+                    result = exporter.ctl.handle(verb, args)
+                except KeyError:
+                    self._send(400, f"unknown verb {verb!r}".encode())
+                    return
+                except Exception as e:  # verb handlers are user code
+                    self._send(500, f"{type(e).__name__}: {e}".encode())
+                    return
+                self._send(200, json.dumps(
+                    {"ok": True, "verb": verb, "result": result}).encode(),
+                    content_type="application/json")
+
+        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+
+    def __enter__(self):
+        return self.start() if self._httpd is None else self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
 def _lib():
     lib = load_library("gang")
     lib.gang_server_start3.restype = ctypes.c_void_p
@@ -50,6 +231,8 @@ def _lib():
         ctypes.c_char_p,
     ]
     lib.gang_server_port.argtypes = [ctypes.c_void_p]
+    lib.gang_server_resize.restype = ctypes.c_long
+    lib.gang_server_resize.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.gang_server_generation.restype = ctypes.c_long
     lib.gang_server_generation.argtypes = [ctypes.c_void_p]
     lib.gang_server_failed.argtypes = [ctypes.c_void_p]
@@ -82,16 +265,23 @@ def _lib():
 
 class GangCoordinator:
     """The gang's coordinator; ``world_size`` hosts must register. A
-    member silent for ``heartbeat_timeout_ms`` is declared dead, and a
-    dead gang refuses registrations (the rejoin grace window and
-    ``resize`` come with the ft supervisor: ROADMAP, Queue 1, item 9).
-    ``run_id`` (None = untagged) is announced in every OK reply; it
-    travels as one token of the line protocol, so it must be printable
-    ASCII without whitespace, at most 120 bytes.
+    member silent for ``heartbeat_timeout_ms`` is declared dead.
+
+    ``rejoin_grace_ms`` (0: off, a dead gang refuses registrations for
+    good): after a member is declared dead, a fresh registration within
+    this window opens a NEW GENERATION, whose members all register
+    again, so a supervisor-restarted gang reforms on the same
+    coordinator. Registration and heartbeat lines carry the generation
+    a client joined, so a survivor of the failed generation cannot
+    slip into the new one. :meth:`resize` opens a generation the same
+    way for a new world size. ``run_id`` (None = untagged) is announced
+    in every OK reply; it travels as one token of the line protocol, so
+    it must be printable ASCII without whitespace, at most 120 bytes.
     """
 
     def __init__(self, world_size: int, port: int = 0,
                  heartbeat_timeout_ms: int = 10_000,
+                 rejoin_grace_ms: int = 0,
                  run_id: Optional[str] = None):
         if run_id is not None and (
                 not run_id or len(run_id) > 120
@@ -104,12 +294,13 @@ class GangCoordinator:
         self._lib = _lib()
         self.run_id = run_id
         self._handle = self._lib.gang_server_start3(
-            port, world_size, heartbeat_timeout_ms, 0,
+            port, world_size, heartbeat_timeout_ms, rejoin_grace_ms,
             (run_id or "").encode())
         if not self._handle:
             raise RuntimeError("gang coordinator failed to start")
         self.port = self._lib.gang_server_port(self._handle)
         self.world_size = world_size
+        self.rejoin_grace_ms = rejoin_grace_ms
         # The native state as stop() last saw it: reading a property
         # after stop() must not pass the freed handle to the library.
         self._final = {"failed": False, "dead_rank": -1,
@@ -128,7 +319,8 @@ class GangCoordinator:
 
     @property
     def generation(self) -> int:
-        """The gang's generation (0: no rejoin has reformed it)."""
+        """The gang's generation: bumped by each rejoin after a failure
+        and each :meth:`resize`; 0 is the original gang."""
         return int(self._state("generation",
                                self._lib.gang_server_generation))
 
@@ -136,6 +328,25 @@ class GangCoordinator:
     def registered(self) -> int:
         return int(self._state("registered",
                                self._lib.gang_server_registered))
+
+    def resize(self, new_world_size: int) -> int:
+        """Change the world size live: the generation bumps,
+        membership and barrier state clear, parked barrier waiters are
+        released with an error, and every surviving or new rank
+        registers again into the new generation. The elastic controller
+        calls it to shrink around a rank that spent its restart budget
+        and to grow. Returns the new generation."""
+        if new_world_size < 1:
+            raise ValueError(
+                f"world_size must be >= 1, got {new_world_size}")
+        if not self._handle:
+            raise RuntimeError("cannot resize a stopped coordinator")
+        gen = int(self._lib.gang_server_resize(self._handle,
+                                               int(new_world_size)))
+        if gen < 0:
+            raise RuntimeError("gang coordinator refused the resize")
+        self.world_size = int(new_world_size)
+        return gen
 
     def stop(self):
         if self._handle:

@@ -32,7 +32,6 @@ import http.client
 import json
 import socket
 import time
-import zlib
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 from urllib.parse import urlsplit
 
@@ -41,6 +40,7 @@ import torch
 
 from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.net import wire
+from sparktorch_tpu_torch.obs.collector import run_tag  # noqa: F401  (re-exported)
 from sparktorch_tpu_torch.utils.streams import copy_stream
 
 _TIMEOUT = 10.0        # hogwild.py:34-38 parity for push/poll
@@ -58,16 +58,6 @@ def new_phase_stats() -> dict:
         "push_bytes": 0, "pushes": 0,
         "poll_s": 0.0, "reconnects": 0,
     }
-
-
-def run_tag(run_id: Optional[str]) -> int:
-    """The 16-bit correlation tag of ``run_id`` for the wire header's
-    reserved bytes (the JAX package's ``obs.collector.run_tag``): 0 is
-    "untagged", so a real run id always maps to a nonzero tag."""
-    if not run_id:
-        return 0
-    tag = zlib.crc32(str(run_id).encode()) & 0xFFFF
-    return tag or 1
 
 
 class _Connection(http.client.HTTPConnection):

@@ -12,10 +12,15 @@ JAX package's ``obs/telemetry.py``, ``obs/sinks.py``,
 
 The trainers, the parameter server and the hogwild workers record into
 this bus (the process-global one unless a run-scoped ``telemetry=`` is
-passed), under the JAX package's names. The rest of the JAX ``obs/``
-(history, alerts, the flight recorder, goodput, health, replay, xprof,
-the fleet collector, rpctrace, the stack profiler, timeline, skew) is
-not ported yet (ROADMAP, Queue 1, item 10, step 4).
+passed), under the JAX package's names. Beside it, copies of the JAX
+package's retained history (:class:`MetricsHistory`) and alert rules
+(:class:`AlertRule`, :class:`AlertManager`), the flight recorder and
+postmortem bundles (``obs/blackbox.py``), the goodput ledger and the
+cross-rank skew ring (``obs/goodput.py``, ``obs/skew.py``), the stack
+profiler (``obs/profile.py``) and the collector's scrape helpers
+(``obs/collector.py``), which the ft supervisor and ``ctl/`` use. Not
+ported yet (ROADMAP, Queue 1, item 10, step 4): health, replay, xprof,
+the fleet collector itself, rpctrace and timeline.
 """
 
 from sparktorch_tpu_torch.obs.telemetry import (
@@ -25,6 +30,19 @@ from sparktorch_tpu_torch.obs.telemetry import (
     get_telemetry,
     set_telemetry,
     wall_ts,
+)
+from sparktorch_tpu_torch.obs.history import MetricsHistory
+from sparktorch_tpu_torch.obs.alerts import AlertManager, AlertRule
+from sparktorch_tpu_torch.obs.blackbox import (
+    FlightRecorder,
+    attach_recorder,
+    collect_postmortem,
+    read_postmortem,
+)
+from sparktorch_tpu_torch.obs.goodput import (
+    GoodputLedger,
+    LedgerSpan,
+    mfu_honest,
 )
 from sparktorch_tpu_torch.obs.sinks import JsonlSink, read_jsonl, write_jsonl
 from sparktorch_tpu_torch.obs.log import get_logger
@@ -39,6 +57,14 @@ from sparktorch_tpu_torch.obs.heartbeat import (
     gang_report,
     read_heartbeats,
 )
+from sparktorch_tpu_torch.obs.collector import (
+    ScrapeError,
+    mint_run_id,
+    run_tag,
+    scrape_json,
+    scrape_text,
+    snapshot_histogram,
+)
 
 __all__ = [
     "Span",
@@ -47,6 +73,16 @@ __all__ = [
     "get_telemetry",
     "set_telemetry",
     "wall_ts",
+    "MetricsHistory",
+    "AlertManager",
+    "AlertRule",
+    "FlightRecorder",
+    "attach_recorder",
+    "collect_postmortem",
+    "read_postmortem",
+    "GoodputLedger",
+    "LedgerSpan",
+    "mfu_honest",
     "JsonlSink",
     "read_jsonl",
     "write_jsonl",
@@ -58,4 +94,10 @@ __all__ = [
     "HeartbeatEmitter",
     "gang_report",
     "read_heartbeats",
+    "ScrapeError",
+    "mint_run_id",
+    "run_tag",
+    "scrape_json",
+    "scrape_text",
+    "snapshot_histogram",
 ]

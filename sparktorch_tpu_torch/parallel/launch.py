@@ -14,8 +14,10 @@ A world of one short-circuits all of it. ``telemetry=`` reaches the
 gang worker: the gang's run id lands on the bus, and with a heartbeat
 directory (``SPARKTORCH_TPU_HEARTBEAT_DIR``) each rank publishes its
 attributed heartbeat file, on which :func:`notify_gang_step` records
-the trainers' progress. Not ported yet (ROADMAP, Queue 1): ``ft_policy``
-and ``controller`` (item 9, step 3).
+the trainers' progress. ``ft_policy`` arms the fault-tolerant bring-up
+(a rejoin grace window on the coordinator, registration retried under
+the policy's backoff), and ``controller`` serves this rank's metrics and
+``POST /ctl`` (``kill``, ``drain``) for the elastic controller.
 """
 
 from __future__ import annotations
@@ -77,11 +79,6 @@ def _local_ip() -> str:
         return "127.0.0.1"
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP, Queue 1: "
-                               f"{item})")
-
-
 def bringup_multihost(
     rank: int,
     world_size: int,
@@ -95,6 +92,7 @@ def bringup_multihost(
     telemetry=None,
     controller=None,
     backend: Optional[str] = None,
+    ctl_port: int = 0,
 ):
     """Rendezvous the gang and join the process group.
 
@@ -106,36 +104,89 @@ def bringup_multihost(
     TCP store (NCCL with a card, gloo without, unless ``backend``
     names one). ``telemetry`` is this rank's bus: the gang worker stamps
     the gang's run id on it and mirrors its heartbeats there.
+
+    ``ft_policy`` (an :class:`~sparktorch_tpu_torch.ft.FtPolicy`) arms
+    the fault-tolerant bring-up: the coordinator opens a rejoin grace
+    window (``rejoin_grace_s``: a supervisor-restarted rank rejoins a
+    failed gang on a fresh generation instead of being refused), and
+    registration retries under the policy's backoff, since a restarted
+    rank may dial before the new generation opens.
+
+    ``controller`` (``True`` or a
+    :class:`~sparktorch_tpu_torch.ctl.CtlRegistry`) starts a
+    :class:`~sparktorch_tpu_torch.native.gang.GangMetricsExporter` on
+    ``ctl_port`` (0: ephemeral) serving this rank's metrics and
+    heartbeats and ``POST /ctl`` with ``kill`` and ``drain`` verbs, so an
+    :class:`~sparktorch_tpu_torch.ctl.ElasticController` can manage the
+    rank with no process handle. It rides the returned worker as
+    ``worker.ctl_exporter``; ``drain`` sets ``worker.drain_requested``
+    (training loops may poll it), and ``kill`` replies, then exits the
+    process hard.
     """
-    if ft_policy is not None or controller:
-        raise _not_ported("ft_policy and controller",
-                          "the ft supervisor and ctl/, item 9")
     if world_size <= 1:
         return None, None
 
-    from sparktorch_tpu_torch.native.gang import GangCoordinator, GangWorker
+    from sparktorch_tpu_torch.native.gang import (
+        GangCoordinator,
+        GangFailure,
+        GangWorker,
+    )
+    from sparktorch_tpu_torch.obs.collector import mint_run_id
     from sparktorch_tpu_torch.parallel.mesh import initialize_distributed
 
     if start_coordinator is None:
         start_coordinator = rank == 0
     coord = None
     if start_coordinator:
+        grace_ms = (int(ft_policy.rejoin_grace_s * 1000)
+                    if ft_policy is not None else 0)
         coord = GangCoordinator(
             world_size=world_size, port=gang_port,
             heartbeat_timeout_ms=heartbeat_timeout_ms,
-            run_id=run_id or (f"gang-{time.strftime('%Y%m%dT%H%M%S')}-"
-                              f"{os.urandom(3).hex()}"))
+            rejoin_grace_ms=grace_ms, run_id=run_id or mint_run_id())
         gang_port = coord.port
         coordinator_host = coordinator_host or _local_ip()
     elif coordinator_host is None:
         coordinator_host = os.environ.get("SPARKTORCH_TPU_GANG_HOST",
                                           "127.0.0.1")
 
-    worker = GangWorker(coordinator_host, gang_port, rank,
-                        f"{_local_ip()}:{dist_port}", telemetry=telemetry)
+    my_addr = f"{_local_ip()}:{dist_port}"
+    rng = ft_policy.rng() if ft_policy is not None else None
+    attempt = 0
+    while True:
+        try:
+            worker = GangWorker(coordinator_host, gang_port, rank, my_addr,
+                                telemetry=telemetry)
+            break
+        except GangFailure:
+            if (ft_policy is None
+                    or attempt >= ft_policy.restart.max_restarts):
+                raise
+            time.sleep(ft_policy.restart.delay_s(attempt, rng))
+            attempt += 1
     worker.barrier(0)  # the whole gang is here
     peers = worker.world()
     initialize_distributed(peers[0], num_processes=world_size,
                            process_id=rank, backend=backend)
     register_gang_worker(worker)
+    if controller:
+        import threading
+
+        from sparktorch_tpu_torch.ctl.route import CtlRegistry
+        from sparktorch_tpu_torch.ctl.worker import _hard_exit_soon
+        from sparktorch_tpu_torch.native.gang import GangMetricsExporter
+
+        ctl = CtlRegistry() if controller is True else controller
+        drain = threading.Event()
+        worker.drain_requested = drain
+        # kill: reply, then die (the 200 must reach the controller
+        # before the process vanishes, or the kill reads as a transport
+        # error).
+        ctl.register("kill", lambda code=86: _hard_exit_soon(int(code)))
+        ctl.register("drain", lambda: (drain.set(), True)[1])
+        ctl.register("ping", lambda: {"rank": rank, "pid": os.getpid(),
+                                      "addr": my_addr})
+        worker.ctl_exporter = GangMetricsExporter(
+            coordinator=coord, telemetry=telemetry, port=ctl_port,
+            ctl=ctl).start()
     return coord, worker

@@ -48,8 +48,8 @@ wait on an apply.
 Not ported yet: RPC trace contexts (``trace_ctx``; ``obs/rpctrace.py``,
 ROADMAP, Queue 1, item 10, step 4) raise ``NotImplementedError``;
 :func:`run_shard_server` takes a duck-typed ``ctx`` (``telemetry``,
-``cancel``, ``heartbeat``), and its spawn under the ctl worker waits for
-the supervisor (item 9, step 3).
+``cancel``, ``heartbeat``) and runs as the ``shard_server`` kind of the
+ctl worker (:mod:`sparktorch_tpu_torch.ctl.worker`).
 """
 
 from __future__ import annotations

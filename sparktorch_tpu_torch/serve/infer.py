@@ -31,10 +31,12 @@ replica's batch loop enters ``torch.inference_mode()`` itself (the mode
 is thread-local) and launches its kernels on its thread's current
 stream. A replica runs on CUDA unless ``device="cpu"`` is passed.
 
+:func:`run_replica_server` is one replica as a process of its own,
+spawned as the ``replica_server`` kind of the ctl worker
+(:mod:`sparktorch_tpu_torch.ctl.worker`) or run by hand.
+
 Not ported yet: RPC trace contexts (``trace_ctx``, ``obs.rpctrace``;
-ROADMAP, Queue 1, item 10) and the ctl worker context of
-:func:`run_replica_server` with its stack profiler (``obs.profile``;
-items 9 and 10). Each raises ``NotImplementedError``.
+ROADMAP, Queue 1, item 10), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -712,21 +714,19 @@ def run_replica_server(torch_obj, replica_id="0",
     liveness rides a heartbeat in ``heartbeat_dir`` (step = batches
     executed). Requests enter through the in-process ``submit``.
 
-    ``ctx`` (the JAX package's ctl worker context, which also arms its
-    stack profiler) is not ported: passing one raises
-    ``NotImplementedError`` (``ctl/``, ROADMAP, Queue 1, item 9;
-    ``obs.profile``, item 10). The port takes ``telemetry``, ``cancel``
-    and ``heartbeat_dir`` directly instead.
+    ``ctx`` (a :class:`~sparktorch_tpu_torch.ctl.worker.WorkerContext`,
+    or anything with its attributes) supplies the bus, the cancel event
+    (SIGTERM under the ctl entry) and the heartbeat, in place of
+    ``telemetry``, ``cancel`` and ``heartbeat_dir``; either way the stack
+    profiler is armed on the replica's bus (:func:`obs.profile.ensure`,
+    gated by ``SPARKTORCH_TPU_PROFILE``).
     """
+    from sparktorch_tpu_torch.obs import profile as _profile
     from sparktorch_tpu_torch.serve.param_server import build_module
     from sparktorch_tpu_torch.utils.serde import deserialize_model
 
-    if ctx is not None:
-        raise NotImplementedError(
-            "run_replica_server(ctx=...): the ctl worker context (ROADMAP, "
-            "Queue 1, item 9) and its stack profiler (obs.profile, item "
-            "10) are not ported yet; pass telemetry=, cancel= and "
-            "heartbeat_dir= instead")
+    telemetry = getattr(ctx, "telemetry", None) or telemetry
+    cancel = getattr(ctx, "cancel", None) or cancel
     spec = deserialize_model(torch_obj)
     replica = InferenceReplica(
         build_module(spec, seed), replica_id=replica_id, buckets=buckets,
@@ -738,13 +738,16 @@ def run_replica_server(torch_obj, replica_id="0",
             replica, BinaryTransport(server_url, quant=pull_quant),
             poll_s=pull_poll_s, telemetry=telemetry,
         ).start()
+    _profile.ensure(replica.telemetry)
     cancel = cancel or threading.Event()
-    hb = None
-    if heartbeat_dir:
+    # The ctl context's heartbeat belongs to its entry, which closes it.
+    hb = getattr(ctx, "heartbeat", None)
+    own_hb = None
+    if hb is None and heartbeat_dir:
         from sparktorch_tpu_torch.obs import HeartbeatEmitter
 
-        hb = HeartbeatEmitter(heartbeat_dir, rank=int(replica_id),
-                              telemetry=replica.telemetry)
+        hb = own_hb = HeartbeatEmitter(heartbeat_dir, rank=int(replica_id),
+                                       telemetry=replica.telemetry)
     try:
         while not cancel.wait(heartbeat_interval_s):
             if hb is not None:
@@ -753,8 +756,8 @@ def run_replica_server(torch_obj, replica_id="0",
         if puller is not None:
             puller.stop()
         replica.stop()
-        if hb is not None:
-            hb.close()
+        if own_hb is not None:
+            own_hb.close()
     return {"replica_id": str(replica_id),
             "batches": int(replica._batches),
             "params_version": int(replica.params_version)}

@@ -21,9 +21,11 @@ threads against a parameter server, so a training run's pushes reach
 every serving replica within a few poll intervals.
 
 Not ported yet: a fleet collector's scraped weights (``collector=``
-raises ``NotImplementedError``), the router's goodput spans
-(``exposed_comm``) and RPC trace spans, and the stack profiler that
-``Router.start`` arms in the JAX package (ROADMAP, Queue 1, item 10).
+raises ``NotImplementedError``) and RPC trace spans (ROADMAP, Queue 1,
+item 10). The goodput ledger and the stack profiler are ported
+(``obs/goodput.py``, ``obs/profile.py``), but the router's goodput
+spans (``exposed_comm``) and the profiler that ``Router.start`` arms in
+the JAX package are not wired yet (step 4, with the trainers' hooks).
 """
 
 from __future__ import annotations

@@ -29,8 +29,13 @@ broadcast model bundle, running the port's chunked
 :class:`~sparktorch_tpu_torch.inference.BatchPredictor`, versus the
 reference's batch-1 row UDF.
 
-Not ported yet (ROADMAP, Queue 1): ``supervise`` (the ft supervisor,
-item 9); it raises.
+``supervise=True`` makes the synchronous barrier fit fault tolerant:
+:func:`~sparktorch_tpu_torch.ft.supervise_run` restarts a failed barrier
+stage up to ``ftMaxRestarts`` times, resuming from the newest finalized
+snapshot in ``checkpointDir``, and the gang coordinator opens a rejoin
+grace window so the new stage's ranks register on a fresh generation.
+The other deploy paths run as they would without it, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -58,11 +63,7 @@ except ImportError as _e:  # pragma: no cover
     ) from _e
 
 
-from sparktorch_tpu_torch.ml.estimator import (
-    _decode_bundle,
-    _encode_bundle,
-    _not_ported,
-)
+from sparktorch_tpu_torch.ml.estimator import _decode_bundle, _encode_bundle
 from sparktorch_tpu_torch.spark.pipeline_util import PythonStagePersistence
 from sparktorch_tpu_torch.utils.serde import deserialize_model
 
@@ -143,7 +144,7 @@ class _SparkTorchParams(HasInputCol, HasLabelCol, HasPredictionCol):
                  typeConverter=TypeConverters.toString)
     supervise = Param(Params._dummy(), "supervise",
                       "fault tolerance: restart a failed barrier stage "
-                      "(not ported yet: raises)",
+                      "and resume from the latest checkpoint",
                       typeConverter=TypeConverters.toBoolean)
     ftMaxRestarts = Param(Params._dummy(), "ftMaxRestarts",
                           "fault tolerance: restart budget for the "
@@ -215,9 +216,6 @@ class SparkTorch(Estimator, _SparkTorchParams, PythonStagePersistence,
     # -- fit ---------------------------------------------------------------
 
     def _fit(self, dataset):
-        if self.getOrDefault(self.supervise):
-            raise _not_ported("SparkTorch(supervise=True)",
-                              "the ft supervisor, item 9")
         if self.getOrDefault(self.deployMode) == "barrier":
             if self.getOrDefault(self.mode) in ("hogwild", "async"):
                 result = self._fit_hogwild_executors(dataset)
@@ -403,6 +401,14 @@ class SparkTorch(Estimator, _SparkTorchParams, PythonStagePersistence,
         ``train_distributed_multihost`` (an all-gather of row counts,
         weight-0 padding of skewed and empty partitions). A task with no
         rows still enters every collective.
+
+        With ``supervise`` a failed stage (a dead rank fails the whole
+        barrier stage, as in Spark) is run again under the ft policy,
+        resuming from the newest finalized snapshot in ``checkpointDir``
+        when there is one. Each new attempt opens a fresh gang generation
+        (``GangCoordinator.resize`` to the same world: the old ranks may
+        have closed cleanly, so the coordinator need not have seen them
+        die) and a fresh process-group port.
         """
         inp = self.getOrDefault(self.inputCol)
         label = self._opt(self.labelCol)
@@ -427,13 +433,28 @@ class SparkTorch(Estimator, _SparkTorchParams, PythonStagePersistence,
         if rdd.getNumPartitions() != n_hosts:
             rdd = rdd.repartition(n_hosts)
 
+        supervise = self.getOrDefault(self.supervise)
+        ft_policy = None
+        if supervise:
+            from sparktorch_tpu_torch.ft import FtPolicy, RestartPolicy
+
+            ft_policy = FtPolicy(restart=RestartPolicy(
+                max_restarts=self.getOrDefault(self.ftMaxRestarts)))
+
         from sparktorch_tpu_torch.native.gang import GangCoordinator
 
-        coord = GangCoordinator(world_size=n_hosts, port=0)
+        # Under supervision the coordinator opens a rejoin grace window,
+        # so a restarted stage's ranks register on a fresh generation.
+        coord = GangCoordinator(
+            world_size=n_hosts, port=0,
+            rejoin_grace_ms=(int(ft_policy.rejoin_grace_s * 1000)
+                             if ft_policy is not None else 0))
         gang_port = coord.port
-        dist_port = _free_port(gang_host)
 
-        def run_host(iterator):
+        def make_run_host(resume: bool, dist_port: int):
+            return lambda iterator: run_host(iterator, resume, dist_port)
+
+        def run_host(iterator, resume, dist_port):
             import torch.distributed as dist
             from pyspark import BarrierTaskContext
 
@@ -455,9 +476,11 @@ class SparkTorch(Estimator, _SparkTorchParams, PythonStagePersistence,
                 rank=rank, world_size=n_hosts, coordinator_host=gang_host,
                 gang_port=gang_port, dist_port=dist_port,
                 start_coordinator=False, backend=backend,
+                ft_policy=ft_policy,
             )
             try:
                 result = train_distributed_multihost(torch_obj, x, local_y=y,
+                                                     resume=resume,
                                                      **train_kwargs)
                 # Every rank holds the same replica; rank 0's is kept
                 # (the reference keeps collect()[0], distributed.py:267-273).
@@ -470,8 +493,24 @@ class SparkTorch(Estimator, _SparkTorchParams, PythonStagePersistence,
                 if dist.is_initialized():
                     dist.destroy_process_group()
 
+        def run_stage(attempt: int = 0, resume: bool = False):
+            if attempt > 0:
+                # A fresh generation for the new stage's ranks, whether
+                # or not the coordinator saw the old ones die.
+                coord.resize(n_hosts)
+            return rdd.barrier().mapPartitions(
+                make_run_host(resume, _free_port(gang_host))).collect()
+
         try:
-            out = rdd.barrier().mapPartitions(run_host).collect()
+            if supervise:
+                from sparktorch_tpu_torch.ft import supervise_run
+
+                out = supervise_run(run_stage, policy=ft_policy,
+                                    checkpoint_dir=train_kwargs[
+                                        "checkpoint_dir"],
+                                    name="spark_barrier_stage")
+            else:
+                out = run_stage()
         finally:
             coord.stop()
         if not out:

@@ -47,10 +47,16 @@ range (``profile_dir`` captures a ``torch.profiler`` trace of the
 rounds). The chaos sites ``worker.step``, ``data.batch`` and
 ``train.rank`` fire before each window's pull.
 
-Not ported yet (ROADMAP, Queue 1): ``supervise``/``ft_policy`` and
-``run_hogwild_worker``'s heartbeat and cancel context (the ft
-supervisor, item 9 step 3), and the goodput and health hooks (item 10,
-step 4).
+``supervise=True`` (or an ``ft_policy``) runs each round's workers
+under the ft :class:`~sparktorch_tpu_torch.ft.supervisor.Supervisor`:
+a dead worker restarts under the policy's backoff and budget and
+rejoins by pulling the current server version, and a cancelled one
+(a straggler or stall preemption) stops at its next window with
+:class:`~sparktorch_tpu_torch.ft.supervisor.WorkerPreempted`. A killed
+attempt flushes no records, so the rerun keeps the count exact.
+
+Not ported yet (ROADMAP, Queue 1, item 10, step 4): the goodput and
+health hooks.
 """
 
 from __future__ import annotations
@@ -72,7 +78,6 @@ import torch
 
 from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.inference import _resolve_device
-from sparktorch_tpu_torch.ml.estimator import _not_ported
 from sparktorch_tpu_torch.models.transformer import collect_moe
 from sparktorch_tpu_torch.obs import get_logger, get_telemetry
 from sparktorch_tpu_torch.net.transport import (
@@ -308,13 +313,18 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
                  errors: List[BaseException], push_every: int = 1,
                  eval_loss=None, grad_windows=None,
                  phase_out: Optional[List[dict]] = None, telemetry=None,
-                 phase_histograms: bool = True):
+                 phase_histograms: bool = True, cancel=None):
     """One worker's round: pull → gradient (or a window of them) →
     push, ``iters`` times. Losses stay on the device until the round
     ends, unless ``verbose`` or the early stop needs one now. The
     worker's counters go to ``telemetry`` (default: the process-global
     bus) once per window; with ``phase_out`` and ``phase_histograms``
-    its round's phase seconds are mirrored there too."""
+    its round's phase seconds are mirrored there too.
+
+    ``cancel`` (an object with ``is_set()``, the supervisor's kill
+    event) is polled between windows: once set, the worker stops with
+    :class:`~sparktorch_tpu_torch.ft.supervisor.WorkerPreempted` and
+    flushes no records."""
     tele = telemetry or get_telemetry()
     labels = {"worker": worker_id}
     dev = shard.x.device
@@ -328,6 +338,11 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
         t_place = t_dispatch = 0.0
         t_loop0 = time.perf_counter()
         while it < iters:
+            if cancel is not None and cancel.is_set():
+                from sparktorch_tpu_torch.ft.supervisor import WorkerPreempted
+
+                raise WorkerPreempted(
+                    f"worker {worker_id} preempted at iter {it}")
             # The chaos sites, before the pull (this loop's fence): a
             # seeded kill lands in ``errors`` like any real failure.
             _chaos.fire("worker.step", worker=worker_id, step=it)
@@ -415,6 +430,34 @@ def _budget(phase_stats: List[dict]) -> dict:
     return tot
 
 
+def _run_supervised_round(worker_args, round_idx: int, ft_policy, tele,
+                          push_every: int, eval_loss, grad_windows,
+                          phase_stats: List[dict]) -> dict:
+    """One round's workers as supervised threads; returns the
+    supervisor's summary and raises ``WorkerFailed`` past the budget."""
+    from sparktorch_tpu_torch.ft.supervisor import Supervisor, ThreadWorker
+
+    sup = Supervisor(policy=ft_policy, telemetry=tele,
+                     name=f"hogwild_round{round_idx}")
+
+    def make_start(args):
+        def target(cancel):
+            # A fresh error list per attempt: raising its failure hands
+            # it to the handle; ``cancel`` is the handle's kill event.
+            attempt_errors: List[BaseException] = []
+            _worker_loop(*args, attempt_errors, push_every, eval_loss,
+                         grad_windows, phase_stats, tele, cancel=cancel)
+            if attempt_errors:
+                raise attempt_errors[0]
+
+        return lambda attempt: ThreadWorker(f"w{args[0]}", target,
+                                            pass_cancel=True)
+
+    for args in worker_args:
+        sup.add(str(args[0]), make_start(args), rank=args[0])
+    return sup.run()
+
+
 def final_result(server: ParameterServer, spec: ModelSpec,
                  template: torch.nn.Module):
     """``(spec, state_dict)`` once the server's pending applies are
@@ -483,10 +526,19 @@ def train_async(
     the fleet's gateway. The summary's ``fleet`` holds the shard count,
     the ring version and this run's shard restarts. A fleet runs the
     optimizer per leaf; see :mod:`~sparktorch_tpu_torch.serve.fleet`.
+
+    ``supervise=True`` (or any ``ft_policy``) runs each round's workers
+    as :class:`~sparktorch_tpu_torch.ft.supervisor.ThreadWorker` handles
+    under a :class:`~sparktorch_tpu_torch.ft.supervisor.Supervisor`: a
+    dead worker restarts under the policy and rejoins by pulling the
+    current server version; a killed attempt flushes no records, so the
+    rerun of the round's assignment keeps the record count exact.
+    Recovery shows as ``ft_restarts_total{worker=}`` and
+    ``ft_recovery_latency_s`` on the bus and as the summary's ``ft``
+    (each round's supervisor summary and ``restarts_total``).
     """
-    if supervise or ft_policy is not None:
-        raise _not_ported("train_async supervise/ft_policy",
-                          "the ft supervisor, item 9 step 3")
+    if ft_policy is not None:
+        supervise = True
     if shards and shards > 1 and transport != "http":
         raise ValueError("shards>1 requires transport='http' (the fleet "
                          "is an HTTP tier; local workers need no fleet)")
@@ -545,8 +597,11 @@ def train_async(
                                             compress=compress)
                               for _ in range(n_workers)]
             else:
+                grace_s = float(getattr(ft_policy, "rejoin_grace_s", 30.0)
+                                or 30.0)
                 transports = [ShardedTransport(fleet, quant=push_quant,
                                                pull_quant=pull_quant,
+                                               grace_s=grace_s,
                                                telemetry=tele,
                                                run_id=tele.run_id)
                               for _ in range(n_workers)]
@@ -587,6 +642,7 @@ def train_async(
         records: List[dict] = []
         errors: List[BaseException] = []
         phase_stats: List[dict] = []
+        ft_summaries: List[dict] = []
         x, y, w = (a.numpy() for a in train_batch)
         shuffle_rng = np.random.default_rng(seed + 1)
         # Exited in the outer finally, so a failed round still writes
@@ -602,23 +658,31 @@ def train_async(
             parts = zip(np.array_split(x, n_workers),
                         np.array_split(y, n_workers),
                         np.array_split(w, n_workers))
-            threads = []
             t_round0 = time.perf_counter()
+            worker_args = []
             for i, (xs, ys, ws) in enumerate(parts):
                 shard = DataBatch(torch.from_numpy(xs), torch.from_numpy(ys),
                                   torch.from_numpy(ws)).to(worker_devices[i])
-                t = threading.Thread(
-                    target=_worker_loop,
-                    args=(i, transports[i], modules[i], grad_step, shard,
-                          val_shards[i], iters, verbose, early_stop,
-                          seed + round_idx * n_workers, records, errors,
-                          push_every, eval_loss, grad_windows, phase_stats,
-                          tele),
-                    daemon=True)
-                threads.append(t)
-                t.start()
-            for t in threads:
-                t.join()
+                worker_args.append(
+                    (i, transports[i], modules[i], grad_step, shard,
+                     val_shards[i], iters, verbose, early_stop,
+                     seed + round_idx * n_workers, records))
+            if supervise:
+                ft_summaries.append(_run_supervised_round(
+                    worker_args, round_idx, ft_policy, tele, push_every,
+                    eval_loss, grad_windows, phase_stats))
+            else:
+                threads = []
+                for args in worker_args:
+                    t = threading.Thread(
+                        target=_worker_loop,
+                        args=(*args, errors, push_every, eval_loss,
+                              grad_windows, phase_stats, tele),
+                        daemon=True)
+                    threads.append(t)
+                    t.start()
+                for t in threads:
+                    t.join()
             tele.observe("hogwild.round_s", time.perf_counter() - t_round0)
             tele.counter("hogwild.rounds")
             if errors:
@@ -639,6 +703,13 @@ def train_async(
                 "shards": len(fleet.urls()),
                 "ring_version": fleet.ring_version,
                 "shard_restarts": int(restarts_total() - restarts_baseline),
+            }
+        if ft_summaries:
+            summary = dict(summary or {})
+            summary["ft"] = {
+                "rounds": ft_summaries,
+                "restarts_total": sum(sum(r.get("restarts", {}).values())
+                                      for r in ft_summaries),
             }
         return TrainResult(params=state, metrics=records, spec=spec,
                            summary=summary)
@@ -680,18 +751,35 @@ def run_hogwild_worker(torch_obj, url: str, data, labels=None,
     and ``quant`` as in :func:`train_async`. The step records are
     written to ``records_path`` at completion as JSON lines, atomically
     (a temporary file, then ``os.replace``): a killed attempt publishes
-    nothing. The worker records into ``ctx.telemetry`` (default: the
-    process-global bus); a ``ctx`` carrying a heartbeat or a cancel
-    event is not ported yet and raises.
+    nothing, so a supervisor-restarted rerun keeps counts exact. The
+    worker records into ``ctx.telemetry`` (default: the process-global
+    bus); ``ctx.cancel`` preempts it between windows
+    (:class:`~sparktorch_tpu_torch.ft.supervisor.WorkerPreempted`), and
+    ``ctx.heartbeat`` carries its iteration count for the skew and stall
+    policies and the ``ctl.process`` chaos site. This is the
+    ``hogwild_worker`` kind of the ctl worker
+    (:mod:`sparktorch_tpu_torch.ctl.worker`).
 
     Returns the worker's summary: its losses and pulled versions, the
     examples it trained on, its pushes and its loop's seconds."""
-    if ctx is not None:
-        for attr in ("heartbeat", "cancel"):
-            if getattr(ctx, attr, None) is not None:
-                raise _not_ported(f"run_hogwild_worker's ctx.{attr}",
-                                  "the ft supervisor and ctl/, item 9")
     tele = getattr(ctx, "telemetry", None) or get_telemetry()
+    cancel = getattr(ctx, "cancel", None)
+    hb = getattr(ctx, "heartbeat", None)
+    if hb is not None:
+        # The loop polls cancel once per window: publish the worker's
+        # iteration count on the heartbeat there. The real event is
+        # bound under its own name before ``cancel`` is rebound.
+        inner_cancel = cancel
+        iters_key = f"hogwild.iters{{worker={worker_id}}}"
+
+        class _HbCancel:
+            def is_set(self) -> bool:
+                hb.notify_step(int(tele.snapshot().get("counters", {})
+                                   .get(iters_key, 0)))
+                return (inner_cancel.is_set()
+                        if inner_cancel is not None else False)
+
+        cancel = _HbCancel()
     if wire not in ("binary", "dill"):
         raise ValueError(f"unknown wire {wire!r}; use 'binary' or 'dill'")
     if isinstance(data, str):
@@ -730,7 +818,7 @@ def run_hogwild_worker(torch_obj, url: str, data, labels=None,
                      else None,
                      make_grad_windows(loss_fn, mini_batch, push_every,
                                        iters),
-                     phases, tele, phase_histograms=False)
+                     phases, tele, phase_histograms=False, cancel=cancel)
     finally:
         close = getattr(transport, "close", None)
         if close is not None:

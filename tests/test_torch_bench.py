@@ -135,7 +135,7 @@ def test_config_choices_and_unported_options():
         "mnist_mlp_sync", "mnist_cnn_sync", "lazy_cnn_sync",
         "resnet18_hogwild", "hogwild_wire", "bert_dp",
         "resnet50_inference", "long_context_lm", "moe_lm", "serve_online",
-        "hogwild_ps_fleet"}
+        "hogwild_ps_fleet", "hogwild_chaos", "hogwild_chaos_soak"}
     with pytest.raises(SystemExit):
         bench.main(["--config", "moe_a2a"])  # needs an ep mesh axis
     # --telemetry-dump is ported: without a card the run raises first.
@@ -143,6 +143,30 @@ def test_config_choices_and_unported_options():
         bench.main(["--config", "mnist_mlp_sync", "--telemetry-dump",
                     "x.jsonl"])
     assert bench.mfu_honest(98.9) == pytest.approx(0.1)
+    # One division and one peak for a bench record and the ledger's MFU.
+    from sparktorch_tpu_torch.obs import goodput
+    from sparktorch_tpu_torch.ops.roofline import PEAK_FLOPS
+
+    assert bench.mfu_honest is goodput.mfu_honest
+    assert bench.H100_BF16_PEAK_TFLOPS == goodput.H100_BF16_PEAK_TFLOPS \
+        == PEAK_FLOPS["bfloat16"] / 1e12
+
+
+@pytest.mark.parametrize("config", ["hogwild_chaos", "hogwild_chaos_soak"])
+def test_hogwild_chaos_gates_hold_on_the_cpu(config):
+    # The JAX configs' sizes, seeds and gates at full size on one CPU
+    # worker; a gate that fails raises inside the run.
+    rec = bench.CONFIGS[config](device="cpu")
+    jax_keys, omitted, added = bench.RECORD_KEYS[config]
+    assert set(rec) == (jax_keys - omitted) | added
+    assert rec["config"] == config and rec["n_chips"] == 1
+    if config == "hogwild_chaos":
+        assert rec["restarts"] == 1 and rec["victim_worker"] == 0
+        assert 0 < rec["recovery_latency_s"] <= 10.0
+    else:
+        assert rec["restarts"] == rec["kills"] + rec["freezes"]
+        assert rec["stall_preemptions"] == rec["freezes"] == 2
+        assert rec["records_exact"] is True
 
 
 def test_hogwild_ps_fleet_byte_and_kill_gates_hold_on_the_cpu():

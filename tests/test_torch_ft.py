@@ -141,12 +141,17 @@ def test_poison_batch_returns_a_new_batch():
 
 
 def test_ft_exports_all_but_the_supervisor():
-    supervisor = {"Supervisor", "ThreadWorker", "ProcessWorker",
-                  "WorkerFailed", "WorkerPreempted", "supervise_run"}
-    assert set(ft.__all__) == set(jax_ft.__all__) - supervisor
-    for name in supervisor:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            getattr(ft, name)
+    # The supervisor is ported: ft exports every name the JAX package's
+    # does, the supervisor's lazily, as the JAX ``ft/__init__`` does.
+    from sparktorch_tpu_torch.ft import supervisor
+
+    names = {"Supervisor", "ThreadWorker", "ProcessWorker",
+             "WorkerFailed", "WorkerPreempted", "supervise_run"}
+    assert set(ft.__all__) == set(jax_ft.__all__)
+    for name in names:
+        assert getattr(ft, name) is getattr(supervisor, name)
+        assert getattr(jax_ft, name).__name__ == name
+    assert issubclass(ft.WorkerFailed, RuntimeError)
     with pytest.raises(AttributeError):
         ft.no_such_name
     assert ft.chaos is chaos

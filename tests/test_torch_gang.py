@@ -178,15 +178,94 @@ def test_trainer_aborts_when_peer_host_dies():
     launch.check_gang()  # no active gang: a no-op
 
 
+def _ft_rank(rank, world, coord_port, dist_port, queue):
+    """One rank of a fault-tolerant bring-up with the control route:
+    publish the exporter's URL, then wait for the ``drain`` verb."""
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    from sparktorch_tpu_torch.ft import FtPolicy, RestartPolicy
+
+    os.environ["SPARK_LOCAL_IP"] = "127.0.0.1"
+    worker = None
+    try:
+        _, worker = launch.bringup_multihost(
+            rank, world, "127.0.0.1", gang_port=coord_port,
+            dist_port=dist_port, start_coordinator=False, backend="gloo",
+            ft_policy=FtPolicy(restart=RestartPolicy(
+                max_restarts=20, backoff_base_s=0.05, backoff_max_s=0.2)),
+            controller=True)
+        queue.put((rank, True, worker.ctl_exporter.url))
+        assert worker.drain_requested.wait(60)
+        dist.barrier()
+        queue.put((rank, True, "drained"))
+    except Exception:
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if worker is not None:
+            worker.ctl_exporter.stop()
+            worker.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def test_bringup_of_a_world_of_one_and_the_unported_options():
+    # A world of one short-circuits every option; a world of two with
+    # ft_policy and controller registers under the policy's backoff
+    # (here before the coordinator exists) and serves the control route,
+    # which each package's client drives.
+    import multiprocessing as mp
+
+    from sparktorch_tpu.ctl import ctl_request as jax_ctl_request
+    from sparktorch_tpu_torch.ctl import ctl_request
+    from sparktorch_tpu_torch.ft import FtPolicy
     from sparktorch_tpu_torch.obs import Telemetry
 
     assert launch.bringup_multihost(0, 1) == (None, None)
-    # telemetry= is ported: a world of one still short-circuits.
-    assert launch.bringup_multihost(0, 1, telemetry=Telemetry()) == (None,
-                                                                      None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        launch.bringup_multihost(0, 2, ft_policy=object())
+    assert launch.bringup_multihost(0, 1, telemetry=Telemetry(),
+                                    ft_policy=FtPolicy(),
+                                    controller=True) == (None, None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord_port = s.getsockname()[1]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        dist_port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_ft_rank,
+                         args=(r, 2, coord_port, dist_port, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    coord = None
+    try:
+        time.sleep(0.3)  # the ranks dial first and retry
+        coord = GangCoordinator(world_size=2, port=coord_port,
+                                rejoin_grace_ms=30_000)
+        urls = {}
+        for _ in range(2):
+            rank, ok, payload = queue.get(timeout=90)
+            assert ok, payload
+            urls[rank] = payload
+        for rank, url in urls.items():
+            for request in (ctl_request, jax_ctl_request):
+                pong = request(url, "ping")["result"]
+                assert pong["rank"] == rank
+                assert pong["addr"] == f"127.0.0.1:{dist_port}"
+            assert request(url, "drain")["result"] is True
+        done = [queue.get(timeout=60) for _ in range(2)]
+        assert sorted(done) == [(0, True, "drained"), (1, True, "drained")]
+        assert coord.rejoin_grace_ms == 30_000 and coord.registered == 2
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+        if coord is not None:
+            coord.stop()
 
 
 def test_a_failed_build_raises(tmp_path, monkeypatch):

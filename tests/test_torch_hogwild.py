@@ -373,10 +373,32 @@ def test_estimator_hogwild_mode():
     (dict(ft_policy=object()), "supervisor"),
 ])
 def test_unported_settings_name_the_roadmap(setting, match):
-    _, obj, _ = _pair("mlp")
+    # Supervision is ported: either setting runs the round's workers
+    # under the ft supervisor beside the JAX package's, with the same
+    # records and parameters and an empty restart table.
+    jax_obj, obj, module = _pair("mlp")
     x, y = _data((48,))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
-        train_async(obj, x, labels=y, iters=1, device="cpu", **setting)
+    jax_setting = setting
+    if "ft_policy" in setting:
+        setting = dict(ft_policy=port.ft.FtPolicy(seed=1))
+        jax_setting = dict(ft_policy=jax_pkg.ft.FtPolicy(seed=1))
+    want = jax_train_async(jax_obj, x, labels=y, iters=3, partitions=1,
+                           **jax_setting)
+    got = train_async(obj, x, labels=y, iters=3, partitions=1, device="cpu",
+                      **setting)
+    for result in (got, want):
+        ft_summary = result.summary["ft"]
+        assert ft_summary["restarts_total"] == 0
+        assert [(r["workers"], r["restarts"], r["failed"])
+                for r in ft_summary["rounds"]] == [(1, {}, [])]
+    assert match == "supervisor"
+    np.testing.assert_allclose([r["loss"] for r in got.metrics],
+                               [r["loss"] for r in want.metrics],
+                               atol=1e-5, rtol=1e-5)
+    expected = state_dict_from_flax(_flax_state(want), module)
+    for key, value in got.params.items():
+        np.testing.assert_allclose(value.numpy(), expected[key].numpy(),
+                                   atol=2e-5, rtol=2e-5, err_msg=key)
 
 
 # ---------------------------------------------------------------------------

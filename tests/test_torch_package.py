@@ -39,7 +39,9 @@ def test_import_pulls_in_no_jax():
         "sparktorch_tpu_torch.ops.roofline, sparktorch_tpu_torch.native.rowpack, "
         "sparktorch_tpu_torch.obs, sparktorch_tpu_torch.ft, "
         "sparktorch_tpu_torch.serve.infer, sparktorch_tpu_torch.serve.router, "
-        "sparktorch_tpu_torch.serve.fleet, sparktorch_tpu_torch.net.sharded\n"
+        "sparktorch_tpu_torch.serve.fleet, sparktorch_tpu_torch.net.sharded, "
+        "sparktorch_tpu_torch.ctl, sparktorch_tpu_torch.ctl.worker, "
+        "sparktorch_tpu_torch.ft.supervisor\n"
         "from sparktorch_tpu_torch import SparkTorch\n"
         "from sparktorch_tpu_torch.spark import localsession\n"
         "assert localsession.install()\n"
@@ -60,12 +62,21 @@ def test_import_pulls_in_no_jax():
     "sparktorch_tpu_torch.obs.log", "sparktorch_tpu_torch.obs.prom",
     "sparktorch_tpu_torch.utils.tracing", "sparktorch_tpu_torch.utils.metrics",
     "sparktorch_tpu_torch.serve.fleet", "sparktorch_tpu_torch.net.sharded",
+    "sparktorch_tpu_torch.ctl,sparktorch_tpu_torch.ctl.worker",
+    "sparktorch_tpu_torch.ft.supervisor",
+    "sparktorch_tpu_torch.obs.history,sparktorch_tpu_torch.obs.alerts,"
+    "sparktorch_tpu_torch.obs.skew,sparktorch_tpu_torch.obs.goodput,"
+    "sparktorch_tpu_torch.obs.blackbox,sparktorch_tpu_torch.obs.profile,"
+    "sparktorch_tpu_torch.obs.collector",
 ])
 def test_obs_and_tracing_modules_import_no_jax(module):
     # The copies of the JAX package's obs/log.py and obs/prom.py, the
-    # torch.profiler port of utils/tracing.py and the sharded fleet's
-    # two halves, each on its own.
-    code = (f"import sys, importlib; importlib.import_module({module!r})\n"
+    # torch.profiler port of utils/tracing.py, the sharded fleet's two
+    # halves, the control plane, the supervisor and the obs modules they
+    # import, each group on its own.
+    code = ("import sys, importlib\n"
+            f"for name in {module.split(',')!r}:\n"
+            "    importlib.import_module(name)\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")

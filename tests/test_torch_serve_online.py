@@ -649,8 +649,42 @@ def test_unported_paths_raise_and_name_their_item(trained):
         rep.stop()
     with pytest.raises(NotImplementedError, match="item 10"):
         Router(collector=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_replica_server(_clf_payload(), ctx=object(), device="cpu")
+    # The ctl worker context is ported: beside the JAX entry, a ctx whose
+    # cancel is already set returns the same document at once, and the
+    # stack profiler is armed on the context's bus.
+    from sparktorch_tpu_torch.obs import profile
+
+    ctx = types.SimpleNamespace(telemetry=Telemetry(), heartbeat=None,
+                                cancel=threading.Event())
+    ctx.cancel.set()
+    jax_ctx = types.SimpleNamespace(telemetry=JaxTelemetry(), heartbeat=None,
+                                    cancel=ctx.cancel)
+    prev = profile.install(None)
+    try:
+        got = run_replica_server(_clf_payload(), replica_id="3", ctx=ctx,
+                                 device="cpu")
+        armed = profile.active()
+    finally:
+        started = profile.install(prev)
+        if started is not None and started is not prev:
+            started.stop()
+    from sparktorch_tpu.obs import profile as jax_profile
+
+    jax_prev = jax_profile.install(None)
+    try:
+        want = jax_infer.run_replica_server(jax_serialize(
+            JaxClassificationNet(n_classes=2), criterion="cross_entropy",
+            optimizer="sgd", optimizer_params={"lr": 0.1},
+            input_shape=(10,)), replica_id="3", ctx=jax_ctx)
+    finally:
+        started = jax_profile.install(jax_prev)
+        if started is not None and started is not jax_prev:
+            started.stop()
+    assert got == want == {"replica_id": "3", "batches": 0,
+                           "params_version": 0}
+    assert (armed is not None) == profile.enabled()
+    if armed is not None:
+        assert armed.telemetry is ctx.telemetry
     with pytest.raises(NotImplementedError, match="item 9"):
         _replica(trained, tele, mesh=types.SimpleNamespace(dp=2))
 

@@ -13,6 +13,7 @@ the test functions only.
 
 import contextlib
 import json
+import os
 import sys
 import threading
 import types
@@ -353,20 +354,96 @@ def test_run_hogwild_worker_against_the_server(tmp_path):
     for key, value in params.items():
         np.testing.assert_allclose(value.numpy(), want.params[key].numpy(),
                                    atol=1e-6, rtol=1e-6, err_msg=key)
-    # ctx.telemetry is ported (tests/test_torch_obs_hooks.py); the
-    # heartbeat and cancel contexts wait for the ft supervisor.
-    for ctx in (types.SimpleNamespace(heartbeat=object()),
-                types.SimpleNamespace(cancel=threading.Event())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_hogwild_worker(obj, "http://127.0.0.1:1", (x, y), ctx=ctx,
+    # The ctl context: its heartbeat carries the iteration count, and a
+    # set cancel event preempts the worker before its first window.
+    from sparktorch_tpu_torch.ft import WorkerPreempted
+    from sparktorch_tpu_torch.obs import (
+        HeartbeatEmitter,
+        Telemetry,
+        gang_report,
+    )
+
+    ctx = types.SimpleNamespace(
+        telemetry=Telemetry(), cancel=threading.Event(),
+        heartbeat=HeartbeatEmitter(str(tmp_path / "hb"), rank=0))
+    server = ParameterServer(obj, window_len=1, device="cpu")
+    http = ParamServerHttp(server).start()
+    try:
+        run_hogwild_worker(obj, http.url, (x, y), iters=3, ctx=ctx,
+                           device="cpu")
+        assert gang_report(str(tmp_path / "hb"))["ranks"][0]["step"] == 2
+        ctx.cancel.set()
+        with pytest.raises(WorkerPreempted, match="iter 0"):
+            run_hogwild_worker(obj, http.url, (x, y), iters=3, ctx=ctx,
                                device="cpu")
+    finally:
+        http.stop()
+        server.stop()
+    assert server.applied_updates == 3
 
 
-def test_supervise_raises(spark):
-    x, y = _data(n=4)
-    est = _estimator(_port_obj(), deployMode="barrier", supervise=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        est.fit(_frame(spark, x, y))
+# The supervised barrier fit's fault: rank 0's executor, on importing this
+# module to unpickle the model class, installs a seeded kill when the
+# marker file named by this variable exists, and removes the marker, so
+# only the first stage's rank 0 dies.
+_KILL_MARKER_ENV = "SPARKTORCH_TORCH_TEST_KILL_MARKER"
+
+
+def _arm_executor_kill():
+    marker = os.environ.get(_KILL_MARKER_ENV)
+    ctx = localsession.BarrierTaskContext._current
+    if not marker or ctx is None or ctx.partitionId() != 0:
+        return
+    try:
+        with open(marker) as f:
+            step = int(f.read())
+        os.unlink(marker)
+    except OSError:
+        return
+    from sparktorch_tpu_torch.ft import chaos
+
+    chaos.install(chaos.ChaosInjector(chaos.ChaosConfig(
+        kill_worker_at={0: step})))
+
+
+_arm_executor_kill()
+
+
+class _KillableMLP(simple.MnistMLP):
+    """A model class of this module, so an executor imports it."""
+
+
+def test_supervise_raises(spark, tmp_path, monkeypatch):
+    # Supervision is ported: a barrier stage whose rank 0 is killed at
+    # the trainer's chaos sites after the step-4 snapshot runs again,
+    # resumes from that snapshot, and ends where an unkilled fit of the
+    # same steps ends (a resumed fit runs ``iters`` steps past its
+    # snapshot: 4 + 6 here).
+    x, y = _data(n=32)
+    torch.manual_seed(0)
+    obj = port.serialize_torch_obj(
+        _KillableMLP(hidden=(16,), n_classes=CLASSES, in_features=FEATURES),
+        criterion="cross_entropy", optimizer="sgd",
+        optimizer_params={"lr": 0.1}, input_shape=(FEATURES,))
+    frame = _frame(spark, x, y)
+    # The unkilled fit: full batches, so the driver's in-process fit is
+    # the barrier fit's arithmetic.
+    want = _estimator(obj, iters=10).fit(frame).getPytorchModel()["params"]
+    marker = tmp_path / "kill_at"
+    marker.write_text("4")
+    monkeypatch.setenv(_KILL_MARKER_ENV, str(marker))
+    est = _estimator(obj, iters=6, deployMode="barrier", partitions=2,
+                     checkpointDir=str(tmp_path / "b"), checkpointEvery=2,
+                     supervise=True, ftMaxRestarts=2)
+    got = est.fit(frame).getPytorchModel()["params"]
+    assert not marker.exists()  # the first stage's rank 0 took the kill
+    from sparktorch_tpu_torch.utils.checkpoint import latest_step
+
+    assert latest_step(str(tmp_path / "b")) == 10
+    assert len(est._last_metrics) == 6
+    for key, value in got.items():
+        np.testing.assert_allclose(value.numpy(), want[key].numpy(),
+                                   atol=1e-5, rtol=1e-5, err_msg=key)
 
 
 def test_an_executor_imports_no_jax(spark):

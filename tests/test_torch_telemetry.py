@@ -211,12 +211,17 @@ def test_heartbeat_freeze_under_chaos_matches_jax(tmp_path):
 
 
 def test_obs_exports_the_core_only():
+    # The core, and the ported modules the supervisor and ctl/ import.
     assert set(obs.__all__) == {
         "Span", "Telemetry", "format_key", "get_telemetry", "set_telemetry",
         "wall_ts", "JsonlSink", "read_jsonl", "write_jsonl",
         "HEARTBEAT_DIR_ENV", "HeartbeatEmitter", "gang_report",
         "read_heartbeats", "get_logger", "PROMETHEUS_CONTENT_TYPE",
-        "parse_prometheus", "render_prometheus"}
+        "parse_prometheus", "render_prometheus", "MetricsHistory",
+        "AlertManager", "AlertRule", "FlightRecorder", "attach_recorder",
+        "collect_postmortem", "read_postmortem", "GoodputLedger",
+        "LedgerSpan", "mfu_honest", "ScrapeError", "mint_run_id", "run_tag",
+        "scrape_json", "scrape_text", "snapshot_histogram"}
     assert set(obs.__all__) < set(jax_obs.__all__)
     assert obs.HEARTBEAT_DIR_ENV == jax_obs.HEARTBEAT_DIR_ENV
     assert json.loads(json.dumps(obs.Telemetry().snapshot()))["counters"] == {}
