@@ -211,6 +211,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -259,6 +260,13 @@ SLICE_ROWS, SLICE_SEQ, CHUNK = 2000, 128, 1024
 # The traced LM fit (train_lm_obs_phase): steps under torch.profiler, one
 # a chunk, so each step is one train_step range.
 TRACE_STEPS = 3
+
+# The health phase: phase 5's LM (its payload) on HEALTH_ROWS rows of
+# HEALTH_SEQ ids; the drill poisons the batch at step HEALTH_POISON of
+# HEALTH_ITERS; the lane-on/off timing runs HEALTH_TIMING_ITERS steps a
+# fit, the first HEALTH_WARM of them left out of the medians.
+HEALTH_ROWS, HEALTH_SEQ, HEALTH_ITERS, HEALTH_POISON = 8, 2048, 8, 4
+HEALTH_TIMING_ITERS, HEALTH_WARM = 16, 4
 
 # The JAX package's bench_long_context_lm (sparktorch_tpu/bench.py).
 LM = dict(vocab_size=32768, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
@@ -312,7 +320,7 @@ MOE_OPTIMIZERS = [("adafactor", {}), ("lamb", {"lr": 1e-3}),
                   ("lion", {"lr": 1e-4}),
                   ("rmsprop", {"lr": 1e-3, "centered": True})]
 # Keyword arguments of bench configs run at a cut depth (the JAX bench's
-# in parentheses): resnet18_hogwild 2 runs of 128 iterations and 2 slope
+# in parentheses): resnet18_hogwild 2 runs of 64 iterations and 2 slope
 # samples of its sync twin (5 of 1,024, 5; the hogwild phase's legs
 # (a)-(d) hold that path at their own depths); mnist_mlp_sync,
 # mnist_cnn_sync, lazy_cnn_sync, bert_dp, long_context_lm and moe_lm 2
@@ -322,7 +330,7 @@ MOE_OPTIMIZERS = [("adafactor", {}), ("lamb", {"lr": 1e-3}),
 # single/fleet pairs (3), run by the fleet phase.
 BENCH_SPAN_S = 0.8
 _SYNC_DEPTH = dict(repeats=2)
-BENCH_DEPTH = {"resnet18_hogwild": dict(iters=128, **_SYNC_DEPTH),
+BENCH_DEPTH = {"resnet18_hogwild": dict(iters=64, **_SYNC_DEPTH),
                "mnist_mlp_sync": _SYNC_DEPTH,
                "mnist_cnn_sync": _SYNC_DEPTH,
                "lazy_cnn_sync": _SYNC_DEPTH,
@@ -1045,6 +1053,48 @@ def step_kernel_launches(path):
     return len(ranges), inside, outside
 
 
+def trace_analysis_check(tele, path, n, inside):
+    """``profile_run``'s analysis of the traced fit (``obs/xprof.py``,
+    published on the run's bus as the ``xprof`` section): one step per
+    annotated step, each step's compute within its wall, no comm on one
+    card, and the hand kernels' launches by family (a full analysis of
+    the same file, every op kept) equal to :func:`step_kernel_launches`'
+    count inside the ``train_step`` ranges."""
+    from sparktorch_tpu_torch.obs import xprof
+
+    xp = tele.get_section("xprof")
+    annotated = tele.counter_value("tracing.annotated_steps")
+    if xp is None or xp["n_steps"] != annotated or annotated != n:
+        raise AssertionError(f"train LM traced: analysis "
+                             f"{xp and xp['n_steps']} steps, {annotated} "
+                             f"annotated, {n} run")
+    steps = xp["steps"]
+    if any(st["compute_s"] > st["wall_s"] for st in steps) \
+            or xp["comm_s"] != 0:
+        raise AssertionError(f"train LM traced: analysis steps {steps}")
+    t0 = time.perf_counter()
+    full = xprof.analyze_trace(path, top_k=10 ** 6)
+    analyse_s = time.perf_counter() - t0
+    by_family = dict.fromkeys(KERNELS, 0)
+    for op in full.top_ops:
+        key = trace_kernel(op["name"])
+        if key is not None:
+            by_family[key] += op["count"]
+    if by_family != inside:
+        raise AssertionError(f"train LM traced: analysis launches "
+                             f"{by_family}, step_kernel_launches {inside}")
+    log(f"train LM traced analysis: {xp['n_steps']} steps (device "
+        f"projections of train_step), wall "
+        f"{[round(1e3 * st['wall_s'], 2) for st in steps]} ms, compute "
+        f"{[round(1e3 * st['compute_s'], 2) for st in steps]} ms, comm "
+        f"{xp['comm_s']} s; launches by family {by_family}; "
+        f"{full.n_device_events} device events, analysed in "
+        f"{analyse_s:.2f} s")
+    return dict(n_steps=xp["n_steps"], wall_s=[st["wall_s"] for st in steps],
+                compute_s=[st["compute_s"] for st in steps],
+                comm_s=xp["comm_s"], launches=by_family)
+
+
 def train_lm_obs_phase(torch, payload, ids):
     """Phase 5's LM through ``train_distributed`` with the obs and chaos
     hooks: (a) TRACE_STEPS steps, one a chunk, with a fresh
@@ -1058,7 +1108,11 @@ def train_lm_obs_phase(torch, payload, ids):
     from sparktorch_tpu_torch.ft import ChaosConfig, ChaosKill, inject
     from sparktorch_tpu_torch.obs import Telemetry
     from sparktorch_tpu_torch.train.sync import train_distributed
+    from sparktorch_tpu_torch.utils.serde import deserialize_model
 
+    # One unpickling of the 0.2 GB payload for the phase's fits (each fit
+    # copies the spec's module).
+    payload = deserialize_model(payload)
     x, y = ids[:, :-1].astype(np.float32), ids[:, 1:]
     n = TRACE_STEPS
     common = dict(labels=y, steps_per_call=1, device="cuda")
@@ -1080,6 +1134,7 @@ def train_lm_obs_phase(torch, payload, ids):
     t0 = time.perf_counter()
     n_ranges, inside, outside = step_kernel_launches(path)
     parse_s = time.perf_counter() - t0
+    analysis = trace_analysis_check(tele, path, n, inside)
     shutil.rmtree(trace_dir)
     snap = tele.snapshot()
     annotated = snap["counters"]["tracing.annotated_steps"]
@@ -1140,8 +1195,295 @@ def train_lm_obs_phase(torch, payload, ids):
     torch.cuda.empty_cache()
     out.update(traced_losses=a.tolist(), untraced_losses=b.tolist(),
                max_loss_diff=diff, trace_mb=size_mb, ranges=n_ranges,
+               analysis=analysis,
                launches_in_ranges=inside, untraced_step_ms=step_ms,
                chaos_events=inj.events)
+    return counts, out
+
+
+def health_ids(seed):
+    ids = np.random.default_rng(seed).integers(0, LM["vocab_size"],
+                                               (HEALTH_ROWS, HEALTH_SEQ + 1))
+    return ids[:, :-1].astype(np.float32), ids[:, 1:]
+
+
+def health_replay_child(meta):
+    """``python -m sparktorch_tpu_torch.obs.replay`` (run through
+    ``runpy``, as ``-m`` runs it) started in a fresh process on the card;
+    :func:`health_replay_wait` collects it."""
+    code = ("import json, runpy, sys\n"
+            "import chip_smoke as s\n"
+            "s.reset_counts()\n"
+            "sys.argv = ['replay', sys.argv[1]]\n"
+            "rc = 0\n"
+            "try:\n"
+            "    runpy.run_module('sparktorch_tpu_torch.obs.replay',"
+            " run_name='__main__', alter_sys=True)\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "print('LAUNCHES ' + json.dumps(s.read_counts()), flush=True)\n"
+            "sys.exit(rc)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code, meta],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, time.perf_counter()
+
+
+def health_replay_wait(child):
+    """The replay child's exit code, output, launches and wall."""
+    proc, t0 = child
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    launches = next((json.loads(x[len("LAUNCHES "):])
+                     for x in stdout.splitlines()
+                     if x.startswith("LAUNCHES ")), None)
+    return proc.returncode, stdout, stderr, launches, wall
+
+
+def health_determinism(torch, spec):
+    """One LM step with the health vector twice from one state (the
+    state restored bit for bit between them): which of loss, grad norm,
+    update ratio and leaf norms come back bitwise; then a step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, whose
+    warnings name the ops without a deterministic implementation. Also
+    times the replay anchor's host copy of the state (the module's
+    ``state_dict`` and AdamW's moments)."""
+    import warnings
+
+    from sparktorch_tpu_torch.obs import health
+    from sparktorch_tpu_torch.train.step import health_buffer, train_step
+    from sparktorch_tpu_torch.train.sync import _build_trainer
+    from sparktorch_tpu_torch.utils.data import DataBatch
+
+    module, opt, loss_fn = _build_trainer(spec, spec, torch.device("cuda"))
+    x, y = health_ids(12)
+    batch = DataBatch(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(),
+                      torch.ones(len(x), device="cuda"))
+    buf = health_buffer(module)
+    train_step(module, loss_fn, opt, batch, health_buf=buf)  # AdamW state
+    torch.cuda.synchronize()
+    copy_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state = health.tree_to_host(health.trainer_state(module, opt))
+        copy_s.append(time.perf_counter() - t0)
+    nbytes = sum(a.nbytes for a in state.values())
+
+    def one():
+        m = train_step(module, loss_fn, opt, batch, health_buf=buf)
+        vals = {"loss": m.loss, "grad_norm": m.grad_norm,
+                "update_ratio": m.health.update_ratio,
+                "finite": m.health.finite}
+        out = {k: health.float_bits(float(v)) for k, v in vals.items()}
+        out["leaf_norms"] = m.health.leaf_norms.cpu().numpy().view(
+            np.uint32).tolist()
+        return out
+
+    first = one()
+    health.load_trainer_state(module, opt, state)
+    second = one()
+    equal = {k: first[k] == second[k] for k in first}
+    health.load_trainer_state(module, opt, state)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            one()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+    del module, opt, buf, batch
+    torch.cuda.empty_cache()
+    return dict(bitwise_equal=equal, nondeterministic_warnings=ops,
+                anchor_copy_s=copy_s, anchor_mb=nbytes / 1e6)
+
+
+def health_phase(torch, payload):
+    """Phase 5's LM with the health lane (``obs/health.py``) at full
+    width on HEALTH_ROWS rows of HEALTH_SEQ ids: (a) a fit poisoned at
+    step HEALTH_POISON by ``ChaosConfig(poison_batch_at=...)`` under a
+    ledger with a replay dir: the NaN sentinel at that step within 2
+    steps of the delayed fetch, the leaf table in the port's dotted
+    names, one ``health_nonfinite`` alert episode, one bundle, 8/4/4/1/1
+    launches a step; (b) the bundle replayed by ``python -m
+    sparktorch_tpu_torch.obs.replay`` in a fresh process on the card:
+    exit 0, every metric's bits equal, 8/4/4/1/1 launches a replayed
+    step; the determinism probe of :func:`health_determinism`, run while
+    the child starts; (c) the
+    LM step with the lane on and with ``SPARKTORCH_TPU_HEALTH=0``, A/B/B/A,
+    median step times; (d) the lane-on fits raise no anomaly and their
+    goodput ledgers hold ``data_wait{site=health}`` > 0, the lane-off
+    fits exactly 0."""
+    from sparktorch_tpu_torch.ft import ChaosConfig, inject
+    from sparktorch_tpu_torch.obs import (
+        AlertManager,
+        GoodputLedger,
+        MetricsHistory,
+        Telemetry,
+        health,
+    )
+    from sparktorch_tpu_torch.train.sync import train_distributed
+    from sparktorch_tpu_torch.utils.serde import deserialize_model
+
+    t_phase = time.perf_counter()
+    counts, out = {}, {}
+    # One unpickling of the 0.2 GB payload for the phase's fits (each fit
+    # copies the spec's module).
+    spec = deserialize_model(payload)
+    x, y = health_ids(11)
+    common = dict(labels=y, steps_per_call=1, device="cuda")
+
+    # (a) the drill.
+    replay_dir = os.path.join(SCRATCH, "health_replay")
+    shutil.rmtree(replay_dir, ignore_errors=True)
+    cfg = health.HealthConfig(
+        replay_dir=replay_dir, replay_max_bundles=1,
+        replay_builder="sparktorch_tpu_torch.obs.replay:lm_builder",
+        replay_builder_kwargs=dict(rows=HEALTH_ROWS, seq=HEALTH_SEQ,
+                                   lr=3e-4, max_len=LM_SEQ,
+                                   attn_impl="flash", **LM))
+    tele = Telemetry(run_id="health_drill")
+    history = MetricsHistory()
+    alerts = AlertManager(history, health.health_alert_rules(),
+                          telemetry=tele)
+    events = []
+
+    def sweep(_record=None):
+        history.append(tele.snapshot())
+        events.extend(alerts.evaluate())
+
+    ledger = health.TrainHealthLedger(rank=0, config=cfg, telemetry=tele)
+    prev = health.install(ledger)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with inject(ChaosConfig(poison_batch_at={0: HEALTH_POISON})) as inj:
+            drill = train_distributed(spec, x, iters=HEALTH_ITERS,
+                                      telemetry=tele, metrics_hook=sweep,
+                                      **common)
+    finally:
+        health.install(prev)
+    drill_s = time.perf_counter() - t0
+    sweep()
+    counts["health_drill"] = read_counts()
+    expect_counts("health drill", counts["health_drill"],
+                  lm_step_counts(HEALTH_ITERS))
+    doc = ledger.snapshot()
+    first = doc["anomalies"][0] if doc["anomalies"] else None
+    if (first is None or first["akind"] != "nonfinite"
+            or first["step"] != HEALTH_POISON
+            or not 0 <= first["detect_lag"] - cfg.fetch_lag <= 2):
+        raise AssertionError(f"health drill: first anomaly {first}, "
+                             f"chaos {inj.events}")
+    losses = [r["loss"] for r in drill.metrics]
+    if not (all(np.isfinite(losses[:HEALTH_POISON]))
+            and np.isnan(losses[HEALTH_POISON])):
+        raise AssertionError(f"health drill: losses {losses}")
+    names = [n for n, p in spec.abstract_module().named_parameters()
+             if p.requires_grad]
+    top = [k for k, _ in doc["top_grad_leaves"]]
+    if ledger.leaf_keys != names or not set(top) <= set(names) or not top:
+        raise AssertionError(f"health drill: leaf keys {ledger.leaf_keys}"
+                             f" against {names}, top {top}")
+    fired = [e["alert"] for e in events if e["event"] == "fired"]
+    if fired != ["health_nonfinite"]:
+        raise AssertionError(f"health drill: alert firings {fired}")
+    bundles = doc["replay"]["bundles"]
+    want = os.path.join(replay_dir, f"replay_step{HEALTH_POISON:06d}_r0.json")
+    if bundles != [want]:
+        raise AssertionError(f"health drill: bundles {bundles}")
+    log(f"health (a) drill: {HEALTH_ITERS} steps of the phase-5 LM on "
+        f"{HEALTH_ROWS}x{HEALTH_SEQ} ids, batch poisoned at step "
+        f"{HEALTH_POISON}: losses {[round(v, 4) for v in losses]}; first "
+        f"anomaly {first['akind']} at step {first['step']}, detect lag "
+        f"{first['detect_lag']} (fetch lag {cfg.fetch_lag}); anomalies "
+        f"{doc['counts']}; alert firings {fired}; top grad leaves {top}; "
+        f"bundle {os.path.basename(want)} "
+        f"({os.path.getsize(want[:-5] + '.npz') / 1e6:.1f} MB npz); launches "
+        f"{counts['health_drill']}; fit {drill_s:.1f} s")
+    out["drill"] = dict(losses=losses, first_anomaly=first,
+                        counts=doc["counts"], alerts=fired, top_leaves=top,
+                        fit_s=drill_s)
+
+    # (b) the replay in a fresh process; the determinism probe runs
+    # while the child starts (its import and the card's context).
+    child = health_replay_child(want)
+    det = health_determinism(torch, spec)
+    rc, stdout, stderr, launches, replay_s = health_replay_wait(child)
+    steps_run = 1
+    if rc != 0 or launches != lm_step_counts(steps_run):
+        raise AssertionError(f"health replay: exit {rc}, launches "
+                             f"{launches}\n{stdout}\n{stderr[-3000:]}")
+    shutil.rmtree(replay_dir)
+    log(f"health (b) replay: python -m sparktorch_tpu_torch.obs.replay in a "
+        f"fresh process: exit {rc}, {replay_s:.1f} s wall, launches "
+        f"{launches}\n" + "\n".join(
+            line for line in stdout.splitlines()
+            if not line.startswith("LAUNCHES")))
+    log(f"health (b) determinism: one clean step twice from one state, "
+        f"bits equal {det['bitwise_equal']}; under "
+        f"use_deterministic_algorithms(warn_only=True): "
+        f"{det['nondeterministic_warnings'] or 'no warning'}; anchor copy "
+        f"of {det['anchor_mb']:.1f} MB: "
+        f"{[round(v, 4) for v in det['anchor_copy_s']]} s")
+    out["replay"] = dict(exit=rc, wall_s=replay_s, launches=launches,
+                         determinism=det)
+
+    # (c) and (d): the lane on (A) and off (B), A/B/B/A.
+    arms = []
+    reset_counts()
+    try:
+        for on in (True, False, False, True):
+            os.environ[health.ENV_GATE] = "1" if on else "0"
+            t = Telemetry(run_id=f"health_{'on' if on else 'off'}")
+            led = GoodputLedger(t, rank=0)
+            with led.activate():
+                fit = train_distributed(spec, x, iters=HEALTH_TIMING_ITERS,
+                                        telemetry=t, **common)
+            steps = [r["step_time_s"] for r in fit.metrics[HEALTH_WARM:]]
+            section = (t.get_section(health.SECTION) or {}).get("ranks", {})
+            arms.append(dict(
+                on=on, step_ms=1e3 * float(np.median(steps)),
+                fetch_s=led.site_s("data_wait", health.GOODPUT_SITE),
+                anomalies=sum(len(d["anomalies"]) for d in section.values()),
+                ingested=sum(d["steps_ingested"] for d in section.values())))
+    finally:
+        os.environ.pop(health.ENV_GATE, None)
+    counts["health_timing"] = read_counts()
+    expect_counts("health timing", counts["health_timing"],
+                  lm_step_counts(4 * HEALTH_TIMING_ITERS))
+    on = [a for a in arms if a["on"]]
+    off = [a for a in arms if not a["on"]]
+    if (any(a["anomalies"] or a["ingested"] != HEALTH_TIMING_ITERS
+            or not a["fetch_s"] > 0 for a in on)
+            or any(a["fetch_s"] != 0.0 or a["ingested"] for a in off)):
+        raise AssertionError(f"health (c/d): arms {arms}")
+    on_ms = float(np.mean([a["step_ms"] for a in on]))
+    off_ms = float(np.mean([a["step_ms"] for a in off]))
+    fetch_ms = 1e3 * float(np.mean([a["fetch_s"] for a in on])) / \
+        HEALTH_TIMING_ITERS
+    log(f"health (c) lane on/off, A/B/B/A, median step of "
+        f"{HEALTH_TIMING_ITERS - HEALTH_WARM} after {HEALTH_WARM}: "
+        f"{[round(a['step_ms'], 3) for a in arms]} ms; on {on_ms:.3f} ms, "
+        f"off {off_ms:.3f} ms, difference {on_ms - off_ms:+.3f} ms "
+        f"({100 * (on_ms - off_ms) / off_ms:+.2f}%); delayed fetch "
+        f"{fetch_ms:.4f} ms a step (data_wait{{site=health}})")
+    log(f"health (d) clean fits: anomalies {[a['anomalies'] for a in on]}; "
+        f"data_wait{{site=health}} lane on "
+        f"{[round(a['fetch_s'], 6) for a in on]} s, lane off "
+        f"{[a['fetch_s'] for a in off]} s")
+    torch.cuda.empty_cache()
+    out["timing"] = dict(arms=arms, on_ms=on_ms, off_ms=off_ms,
+                         overhead_pct=100 * (on_ms - off_ms) / off_ms,
+                         fetch_ms_per_step=fetch_ms)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"health phase: {out['wall_s']:.1f} s")
     return counts, out
 
 
@@ -2133,10 +2475,10 @@ def bench_phase(torch):
     counts["bench_hogwild_wire"], records["hogwild_wire"] = (
         bench_hogwild_wire_dump(torch, bench))
     span_s, bench.SYNC_SPAN_S = bench.SYNC_SPAN_S, BENCH_SPAN_S
-    chaos = ("hogwild_chaos", "hogwild_chaos_soak")
+    chaos = ("hogwild_chaos", "hogwild_chaos_soak", "gang_obs")
     configs = {k: v for k, v in bench.CONFIGS.items()
                if k not in ("serve_online", "hogwild_wire",
-                            "hogwild_ps_fleet", *chaos)}
+                            "hogwild_ps_fleet", "elastic_ctl", *chaos)}
     for name, config in configs.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -2158,7 +2500,8 @@ def bench_phase(torch):
         records[name] = rec
         log(f"bench {name}: {wall:.1f} s")
     for name in chaos:
-        # The JAX gates raise inside the config; no kernel runs.
+        # The JAX gates raise inside the config; no kernel runs (gang_obs
+        # and elastic_ctl do no device work at all).
         reset_counts()
         t0 = time.perf_counter()
         rec = bench.CONFIGS[name](**BENCH_DEPTH.get(name, {}))
@@ -2175,7 +2518,9 @@ def bench_phase(torch):
         raise AssertionError(f"bench bert_dp: mfu {records['bert_dp']}")
     moe = records["moe_lm"]
     if not (np.isfinite(moe["tokens_per_sec_per_chip"])
-            and moe["moe_vs_dense_step_ratio"] > 0):
+            and moe["moe_vs_dense_step_ratio"] > 0
+            and moe["comm_budget"]["comm_s"] == 0
+            and moe["comm_fraction"] == 0):
         raise AssertionError(f"bench moe_lm: {moe}")
     if records["resnet50_inference"]["stream_n_rows"] != 2048:
         raise AssertionError("bench resnet50_inference: streamed "
@@ -2587,6 +2932,7 @@ def dp_world_of_one(torch):
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
+    from sparktorch_tpu_torch.obs import xprof
     from sparktorch_tpu_torch.parallel.mesh import build_mesh
 
     plain = dp_fit(torch, "adam")
@@ -2604,6 +2950,14 @@ def dp_world_of_one(torch):
         sgd = dp_fit(torch, "sgd", mesh)
     finally:
         dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as d:
+        trace = os.path.join(d, "dp_world_of_one.pt.trace.json")
+        prof.export_chrome_trace(trace)
+        analysis = xprof.analyze_trace(trace)
+    all_reduce_s = analysis.family_s().get("all_reduce", 0.0)
+    if not all_reduce_s > 0:
+        raise AssertionError(f"dp world of one: the analysed capture saw no "
+                             f"all-reduce: {analysis.to_dict()['steps']}")
     events = [e for e in prof.events() if "nccl" in e.name.lower()]
     calls = sum("all_reduce" in e.name for e in events
                 if e.device_type == torch.autograd.DeviceType.CPU)
@@ -2621,9 +2975,14 @@ def dp_world_of_one(torch):
     log(f"dp (i) NCCL world of one: {DP_STEPS} Adam steps of MnistMLP on "
         f"{DP_ROWS} rows equal the fit without a process group bit for bit "
         f"(losses {[round(x, 6) for x in plain[0]]}); {calls} "
-        f"nccl:all_reduce calls, NCCL kernels on the card: {nccl or 'none'}")
+        f"nccl:all_reduce calls, NCCL kernels on the card: {nccl or 'none'}; "
+        f"the analysed capture: all-reduce {all_reduce_s:.6f} s over "
+        f"{analysis.family_counts().get('all_reduce', 0)} calls in "
+        f"{len(analysis.steps)} step(s), comm fraction "
+        f"{analysis.comm_fraction:.4f}")
     return sgd, dict(bitwise_equal=True, all_reduce_calls=calls,
-                     nccl_kernels=nccl)
+                     nccl_kernels=nccl, all_reduce_s=all_reduce_s,
+                     comm_fraction=analysis.comm_fraction)
 
 
 def dp_gloo_rank(rank, world, port, queue):
@@ -4015,9 +4374,10 @@ def run_phases(torch) -> int:
     done("slice")
     lm_counts, lm, lm_fit = train_lm_phase(torch)
     obs_counts, lm["obs"] = train_lm_obs_phase(torch, *lm_fit)
+    health_counts, health = health_phase(torch, lm_fit[0])
     del lm_fit
     parity = train_parity_phase(torch)
-    done("train_lm, obs and parity")
+    done("train_lm, obs, health and parity")
     bench_counts_by_path, bench = bench_phase(torch)
     done("bench")
     moe_counts, moe = moe_phase(torch)
@@ -4059,6 +4419,7 @@ def run_phases(torch) -> int:
                    "train_lm_resume": resume_counts[name],
                    "quickstart_and_lazy_cnn": quick_counts[name],
                    **{path: c[name] for path, c in obs_counts.items()},
+                   **{path: c[name] for path, c in health_counts.items()},
                    **{path: c[name] for path, c in hogwild_counts.items()},
                    "serve_resnet50": r50_counts[name],
                    "serve_resnet50_stream": r50_stream_counts[name],
@@ -4087,7 +4448,8 @@ def run_phases(torch) -> int:
         })
     log(f"total wall time: {time.perf_counter() - START:.1f} s")
     log(json.dumps({"kernels": kernels, "serve_rows_per_s": rows_per_s,
-                    "train_lm": lm, "train_parity": parity,
+                    "train_lm": lm, "health": health,
+                    "train_parity": parity,
                     "train_bert": bert, "train_lm_streaming": lm_stream,
                     "train_lm_resume": lm_resume, "quickstart": quick,
                     "hogwild": hogwild, "serve_resnet50": resnet50_serve,

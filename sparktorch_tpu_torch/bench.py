@@ -22,7 +22,11 @@ latency, delta and int8 bytes, a seeded shard kill), ``hogwild_chaos``
 (a supervised hogwild run clean and under a seeded worker kill: one
 restart, exact records, the recovery latency) and ``hogwild_chaos_soak``
 (seeded kills, connection drops and heartbeat freezes over many
-supervised rounds). Weights are seeded, never pretrained.
+supervised rounds), ``gang_obs`` (the fleet collector over rank
+exporters: merged scrapes, the gang trace budget, the truncation
+warning) and ``elastic_ctl`` (an elastic multi-process run through a
+SIGKILL, a shrink and a grow, seen through the collector's ``/gang``).
+Weights are seeded, never pretrained.
 
 The sync configs run :func:`_sync_epoch_bench`: data-parallel over the
 mesh of :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` (the
@@ -46,14 +50,13 @@ Where the records differ from the JAX package's (``RECORD_KEYS`` below):
   ``long_context_lm`` adds its 2k legs' ``steps_run_at_2k`` and ``moe_lm``
   its dense twin's ``steps_run_dense``: with the kernels' launch counts
   they give the launches per step.
-- ``moe_lm`` leaves out the JAX record's trace keys (``comm_budget`` with
-  its ``comm_s``, ``comm_fraction``, ``overlap_fraction``, ``comm_drift``):
-  they come from an analysed capture, which waits for the trace analyzer
-  (``obs/xprof.py``, ROADMAP, Queue 1, item 10, step 4).
-- ``serve_online``'s drift gate compares with the newest prior record,
-  and every prior record is the JAX package's on a TPU (``BENCH_r*.json``,
-  ``benchmarks/``), which may not carry over: its ``serve_drift`` is
-  always ``{"status": "no_prior_record", "tolerance": 0.5}``.
+- The drift gates (``moe_lm``'s ``comm_drift``, ``gang_obs``'s
+  ``gang_drift``, ``elastic_ctl``'s ``elastic_drift``, ``serve_online``'s
+  ``serve_drift``) compare with the newest prior record, and every prior
+  record is the JAX package's on a TPU (``BENCH_r*.json``,
+  ``benchmarks/``), which may not carry over: they always read
+  ``{"status": "no_prior_record", "tolerance": ...}`` with the JAX
+  gate's default tolerance.
 - Left out: ``resnet50_inference``'s ``measured_run_*`` (long-haul runs
   logged on the TPU rig), the headline's append to ``benchmarks/`` (the
   port writes only where ``--log`` says) and the other non-BASELINE
@@ -169,8 +172,7 @@ RECORD_KEYS = {
         {"config", "unit", "n_experts", "seq_len", "tokens_per_sec_per_chip",
          "moe_vs_dense_step_ratio", *_SYNC_KEYS, "comm_budget",
          "comm_fraction", "overlap_fraction", "comm_drift"},
-        {"comm_budget", "comm_fraction", "overlap_fraction", "comm_drift"},
-        {"steps_run", "steps_run_dense"}),
+        set(), {"steps_run", "steps_run_dense"}),
     "serve_online": (
         {"config", "unit", "value", "n_requests", "serial_service_ms",
          "offered_rate_rps", "throughput_ratio", "p99_ratio",
@@ -191,6 +193,15 @@ RECORD_KEYS = {
         {"config", "unit", "value", "rounds", "freeze_rounds", "kills",
          "freezes", "drops", "restarts", "stall_preemptions",
          "records_exact", "n_chips", "wall_s", "per_round"}, set(), set()),
+    "gang_obs": (
+        {"config", "unit", "value", "n_ranks", "run_id", "gang_step_skew_s",
+         "gang_comm_s", "gang_comm_fraction", "gang_drift", "merged_series",
+         "truncation_trips", "scrape_reconciled", "wall_s"}, set(), set()),
+    "elastic_ctl": (
+        {"config", "unit", "value", "recovery_latency_s", "n_parts",
+         "restarts", "resizes", "removed", "generation", "world_size",
+         "parts_by_generation", "chaos_kills", "records_exact",
+         "elastic_drift", "wall_s"}, set(), set()),
 }
 
 
@@ -328,7 +339,8 @@ def steady_examples_per_s(metrics: List[dict], mb: int) -> Optional[float]:
 
 def _sync_epoch_bench(spec, x, y, batch_size: int, iters: int = 30,
                       warmup: int = 3, chunks: int = 8, repeats: int = 5,
-                      with_cost_analysis: bool = False, device=None) -> dict:
+                      with_cost_analysis: bool = False, device=None,
+                      with_trace: bool = False) -> dict:
     """Shared harness for the sync-DP configs.
 
     A "call" is ``iters`` train steps dispatched back to back, ended by
@@ -343,7 +355,11 @@ def _sync_epoch_bench(spec, x, y, batch_size: int, iters: int = 30,
     over ``max(2, repeats)`` samples after a symmetric trim (samples at or
     below 0, or under 20% of the positive median, are dropped), with
     best and spread. ``batch_size`` is the global batch: each rank of
-    the mesh steps its shard."""
+    the mesh steps its shard. ``with_trace``: a ``trace`` phase captures
+    two more calls under ``torch.profiler``, each a ``train_step``
+    range, and the analysed capture (``obs/xprof.py``) gives the
+    record's ``comm_budget``, ``comm_fraction`` and
+    ``overlap_fraction``, as in the JAX harness."""
     from sparktorch_tpu_torch.parallel.mesh import build_mesh
     from sparktorch_tpu_torch.train.sync import _dp_steps, _dp_trainer, _Shards
     from sparktorch_tpu_torch.utils.data import handle_features
@@ -397,6 +413,35 @@ def _sync_epoch_bench(spec, x, y, batch_size: int, iters: int = 30,
                 n_long *= 2
             slopes.append((t_long - t_short) / max((n_long - 1) * iters, 1))
 
+    trace_rec, p_trace = None, None
+    if with_trace:
+        import tempfile
+
+        from sparktorch_tpu_torch.utils.tracing import (
+            profile_run,
+            step_annotation,
+        )
+
+        tele = get_telemetry()
+        with _Phase(dev, "trace") as p_trace, \
+                tempfile.TemporaryDirectory() as td:
+            with profile_run(td, telemetry=tele) as handle:
+                for i in range(2):
+                    with step_annotation(i, telemetry=tele, device=dev):
+                        loss = call()
+                    loss = float(loss)
+        analysis = handle["analysis"]
+        if analysis is not None:
+            trace_rec = {
+                "comm_s": round(analysis.comm_s, 6),
+                "comm_fraction": round(analysis.comm_fraction, 4),
+                "overlap_fraction": round(analysis.overlap_fraction, 4),
+                "collective_s": {k: round(v, 6)
+                                 for k, v in analysis.family_s().items()},
+                "collective_counts": analysis.family_counts(),
+                "n_collective_events": analysis.n_collective_events,
+            }
+
     good = [s for s in slopes if s > 0]
     if good:
         floor = 0.2 * float(np.median(good))
@@ -423,7 +468,22 @@ def _sync_epoch_bench(spec, x, y, batch_size: int, iters: int = 30,
     }
     if cost is not None:
         out["counted_flops_per_step"] = cost
+    if trace_rec is not None:
+        # The comm/compute budget: seconds join the phase breakdown, the
+        # attribution detail rides beside it.
+        out["comm_budget"] = trace_rec
+        out["phase_s"]["trace"] = round(p_trace.duration_s, 3)
+        out["phase_s"]["comm_s"] = trace_rec["comm_s"]
+        out["comm_fraction"] = trace_rec["comm_fraction"]
+        out["overlap_fraction"] = trace_rec["overlap_fraction"]
     return out
+
+
+def _no_prior_drift(tolerance: float, **extra) -> dict:
+    """A JAX drift gate's record when it has no prior record: every
+    prior record is the JAX package's on a TPU (``BENCH_r*.json``,
+    ``benchmarks/``), which does not carry over to the port."""
+    return {"status": "no_prior_record", "tolerance": tolerance, **extra}
 
 
 # ---------------------------------------------------------------------------
@@ -920,10 +980,12 @@ def bench_moe_lm(device=None, repeats: int = 5) -> dict:
     ids = rng.integers(0, vocab, (batch, seq + 1)).astype(np.int32)
     moe = _sync_epoch_bench(spec_for(8), ids[:, :-1], ids[:, 1:], batch,
                             iters=6, warmup=2, chunks=2, repeats=repeats,
-                            device=device)
+                            device=device, with_trace=True)
     dense = _sync_epoch_bench(spec_for(0), ids[:, :-1], ids[:, 1:], batch,
                               iters=6, warmup=2, chunks=2, repeats=repeats,
                               device=device)
+    if "comm_fraction" in moe:
+        moe["comm_drift"] = _no_prior_drift(0.25, mesh=None)
     return {
         "config": "moe_lm", "unit": "tokens/sec/chip",
         "n_experts": 8, "seq_len": seq,
@@ -1581,7 +1643,7 @@ def bench_serve_online(device=None, n_requests: int = 300) -> dict:
 
     # Every prior serve_online record is the JAX package's, on a TPU; the
     # tolerance is the JAX gate's default.
-    drift = {"status": "no_prior_record", "tolerance": 0.5}
+    drift = _no_prior_drift(0.5)
 
     return {
         "config": "serve_online", "unit": "x (throughput ratio)",
@@ -1868,6 +1930,396 @@ def bench_hogwild_chaos_soak(device=None, rounds: int = 4, iters: int = 16,
     }
 
 
+def _synthetic_rank_trace(rank: int, steps: int = 2) -> dict:
+    """A deterministic per-rank Chrome trace in ``torch.profiler``'s
+    shape: each step one ``train_step`` range on the host and its
+    projection onto the card, one compute kernel and one NCCL
+    all-reduce kernel — with rank-dependent timings (rank r's step walls
+    are (1 + r/4)x rank 0's), the JAX bench's synthetic ranks."""
+    events = []
+    scale = 1.0 + rank / 4.0
+    t = 1000.0
+    for s in range(steps):
+        wall = 1000.0 * scale
+        for cat, tid in (("user_annotation", 1), ("gpu_user_annotation", 7)):
+            events.append({"ph": "X", "cat": cat, "pid": 1, "tid": tid,
+                           "name": "train_step", "ts": t, "dur": wall,
+                           "args": {"step_num": str(s),
+                                    "External id": s + 1}})
+        events.append({"ph": "X", "cat": "kernel", "pid": 0, "tid": 7,
+                       "name": f"sm90_gemm_kernel_{s}", "ts": t + 50,
+                       "dur": 600 * scale})
+        events.append({"ph": "X", "cat": "kernel", "pid": 0, "tid": 13,
+                       "name": "ncclDevKernel_AllReduce_Sum_f32_RING_LL",
+                       "ts": t + 400, "dur": 400 * scale})
+        t += wall
+    return {"traceEvents": events}
+
+
+def bench_gang_obs(n_ranks: int = 3) -> dict:
+    """The JAX bench's gang-observability gate: N local rank exporters,
+    the fleet collector over them; raises unless
+
+    - the collector's merged scrape carries every per-rank series with
+      ``rank``/``host`` labels and the merged values reconcile with the
+      per-rank scrapes;
+    - the merged gang trace budget reconciles with the per-rank analyses
+      of the synthetic ``torch.profiler`` traces: per-family comm
+      seconds sum, per-step walls max, cross-rank step skew > 0;
+    - a seeded truncated capture (more steps annotated on the bus than
+      ranges in the trace) trips ``xprof.capture_truncated`` exactly
+      once, and a complete capture trips nothing.
+
+    No device work: the observability plane's own gate."""
+    import os
+    import tempfile
+
+    from sparktorch_tpu_torch.native.gang import GangMetricsExporter
+    from sparktorch_tpu_torch.obs import (
+        FleetCollector,
+        Telemetry,
+        analyze_trace,
+        mint_run_id,
+        parse_prometheus,
+        scrape_json,
+        scrape_text,
+    )
+    from sparktorch_tpu_torch.obs.heartbeat import HeartbeatEmitter
+    from sparktorch_tpu_torch.obs.xprof import analyze_and_publish
+
+    t0 = time.perf_counter()
+    run_id = mint_run_id("bench-gang-obs")
+    analyses = []
+    exporters = []
+    collector = None
+    with tempfile.TemporaryDirectory() as hb_dir:
+        try:
+            for r in range(n_ranks):
+                tele = Telemetry(run_id=run_id)
+                # Distinct per-rank counter values, so the sum and
+                # match gates cannot pass by accident.
+                tele.counter("bench.gang_obs_ticks", r + 1)
+                analysis = analyze_trace(_synthetic_rank_trace(r))
+                analysis.publish(tele)
+                analyses.append(analysis)
+                HeartbeatEmitter(hb_dir, rank=r, telemetry=tele,
+                                 run_id=run_id).notify_step(10 * (r + 1))
+                exporters.append(GangMetricsExporter(
+                    heartbeat_dir=hb_dir, telemetry=tele).start())
+
+            collector = FleetCollector(
+                {r: exp.url for r, exp in enumerate(exporters)},
+                run_id=run_id, poll_interval_s=0,
+            ).start(poll_loop=False)
+            collector.poll()
+
+            # Gate 1: the merged scrape against the per-rank scrapes.
+            rank_scrapes = [parse_prometheus(scrape_text(e.url + "/metrics"))
+                            for e in exporters]
+            merged_scrape = parse_prometheus(
+                scrape_text(collector.url + "/metrics"))
+            host = "127.0.0.1"
+            tick = "sparktorch_bench_gang_obs_ticks"
+            merged_sum = 0.0
+            for r, scrape in enumerate(rank_scrapes):
+                own = scrape.get(tick)
+                labeled = merged_scrape.get(
+                    f'{tick}{{host="{host}",rank="{r}"}}')
+                if own != float(r + 1) or labeled != own:
+                    raise AssertionError(
+                        f"rank {r}: merged series {labeled} != per-rank "
+                        f"scrape {own}")
+                merged_sum += labeled
+            if merged_sum != sum(r + 1 for r in range(n_ranks)):
+                raise AssertionError(
+                    f"merged rank-labeled sum {merged_sum} != "
+                    f"{sum(r + 1 for r in range(n_ranks))}")
+            merged_snap = scrape_json(collector.url + "/telemetry")
+            unlabeled = [
+                k for section in ("counters", "gauges", "histograms")
+                for k in merged_snap.get(section, {})
+                if not k.startswith(("collector.", "xprof.gang_"))
+                and "rank=" not in k]
+            if unlabeled:
+                raise AssertionError(
+                    f"merged series missing rank labels: {unlabeled[:5]}")
+
+            # Gate 2: the gang budget reconciles with the per-rank ones.
+            gang = scrape_json(collector.url + "/gang")
+            xp = gang.get("xprof")
+            if not xp or xp.get("n_ranks") != n_ranks:
+                raise AssertionError(f"gang xprof missing/short: {xp}")
+            fam_sum: Dict[str, float] = {}
+            for a in analyses:
+                for fam, sec in a.family_s().items():
+                    fam_sum[fam] = fam_sum.get(fam, 0.0) + sec
+            for fam, sec in fam_sum.items():
+                got = xp["collective_s"].get(fam, 0.0)
+                if abs(got - sec) > 1e-9:
+                    raise AssertionError(
+                        f"family {fam}: gang {got} != sum {sec}")
+            for i, step in enumerate(xp["steps"]):
+                walls = [a.steps[i].wall_s for a in analyses]
+                if abs(step["wall_s"] - max(walls)) > 1e-9:
+                    raise AssertionError(
+                        f"step {i}: gang wall {step['wall_s']} != max "
+                        f"{max(walls)}")
+                if step["skew_s"] < 0 or abs(
+                        step["skew_s"] - (max(walls) - min(walls))) > 1e-9:
+                    raise AssertionError(
+                        f"step {i}: skew {step['skew_s']} != "
+                        f"{max(walls) - min(walls)}")
+            if not xp["step_skew_s"] > 0:
+                raise AssertionError(
+                    "synthetic ranks are skewed but gang skew is 0")
+            hb = gang.get("heartbeats", {})
+            if hb.get("n_ranks") != n_ranks or \
+                    hb.get("step_skew") != 10 * (n_ranks - 1):
+                raise AssertionError(f"merged heartbeat table wrong: {hb}")
+            run_ids = set(gang.get("run_ids", {}).values())
+            if run_ids != {run_id}:
+                raise AssertionError(
+                    f"run_id correlation broken: {run_ids} != {{{run_id}}}")
+
+            # Gate 3: the truncation warning, exactly once.
+            trunc_tele = Telemetry(run_id="gang_obs_trunc")
+            with tempfile.TemporaryDirectory() as td:
+                path = os.path.join(td, "host0.pt.trace.json")
+                with open(path, "w") as f:
+                    json.dump(_synthetic_rank_trace(0, steps=2), f)
+                # Seeded truncation: 4 steps annotated on the bus, 2
+                # ranges in the capture.
+                analyze_and_publish(td, telemetry=trunc_tele,
+                                    expected_steps=4)
+                tripped = trunc_tele.counter_value(
+                    "xprof.capture_truncated_total")
+                if tripped != 1:
+                    raise AssertionError(
+                        f"truncation warning tripped {tripped}x, want 1")
+                analyze_and_publish(td, telemetry=trunc_tele,
+                                    expected_steps=2)
+                if trunc_tele.counter_value(
+                        "xprof.capture_truncated_total") != 1:
+                    raise AssertionError(
+                        "complete capture tripped the truncation warning")
+        finally:
+            if collector is not None:
+                collector.stop()
+            for exp in exporters:
+                exp.stop()
+
+    return {
+        "config": "gang_obs", "unit": "ranks merged",
+        "value": n_ranks,
+        "n_ranks": n_ranks,
+        "run_id": run_id,
+        "gang_step_skew_s": round(float(xp["step_skew_s"]), 6),
+        "gang_comm_s": round(float(xp["comm_s"]), 6),
+        "gang_comm_fraction": round(float(xp["comm_fraction"]), 4),
+        "gang_drift": _no_prior_drift(0.25, skew_tolerance=0.5),
+        "merged_series": sum(len(merged_snap.get(s, {}))
+                             for s in ("counters", "gauges", "histograms")),
+        "truncation_trips": 1,
+        "scrape_reconciled": True,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def _elastic_part_worker(ctx, parts, rank, generation, out, sleep_s):
+    """One elastic rank's work (a ``ctl.worker`` child): rank 1 fails on
+    every attempt; the others complete their partitions, each once
+    (skip if done, atomic rename)."""
+    import os as _os
+    import time as _t
+
+    if rank == 1:
+        raise RuntimeError("rank1 permanently broken")
+    for i, p in enumerate(parts):
+        if ctx.should_stop():
+            return
+        ctx.notify_step(i)
+        path = _os.path.join(out, p + ".done")
+        if _os.path.exists(path):
+            continue
+        tmp = path + f".tmp{_os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(f"{rank}:{generation}")
+        _os.replace(tmp, path)
+        _t.sleep(sleep_s)
+
+
+def bench_elastic_ctl(n_parts: int = 36, part_sleep_s: float = 0.4,
+                      recovery_bound_s: float = 30.0) -> dict:
+    """The JAX bench's elastic control-plane gate: one supervised
+    multi-process run (``python -m sparktorch_tpu_torch.ctl.worker``
+    children) through a seeded SIGKILL (``kill_process_at``, restart,
+    bounded recovery latency), a restart-budget exhaustion (rank 1 fails
+    every attempt: the world shrinks through the coordinator, its
+    partitions redistributed) and a rejoin (a new rank: the world
+    grows). Raises unless every partition completes exactly once, the
+    kill fired once, shrink and grow each happened once with the
+    coordinator's generation following, and every transition is a
+    generation-tagged event in the fleet collector's ``/gang`` view
+    scraped over HTTP. No device work."""
+    import functools
+    import os
+    import tempfile
+    import threading
+
+    from sparktorch_tpu_torch.ctl import ElasticController, spawn_worker
+    from sparktorch_tpu_torch.ft import (
+        ChaosConfig,
+        FtPolicy,
+        RestartPolicy,
+        inject,
+    )
+    from sparktorch_tpu_torch.native.gang import (
+        GangCoordinator,
+        GangMetricsExporter,
+    )
+    from sparktorch_tpu_torch.obs import Telemetry
+    from sparktorch_tpu_torch.obs.collector import FleetCollector, scrape_json
+
+    t_start = time.perf_counter()
+    tele = Telemetry(run_id="bench_elastic")
+    workdir = tempfile.mkdtemp(prefix="bench_elastic_")
+    out = os.path.join(workdir, "parts")
+    hb_dir = os.path.join(workdir, "hb")
+    os.makedirs(out)
+    work = [f"part{i:03d}" for i in range(n_parts)]
+
+    def completed(p):
+        return os.path.exists(os.path.join(out, p + ".done"))
+
+    def start_fn(rank, attempt, generation, assignment):
+        fn = functools.partial(_elastic_part_worker, parts=tuple(assignment),
+                               rank=rank, generation=generation, out=out,
+                               sleep_s=part_sleep_s)
+        return spawn_worker(fn, rank=rank, heartbeat_dir=hb_dir,
+                            name=f"rank{rank}", telemetry=tele)
+
+    coord = GangCoordinator(world_size=3, port=0,
+                            heartbeat_timeout_ms=30_000)
+    exporter = GangMetricsExporter(heartbeat_dir=hb_dir, coordinator=coord,
+                                   telemetry=tele, port=0).start()
+    collector = FleetCollector({0: exporter.url}, telemetry=tele,
+                               poll_interval_s=0.25)
+    collector.start(poll_loop=True)
+    policy = FtPolicy(restart=RestartPolicy(max_restarts=2,
+                                            backoff_base_s=0.05,
+                                            backoff_max_s=0.2), seed=0)
+    ctl = ElasticController(work, completed, policy=policy, telemetry=tele,
+                            coordinator=coord, collector=collector,
+                            min_world=1, name="bench_elastic")
+    for r in range(3):
+        ctl.add_rank(r, start_fn)
+
+    def grower():
+        # The rejoin: a new rank joins right after the shrink lands.
+        deadline = time.perf_counter() + 120.0
+        while time.perf_counter() < deadline and not ctl._stop.is_set():
+            if ctl._resizes["shrink"] >= 1:
+                ctl.grow(3, start_fn)
+                return
+            time.sleep(0.05)
+
+    threading.Thread(target=grower, name="bench-elastic-grower",
+                     daemon=True).start()
+    try:
+        with inject(ChaosConfig(seed=11, kill_process_at={0: 2}),
+                    telemetry=tele) as inj:
+            summary = ctl.run(poll_interval_s=0.05, deadline_s=240.0)
+        gang_doc = scrape_json(f"http://127.0.0.1:{collector.port}/gang")
+    finally:
+        collector.stop()
+        exporter.stop()
+        coord.stop()
+    coord_generation = coord.generation
+    coord_world_size = coord.world_size
+
+    missing = [p for p in work if not completed(p)]
+    if missing or summary["work_pending"]:
+        raise AssertionError(f"partitions incomplete: {missing}")
+    torn = [f for f in os.listdir(out) if ".tmp" in f]
+    if torn:
+        raise AssertionError(f"torn partition outputs left behind: {torn}")
+    if len(os.listdir(out)) != n_parts:
+        raise AssertionError(
+            f"{len(os.listdir(out))} outputs != {n_parts} partitions")
+    kills_fired = [e for e in inj.events if e["site"] == "ctl.process"]
+    if len(kills_fired) != 1 or kills_fired[0]["rank"] != 0:
+        raise AssertionError(
+            f"chaos kill_process_at fired {kills_fired} (want exactly one "
+            "SIGKILL on rank 0)")
+    if summary["resizes"] != {"shrink": 1, "grow": 1}:
+        raise AssertionError(f"resizes {summary['resizes']} != "
+                             "{'shrink': 1, 'grow': 1}")
+    if summary["removed"] != [1]:
+        raise AssertionError(f"removed {summary['removed']} != [1]")
+    kinds = [h["kind"] for h in ctl.history]
+    for needed in ("restart", "shrink", "grow"):
+        if needed not in kinds:
+            raise AssertionError(
+                f"no {needed!r} event in the controller history {kinds}")
+    untagged = [h for h in ctl.history if "generation" not in h]
+    if untagged:
+        raise AssertionError(f"events missing generation tags: {untagged}")
+    if not (coord_generation == ctl.generation == summary["generation"]
+            >= 2):
+        raise AssertionError(
+            f"generation disagreement: coordinator {coord_generation}, "
+            f"controller {ctl.generation}, summary {summary['generation']}"
+            " (want agreement, >= 2)")
+    if coord_world_size != 3:  # ranks 0, 2 and the joined 3
+        raise AssertionError(
+            f"coordinator world_size {coord_world_size} != 3 after "
+            "shrink+grow")
+    elastic_doc = gang_doc.get("elastic") or {}
+    doc_kinds = [h.get("kind") for h in elastic_doc.get("history", [])]
+    for needed in ("restart", "shrink", "grow"):
+        if needed not in doc_kinds:
+            raise AssertionError(
+                f"/gang elastic history lacks {needed!r}: {doc_kinds}")
+    if elastic_doc.get("generation") != summary["generation"] or \
+            elastic_doc.get("resizes") != summary["resizes"]:
+        raise AssertionError(
+            f"/gang elastic doc {elastic_doc.get('generation')}/"
+            f"{elastic_doc.get('resizes')} disagrees with the run summary "
+            f"{summary['generation']}/{summary['resizes']}")
+    recovery = [v["max"] for k, v in tele.snapshot()["histograms"].items()
+                if k.startswith("ft_recovery_latency_s") and v["count"]]
+    if not recovery or max(recovery) > recovery_bound_s:
+        raise AssertionError(
+            f"recovery latency {recovery} empty or past the "
+            f"{recovery_bound_s}s bound")
+    by_gen: Dict[str, int] = {}
+    for p in work:
+        with open(os.path.join(out, p + ".done")) as f:
+            _, gen = f.read().split(":")
+        by_gen[gen] = by_gen.get(gen, 0) + 1
+    if len(by_gen) < 2:
+        raise AssertionError(
+            f"all partitions completed in one generation ({by_gen}) — the "
+            "resizes never redistributed work")
+    recovery_max = max(recovery)
+    return {
+        "config": "elastic_ctl", "unit": "s (recovery latency)",
+        "value": round(recovery_max, 3),
+        "recovery_latency_s": round(recovery_max, 3),
+        "n_parts": n_parts,
+        "restarts": summary["restarts"],
+        "resizes": summary["resizes"],
+        "removed": summary["removed"],
+        "generation": summary["generation"],
+        "world_size": summary["world_size"],
+        "parts_by_generation": dict(sorted(by_gen.items())),
+        "chaos_kills": len(kills_fired),
+        "records_exact": True,
+        "elastic_drift": _no_prior_drift(2.0),
+        "wall_s": round(time.perf_counter() - t_start, 2),
+    }
+
+
 CONFIGS: Dict[str, Callable[[], dict]] = {
     "mnist_mlp_sync": bench_mnist_mlp_sync,
     "mnist_cnn_sync": bench_mnist_cnn_sync,
@@ -1882,6 +2334,8 @@ CONFIGS: Dict[str, Callable[[], dict]] = {
     "hogwild_ps_fleet": bench_hogwild_ps_fleet,
     "hogwild_chaos": bench_hogwild_chaos,
     "hogwild_chaos_soak": bench_hogwild_chaos_soak,
+    "gang_obs": bench_gang_obs,
+    "elastic_ctl": bench_elastic_ctl,
 }
 
 

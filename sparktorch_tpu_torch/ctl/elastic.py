@@ -16,12 +16,12 @@ world instead, and grows it when a rank joins:
   partitions, so records stay exact across any schedule of kills,
   shrinks and grows.
 - **gang-view supervision**: with ``gang_url`` (any ``/gang``
-  endpoint) the controller tells an exporter that vanished (scrape
+  endpoint) or ``collector`` (a
+  :class:`~sparktorch_tpu_torch.obs.collector.FleetCollector`, read in
+  process) the controller tells an exporter that vanished (scrape
   failing, heartbeat fresh: count it, keep supervising by handle) from
   a rank that died (heartbeat age past the barrier deadline: preempt,
-  restart, and on budget exhaustion shrink). The fleet collector, the
-  other source of that view, is not ported yet: ``collector=`` raises
-  ``NotImplementedError`` (ROADMAP, Queue 1, item 10).
+  restart, and on budget exhaustion shrink).
 - **remote ranks**: a member registered with a ``ctl_url`` and no
   local handle is managed over ``POST /ctl``.
 
@@ -88,9 +88,9 @@ class ElasticController:
     intended one; ``ThreadWorker`` works for tests). ``completed_fn``
     decides partition completion (idempotency lives there).
 
-    ``gang_url`` (any ``/gang`` endpoint) arms gang-view supervision;
-    ``collector`` (the JAX package's fleet collector) is not ported yet
-    and raises ``NotImplementedError`` (ROADMAP, Queue 1, item 10);
+    ``gang_url`` (any ``/gang`` endpoint) or ``collector`` (a
+    :class:`~sparktorch_tpu_torch.obs.collector.FleetCollector`, whose
+    ``gang_view`` it reads) arms gang-view supervision;
     ``coordinator`` (a GangCoordinator) makes resizes real gang
     membership events.
     """
@@ -114,11 +114,6 @@ class ElasticController:
                  postmortem_dir: Optional[str] = None,
                  postmortem_window_s: float = 30.0,
                  postmortem_min_interval_s: float = 0.0):
-        if collector is not None:
-            raise NotImplementedError(
-                "ElasticController(collector=...): the fleet collector "
-                "(obs/collector.py's FleetCollector) is not ported yet "
-                "(ROADMAP, Queue 1, item 10); pass gang_url= instead")
         self.work = list(work)
         self.completed_fn = completed_fn
         self.policy = policy or FtPolicy()

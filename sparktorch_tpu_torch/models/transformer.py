@@ -131,7 +131,10 @@ class LayerNorm(nn.Module):
 
 
 class Embed(nn.Embedding):
-    """``flax.linen.Embed(dtype=...)``: f32 table, rows cast to ``dtype``."""
+    """``flax.linen.Embed(dtype=...)``: f32 table, rows cast to ``dtype``.
+    An id outside ``[0, num)`` reads a NaN row, as ``jnp.take`` fills an
+    out-of-range index in the JAX package (where ``F.embedding`` would
+    raise, or on the card trip a device assert)."""
 
     def __init__(self, num: int, d: int, dtype: torch.dtype):
         super().__init__(num, d)
@@ -142,7 +145,11 @@ class Embed(nn.Embedding):
         nn.init.normal_(self.weight, std=1.0 / math.sqrt(self.embedding_dim))
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight).to(self.compute_dtype)
+        n = self.num_embeddings
+        bad = (ids < 0) | (ids >= n)
+        rows = F.embedding(ids.clamp(0, n - 1), self.weight)
+        return rows.masked_fill(bad[..., None], float("nan")).to(
+            self.compute_dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -448,7 +455,10 @@ class Transformer(nn.Module):
     def forward(self, ids, example_w=None, embed: Optional[Embed] = None):
         cfg = self.config
         if ids.is_floating_point():
-            ids = ids.to(torch.int32)
+            # A non-finite id (a poisoned batch) goes out of range, so
+            # its row is NaN: the cast alone would give INT_MIN on the
+            # CPU and 0 on the card (as XLA's convert gives 0).
+            ids = torch.where(torch.isfinite(ids), ids, -1.0).to(torch.int32)
         b, s = ids.shape
         embed = self.tok_embed if embed is None else embed
         x = embed(ids) + self.pos_embed[None, :s].to(cfg.compute_dtype)

@@ -189,6 +189,44 @@ def quantize_leaf_int8(value: Leaf, residual: Optional[np.ndarray] = None
     return QuantLeaf(q, scale, "<f4"), value - q.astype(np.float32) * scale
 
 
+def quantize_leaves_int8_on_card(
+        values: Sequence[torch.Tensor],
+        residuals: Sequence[Optional[torch.Tensor]]
+) -> List[Tuple[QuantLeaf, torch.Tensor]]:
+    """:func:`quantize_leaf_int8` for float leaves on the card, done
+    there: ``[(QuantLeaf, residual)]`` with the residuals left on the
+    card, and only the int8 bodies and the per-leaf maxima coming to the
+    host (into pinned memory, one wait for them all). Byte for byte the
+    host function's result on the host copies: the same float32 add,
+    divide (by the float32 rounding of the float64 scale, which is the
+    float32 quotient), round half to even, clip and multiply-subtract;
+    the scale in the frame is the same float64 ``amax / 127``. The work
+    runs on a side stream (:func:`~sparktorch_tpu_torch.utils.streams.
+    copy_stream`), off the queue of the card's default stream."""
+    if not values:
+        return []
+    from sparktorch_tpu_torch.utils.streams import copy_stream
+
+    with copy_stream(values[0].device):
+        staged = []
+        for value, residual in zip(values, residuals):
+            v = value.float()
+            if residual is not None:
+                v = v + residual
+            amax = v.abs().max()
+            scale = torch.where(amax > 0, amax / 127.0,
+                                torch.ones_like(amax))
+            q = torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
+            host = torch.empty(q.shape, dtype=torch.int8, pin_memory=True)
+            host.copy_(q, non_blocking=True)
+            staged.append((host, amax, v - q.float() * scale))
+        # The maxima's read waits for the bodies' copies on this stream.
+        amaxes = torch.stack([a for _, a, _ in staged]).cpu().tolist()
+    return [(QuantLeaf(host.numpy(), amax / 127.0 if amax > 0 else 1.0,
+                       "<f4"), residual)
+            for (host, _, residual), amax in zip(staged, amaxes)]
+
+
 def quantize_tree(tree: Any, mode: str,
                   residuals: Optional[Dict[Tuple[str, ...], np.ndarray]] = None):
     """Compress float leaves for the push wire: ``mode='bf16'`` rounds

@@ -17,10 +17,11 @@ package's retained history (:class:`MetricsHistory`) and alert rules
 (:class:`AlertRule`, :class:`AlertManager`), the flight recorder and
 postmortem bundles (``obs/blackbox.py``), the goodput ledger and the
 cross-rank skew ring (``obs/goodput.py``, ``obs/skew.py``), the stack
-profiler (``obs/profile.py``) and the collector's scrape helpers
-(``obs/collector.py``), which the ft supervisor and ``ctl/`` use. Not
-ported yet (ROADMAP, Queue 1, item 10, step 4): health, replay, xprof,
-the fleet collector itself, rpctrace and timeline.
+profiler (``obs/profile.py``), the trainers' model-health lane and its
+bitwise replay (``obs/health.py``, ``obs/replay.py``), the
+``torch.profiler`` trace analyzer (``obs/xprof.py``) and the fleet
+collector (``obs/collector.py``). Not ported yet (ROADMAP, Queue 1,
+step 4): rpctrace and timeline.
 """
 
 from sparktorch_tpu_torch.obs.telemetry import (
@@ -44,6 +45,13 @@ from sparktorch_tpu_torch.obs.goodput import (
     LedgerSpan,
     mfu_honest,
 )
+from sparktorch_tpu_torch.obs.health import (
+    HealthConfig,
+    TrainHealthLedger,
+    health_alert_rules,
+    tree_checksum,
+)
+from sparktorch_tpu_torch.obs.replay import load_bundle, replay_bundle
 from sparktorch_tpu_torch.obs.sinks import JsonlSink, read_jsonl, write_jsonl
 from sparktorch_tpu_torch.obs.log import get_logger
 from sparktorch_tpu_torch.obs.prom import (
@@ -57,7 +65,16 @@ from sparktorch_tpu_torch.obs.heartbeat import (
     gang_report,
     read_heartbeats,
 )
+from sparktorch_tpu_torch.obs.xprof import (
+    GangAnalysis,
+    TraceAnalysis,
+    TraceParseError,
+    analyze_and_publish,
+    analyze_trace,
+    merge_analyses,
+)
 from sparktorch_tpu_torch.obs.collector import (
+    FleetCollector,
     ScrapeError,
     mint_run_id,
     run_tag,
@@ -83,6 +100,12 @@ __all__ = [
     "GoodputLedger",
     "LedgerSpan",
     "mfu_honest",
+    "HealthConfig",
+    "TrainHealthLedger",
+    "health_alert_rules",
+    "tree_checksum",
+    "load_bundle",
+    "replay_bundle",
     "JsonlSink",
     "read_jsonl",
     "write_jsonl",
@@ -94,6 +117,13 @@ __all__ = [
     "HeartbeatEmitter",
     "gang_report",
     "read_heartbeats",
+    "GangAnalysis",
+    "TraceAnalysis",
+    "TraceParseError",
+    "analyze_and_publish",
+    "analyze_trace",
+    "merge_analyses",
+    "FleetCollector",
     "ScrapeError",
     "mint_run_id",
     "run_tag",

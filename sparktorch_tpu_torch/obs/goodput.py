@@ -9,10 +9,10 @@ collectively-exhaustive (MECE) buckets:
 - ``exposed_comm``— collective and wire time not hidden under compute:
                     the step split by a comm model
                     (``comm_source``), plus direct wire waits;
-- ``compile``     — compile walls, reported through
-                    :func:`note_compile` (an eager PyTorch step
-                    compiles nothing, so the port's trainers report
-                    none);
+- ``compile``     — compile walls: the trainers' set-up
+                    (``site=train_init``) and a step during which a
+                    hand-written kernel was first built and loaded,
+                    plus :func:`note_compile`;
 - ``checkpoint``  — snapshot save and restore walls;
 - ``data_wait``   — batch placement and next-chunk waits;
 - ``restart_downtime`` — death detection -> relaunch gaps (the ft
@@ -35,9 +35,11 @@ into a run-level report. Instrumentation is ambient, like
 (:func:`install`, or ``with ledger.activate():``) and the instrumented
 sites call the module-level :func:`span` / :func:`add`, a global read
 and a None check when no ledger is active. The port's instrumented
-sites are the ft supervisor's and the elastic controller's restart
-and resize windows; the trainers' step spans come later (ROADMAP,
-Queue 1, step 4).
+sites: the trainers' step spans and their data, compile and eval
+spans, the hogwild workers' pulls, pushes and drains, the router's
+hops and retries, the health lane's read-backs, checkpoints, and the
+ft supervisor's and the elastic controller's restart and resize
+windows. :meth:`GoodputLedger.site_s` reads one site's seconds.
 """
 
 from __future__ import annotations
@@ -97,8 +99,8 @@ def jit_cache_size(jitted: Any) -> Optional[int]:
     entry count of a jitted function's dispatch cache, or None for
     anything that has none. An eager PyTorch callable has no such
     cache, so in the port this returns None, as the JAX one does for a
-    plain callable, and the ``compile`` bucket fills only through
-    :func:`note_compile`."""
+    plain callable; the trainers probe
+    :func:`~sparktorch_tpu_torch.ops._build.loads` instead."""
     probe = getattr(jitted, "_cache_size", None)
     if probe is None:
         return None
@@ -223,7 +225,7 @@ class LedgerSpan:
                                         self.t0, end)
             self.ledger._attribute(self.bucket,
                                    max(dur - self._child_s, 0.0),
-                                   self.count)
+                                   self.count, self.labels.get("site"))
 
 
 class GoodputLedger:
@@ -264,6 +266,7 @@ class GoodputLedger:
         self.started_ts = wall_ts()
         self._buckets: Dict[str, float] = {}
         self._counts: Dict[str, int] = {}
+        self._site_s: Dict[Tuple[str, str], float] = {}
         self._step_s = 0.0
         self._n_steps = 0
         self._compiles = 0
@@ -312,8 +315,12 @@ class GoodputLedger:
         base = self.started_ts - self._t0
         self.skew.record(int(step), count, base + t0, base + t1)
 
-    def _attribute(self, bucket: str, seconds: float, count: int) -> None:
+    def _attribute(self, bucket: str, seconds: float, count: int,
+                   site: Optional[str] = None) -> None:
         with self._lock:
+            if site is not None:
+                key = (bucket, str(site))
+                self._site_s[key] = self._site_s.get(key, 0.0) + seconds
             if bucket == "step":
                 self._step_s += seconds
                 self._n_steps += int(count)
@@ -364,6 +371,14 @@ class GoodputLedger:
             self.set_comm_model(float(frac), "measured")
 
     # -- reading -------------------------------------------------------------
+
+    def site_s(self, bucket: str, site: str) -> float:
+        """Seconds attributed to ``bucket`` by spans labelled
+        ``site=<site>`` (e.g. ``data_wait{site=health}``, the health
+        lane's read-backs). A port addition: the JAX ledger keeps only
+        the bucket totals, which :meth:`snapshot` reports alike."""
+        with self._lock:
+            return self._site_s.get((bucket, str(site)), 0.0)
 
     def wall_s(self) -> float:
         with self._lock:

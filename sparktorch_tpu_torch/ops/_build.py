@@ -82,12 +82,24 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     return logs
 
 
+_LOADS = 0
+
+
+def loads() -> int:
+    """How many kernel libraries this process has loaded (each built
+    first where it was not yet): it grows only at a kernel's first use,
+    which the trainers' goodput step spans count as ``compile``."""
+    return _LOADS
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
+    global _LOADS
     path = _library_path(name)
     if not path.exists():
         build([name])
+    _LOADS += 1
     return ctypes.CDLL(str(path))
 
 

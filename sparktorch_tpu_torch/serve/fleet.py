@@ -123,13 +123,31 @@ def _numel(arr) -> int:
     return arr.numel() if isinstance(arr, torch.Tensor) else arr.size
 
 
+def _on_card_float(leaf) -> bool:
+    return (isinstance(leaf, torch.Tensor) and leaf.is_cuda
+            and leaf.is_floating_point() and leaf.numel() > 0)
+
+
 def _render_leaf_body(owner, items, version: int, quant: Optional[str],
                       run_tag: int) -> bytes:
     """The encode tail both delta renderers (shard and gateway) share:
     int8 with server-side error feedback — each (leaf, cache_tag)
     quantized once, its residual folded into the leaf's next version —
     then one v2 frame. ``items``: (path, cache_tag, leaf_version, host
-    array). The caller holds its render lock."""
+    array, or for int8 a float tensor on the card, which is quantized
+    there: :func:`~sparktorch_tpu_torch.net.wire.
+    quantize_leaves_int8_on_card`). The caller holds its render lock."""
+    if quant == "int8":
+        card = [(path, arr) for path, cache_tag, _, arr in items
+                if _on_card_float(arr)
+                and (owner._quant_cache.get(path) or (None,))[0] != cache_tag]
+        tags = {path: cache_tag for path, cache_tag, _, _ in items}
+        done = binwire.quantize_leaves_int8_on_card(
+            [arr for _, arr in card],
+            [owner._pull_residuals.get(path) for path, _ in card])
+        for (path, _), (qleaf, residual) in zip(card, done):
+            owner._pull_residuals[path] = residual
+            owner._quant_cache[path] = (tags[path], qleaf)
     leaves: List[Tuple[Path, Any]] = []
     leaf_versions: Dict[Path, int] = {}
     for path, cache_tag, lver, arr in items:
@@ -395,18 +413,27 @@ class ParamShardServer:
             body = _body_cache_get(self, key, version)
             if body is not None:
                 return version, body
-            # The leaves without a host copy of their version come over
-            # in one pass; a stale copy goes first, so its pinned memory
+            # int8 pulls of float leaves on the card quantize there: only
+            # the int8 bodies and their scales come over. The other
+            # leaves without a host copy of their version come over in
+            # one pass; a stale copy goes first, so its pinned memory
             # can serve the new one.
+            on_card = ({path for path, leaf, _ in entries
+                        if _on_card_float(leaf)} if quant == "int8"
+                       else set())
             stale = {}
             for path, leaf, lver in entries:
                 cached = self._host_leaves.get(path)
-                if cached is None or cached[0] != lver:
+                if path not in on_card and (cached is None
+                                            or cached[0] != lver):
                     self._host_leaves.pop(path, None)
                     stale[path] = leaf
             fresh = tree_to_host(stale)
             items = []
-            for path, _leaf, lver in entries:
+            for path, leaf, lver in entries:
+                if path in on_card:
+                    items.append((path, lver, lver, leaf))
+                    continue
                 if path in fresh:
                     self._host_leaves[path] = (lver, fresh[path])
                 items.append((path, lver, lver, self._host_leaves[path][1]))

@@ -11,7 +11,10 @@ replica could serve: a hop that fails mid-request is retried on the
 remaining replicas until the request's own deadline, which is what
 makes a chaos-injected replica kill cost latency, not answers.
 
-Latency weights come from the replicas' buses (``serve.request_latency_s``).
+Latency weights come from the replicas' buses (``serve.request_latency_s``),
+or, when a :class:`~sparktorch_tpu_torch.obs.collector.FleetCollector`
+is attached (replicas export, the collector merges, the router reads
+one snapshot), from the collector's merged scrape.
 
 :class:`InferenceTier` bundles the common deployment: N replicas +
 router + a restart monitor (a dead replica is rebuilt from its last
@@ -20,12 +23,12 @@ per-replica :class:`~sparktorch_tpu_torch.serve.infer.WeightPuller`
 threads against a parameter server, so a training run's pushes reach
 every serving replica within a few poll intervals.
 
-Not ported yet: a fleet collector's scraped weights (``collector=``
-raises ``NotImplementedError``) and RPC trace spans (ROADMAP, Queue 1,
-item 10). The goodput ledger and the stack profiler are ported
-(``obs/goodput.py``, ``obs/profile.py``), but the router's goodput
-spans (``exposed_comm``) and the profiler that ``Router.start`` arms in
-the JAX package are not wired yet (step 4, with the trainers' hooks).
+Goodput: a hop (submit, queue and the replica's wall) is
+``exposed_comm{site=router}`` on the router process's ambient ledger,
+and a retry's backoff ``exposed_comm{site=router_retry}``; the
+replica's own ledger attributes its compute. Not ported yet (ROADMAP,
+Queue 1, step 4): RPC trace spans and the stack profiler that
+``Router.start`` arms in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import numpy as np
 
 from sparktorch_tpu_torch.ft.policy import FtPolicy
 from sparktorch_tpu_torch.net.transport import TransportError
+from sparktorch_tpu_torch.obs import goodput as _goodput
 from sparktorch_tpu_torch.serve.infer import (
     DeadlineExceeded,
     InferenceReplica,
@@ -79,9 +83,9 @@ class Router:
     training supervisor uses. ``heartbeat_dir`` is the replicas'
     shared heartbeat directory (rank == replica id);
     without one, liveness falls back to the handles' ``alive()``.
-    ``collector`` (the JAX package's fleet collector) is not ported
-    yet: passing one raises ``NotImplementedError`` (ROADMAP, Queue 1,
-    item 10).
+    ``collector`` (a started :class:`~sparktorch_tpu_torch.obs.collector.
+    FleetCollector`) makes routing read latency weights from the
+    collector's merged scrape instead of the handles' local buses.
     """
 
     def __init__(self, ft_policy: Optional[FtPolicy] = None,
@@ -91,10 +95,7 @@ class Router:
                  default_deadline_s: float = 30.0):
         from sparktorch_tpu_torch.obs import get_telemetry
 
-        if collector is not None:
-            raise NotImplementedError(
-                "Router(collector=...): the fleet collector (obs/"
-                "collector.py) is not ported yet (ROADMAP, Queue 1, item 10)")
+        self.collector = collector
         self.policy = ft_policy or FtPolicy()
         self.heartbeat_dir = heartbeat_dir
         self.telemetry = telemetry or get_telemetry()
@@ -268,6 +269,14 @@ class Router:
     def _latency_p50_fresh(self, rid: str,
                            st: _ReplicaState) -> Optional[float]:
         labels = {"replica": rid}
+        if self.collector is not None:
+            from sparktorch_tpu_torch.obs import snapshot_histogram
+
+            roll = snapshot_histogram(self.collector.merged_snapshot(),
+                                      "serve.request_latency_s", labels)
+            if roll and roll.get("p50") is not None:
+                return float(roll["p50"])
+            return None
         tele = getattr(st.handle, "telemetry", None)
         if tele is None:
             return None
@@ -335,8 +344,9 @@ class Router:
                 # while a short-lived eviction window still gets a fast
                 # first retry. The request's own deadline stays the
                 # shed knob: a client that wants a fast tier-wide 429
-                # passes a short deadline.
-                time.sleep(wait_s)
+                # passes a short deadline. The backoff is router wall.
+                with _goodput.span("exposed_comm", {"site": "router_retry"}):
+                    time.sleep(wait_s)
                 wait_s = min(wait_s * 2, 0.1)
                 continue
             wait_s = min(0.02, self.probe_interval_s)
@@ -345,8 +355,12 @@ class Router:
                 st.outstanding += 1
             remaining = max(deadline - time.monotonic(), 0.001)
             try:
-                fut = st.handle.submit(x, deadline_s=remaining)
-                out = fut.result(timeout=remaining + 1.0)
+                # The hop (submit, queue and the replica's wall) is
+                # this process's exposed comm; the replica's own ledger
+                # attributes its compute.
+                with _goodput.span("exposed_comm", {"site": "router"}):
+                    fut = st.handle.submit(x, deadline_s=remaining)
+                    out = fut.result(timeout=remaining + 1.0)
                 self.telemetry.counter("router.routed_total",
                                        labels={"replica": rid})
                 return out
@@ -401,8 +415,8 @@ class InferenceTier:
     ``module`` serves ``params`` (a ``state_dict``; the module's own
     weights when None), loaded into it in place; the replicas share it
     until a weight update gives each its own copy. ``device``: CUDA
-    unless ``"cpu"`` is asked for. ``collector`` is not ported yet
-    (ROADMAP, Queue 1, item 10)."""
+    unless ``"cpu"`` is asked for. ``collector`` goes to the
+    :class:`Router`."""
 
     def __init__(self, module, params=None, model_state=None,
                  n_replicas: int = 2, mesh=None,

@@ -55,8 +55,19 @@ rejoins by pulling the current server version, and a cancelled one
 :class:`~sparktorch_tpu_torch.ft.supervisor.WorkerPreempted`. A killed
 attempt flushes no records, so the rerun keeps the count exact.
 
-Not ported yet (ROADMAP, Queue 1, item 10, step 4): the goodput and
-health hooks.
+Goodput and model health, as in the JAX package: each worker's pull is
+``exposed_comm{site=hogwild_pull}``, the pulled parameters' load into
+its module ``data_wait{site=hogwild_place}``, a window a goodput step
+span of ``count=k`` steps (it stamps the skew ring), its push split by
+the transport's own stats into ``compute`` (materializing the
+gradients, which waits for the window's device work) and
+``exposed_comm`` (the wire), and the end-of-round drain of the losses
+``compute``. Each worker owns a
+:class:`~sparktorch_tpu_torch.obs.health.TrainHealthLedger` of rank
+``w<id>`` on the shared bus (so the ``health`` section is the composite
+``{"ranks": ...}``), fed each window's device losses, read back
+``fetch_lag`` windows late; ``SPARKTORCH_TPU_HEALTH=0`` turns it off.
+The supervised and process workers run the same loop.
 """
 
 from __future__ import annotations
@@ -80,6 +91,8 @@ from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.inference import _resolve_device
 from sparktorch_tpu_torch.models.transformer import collect_moe
 from sparktorch_tpu_torch.obs import get_logger, get_telemetry
+from sparktorch_tpu_torch.obs import goodput as _goodput
+from sparktorch_tpu_torch.obs import health as _health
 from sparktorch_tpu_torch.net.transport import (
     BinaryTransport,
     new_phase_stats,
@@ -328,6 +341,10 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
     tele = telemetry or get_telemetry()
     labels = {"worker": worker_id}
     dev = shard.x.device
+    # One health ledger per worker on the shared bus: a NaN on one
+    # worker surfaces as that worker's, never fleet-averaged.
+    hl = (_health.TrainHealthLedger(rank=f"w{worker_id}", telemetry=tele)
+          if _health.enabled() else None)
     try:
         transport.stats = new_phase_stats()  # per-round budget
         generator = torch.Generator().manual_seed(seed + worker_id)
@@ -350,27 +367,49 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
             if act and act.get("poison"):
                 shard = _chaos.poison_batch(shard)
             _chaos.straggle(worker_id, it)
-            snap = transport.pull(have_version)
+            # Wire waits are exposed comm (nothing overlaps them in this
+            # loop); loading the pulled parameters is a data wait.
+            with _goodput.span("exposed_comm", {"site": "hogwild_pull"}):
+                snap = transport.pull(have_version)
             if snap is not None:
                 have_version, params = snap
-                t0 = time.perf_counter()
-                load_params(module, params)
-                t_place += time.perf_counter() - t0
+                with _goodput.span("data_wait",
+                                   {"site": "hogwild_place"}) as place:
+                    load_params(module, params)
+                t_place += place.duration_s
             k = min(window_k, iters - it)
-            t0 = time.perf_counter()
-            with step_annotation(it, telemetry=tele, device=dev):
-                if window_k > 1 and grad_windows is not None:
-                    fn = grad_windows[0] if k == window_k else grad_windows[1]
-                    grads, losses = fn(module, shard, generator)
-                else:
-                    k = 1
-                    grads, losses = grad_step(module, shard, generator)
-            t_dispatch += time.perf_counter() - t0
+            # The window is dispatched asynchronously: the step span
+            # counts its steps and the dispatch wall; the device seconds
+            # land in compute at the push's materialize and the drain.
+            with _goodput.step_span(step=it) as led:
+                with step_annotation(it, telemetry=tele, device=dev):
+                    if window_k > 1 and grad_windows is not None:
+                        fn = (grad_windows[0] if k == window_k
+                              else grad_windows[1])
+                        grads, losses = fn(module, shard, generator)
+                    else:
+                        k = 1
+                        grads, losses = grad_step(module, shard, generator)
+                led.count = k
+            t_dispatch += led.duration_s
+            pre = (dict(transport.stats) if _goodput.active() is not None
+                   else None)
             transport.push(grads)
+            if pre is not None:
+                # The push by the transport's own stats: materializing
+                # the gradients waits for the window's device work
+                # (compute), the rest is the wire (exposed comm).
+                post = transport.stats
+                _goodput.add("compute", post["push_materialize_s"]
+                             - pre["push_materialize_s"])
+                _goodput.add("exposed_comm",
+                             post["push_wire_s"] - pre["push_wire_s"])
             tele.counter("hogwild.iters", k, labels=labels)
             tele.counter("hogwild.pushes", labels=labels)
             tele.gauge("hogwild.pulled_version", have_version, labels=labels)
             pending.append((it, k, have_version, losses, time.perf_counter()))
+            if hl is not None:
+                hl.note_step(step=it, count=k, device={"loss": losses})
             it += k
             if verbose:
                 log.info(f"[sparktorch_tpu_torch:hogwild] worker {worker_id} "
@@ -393,6 +432,10 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
             # worker's compute, for throughput.
             done[-1]["t_done"] = time.perf_counter()
         records.extend(done)
+        # The drain is where the windows' device compute lands.
+        _goodput.add("compute", time.perf_counter() - t_drain0)
+        if hl is not None:
+            hl.flush()
         if phase_out is not None:
             st = dict(transport.stats)
             st.update(worker=worker_id, pull_place_s=t_place,
@@ -643,6 +686,11 @@ def train_async(
         errors: List[BaseException] = []
         phase_stats: List[dict] = []
         ft_summaries: List[dict] = []
+        # The worker threads each attribute into the ambient goodput
+        # ledger: each is a lane, so its budget is lanes x wall.
+        ambient = _goodput.active()
+        if ambient is not None:
+            ambient.lanes = max(ambient.lanes, n_workers)
         x, y, w = (a.numpy() for a in train_batch)
         shuffle_rng = np.random.default_rng(seed + 1)
         # Exited in the outer finally, so a failed round still writes

@@ -30,6 +30,17 @@ layers' load-balance losses join the objective as the JAX step adds its
 sown losses, ``num = Σ w·ℓ + aux·den``, and their (dropped, routed)
 counts ride in the same all-reduce; ``drop_fraction`` is dropped /
 max(routed, 1), None for a model without MoE layers.
+
+Model health (``obs/health.py``): given ``health_buf`` (one tensor per
+trainable parameter, :func:`health_buffer`), the step also returns a
+:class:`HealthVec` — the JAX step's (``sparktorch_tpu/train/step.py:
+352-365``): the finite bit of the loss and the grad norm, the
+per-parameter grad norms (the same ``_foreach_norm`` the grad norm is
+made of) and ``‖update‖ / ‖new params‖``. ``optimizer.step()`` updates
+in place, so the update is measured against a copy: one
+``_foreach_copy_`` of the parameters into ``health_buf`` before the
+step, then a ``_foreach_sub_`` and two ``_foreach_norm`` after it. All
+of it stays on the device; the trainers read it back steps later.
 """
 
 from __future__ import annotations
@@ -45,12 +56,30 @@ from sparktorch_tpu_torch.models.transformer import collect_moe
 from sparktorch_tpu_torch.utils.data import DataBatch, sample_minibatch
 
 
+class HealthVec(NamedTuple):
+    """The step's model-health vector, on the device (the JAX step's
+    ``HealthVec``)."""
+
+    finite: torch.Tensor        # f32 scalar, 1.0 = loss and grad norm finite
+    update_ratio: torch.Tensor  # ‖update‖ / max(‖new params‖, 1e-12)
+    leaf_norms: torch.Tensor    # f32[n_params], health_leaf_keys order
+
+
 class StepMetrics(NamedTuple):
     loss: torch.Tensor       # weighted-mean train loss
     examples: torch.Tensor   # real (weight > 0 sum) examples this step
     grad_norm: torch.Tensor  # global L2 norm of the averaged gradients
     # dropped / routed MoE token-choices; None without MoE layers
     drop_fraction: Optional[torch.Tensor] = None
+    # the health vector; None unless the step was given a health_buf
+    health: Optional[HealthVec] = None
+
+
+def health_buffer(module: nn.Module) -> List[torch.Tensor]:
+    """The pre-step parameter copy :func:`train_step` measures the
+    update against: one empty tensor per trainable parameter."""
+    return [torch.empty_like(p) for p in module.parameters()
+            if p.requires_grad]
 
 
 def accepts_example_w(module: nn.Module) -> bool:
@@ -91,11 +120,14 @@ def train_step(module: nn.Module, loss_fn: Callable,
                optimizer: torch.optim.Optimizer, batch: DataBatch,
                mini_batch: Optional[int] = None,
                generator: Optional[torch.Generator] = None,
-               group=None) -> StepMetrics:
+               group=None,
+               health_buf: Optional[List[torch.Tensor]] = None
+               ) -> StepMetrics:
     """One optimizer step on ``batch`` (or a ``mini_batch``-row block of
     it, its offset drawn from the host-side ``generator``). With a
     process ``group``, ``batch`` is this rank's shard and the step is
-    data-parallel over the group (module docstring)."""
+    data-parallel over the group (module docstring). With
+    ``health_buf`` the metrics carry the :class:`HealthVec`."""
     mb = batch
     if mini_batch is not None and mini_batch < batch.size:
         mb = sample_minibatch(batch, generator, mini_batch)
@@ -112,12 +144,13 @@ def train_step(module: nn.Module, loss_fn: Callable,
         num = num + aux.to(num.dtype) * den
     num.backward()
 
-    grads = []
+    params, grads = [], []
     for p in module.parameters():
         if not p.requires_grad:
             continue
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+        params.append(p)
         grads.append(p.grad)
     num = num.detach()
     counts = moe.counts()  # (dropped, routed), f32
@@ -131,12 +164,30 @@ def train_step(module: nn.Module, loss_fn: Callable,
             torch._foreach_div_(stats, float(dist.get_world_size(group)))
     safe_den = den.clamp_min(1.0)
     torch._foreach_div_(grads, safe_den)
-    grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    leaf_norms = torch.stack(torch._foreach_norm(grads))
+    grad_norm = torch.linalg.vector_norm(leaf_norms)
+    loss = num / safe_den
+    health = None
+    if health_buf is not None:
+        with torch.no_grad():
+            torch._foreach_copy_(health_buf, params)
     optimizer.step()
+    if health_buf is not None:
+        with torch.no_grad():
+            torch._foreach_sub_(health_buf, params)  # old - new
+            update = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(health_buf)))
+            new = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(params)))
+            health = HealthVec(
+                finite=(torch.isfinite(loss)
+                        & torch.isfinite(grad_norm)).float(),
+                update_ratio=update / new.clamp_min(1e-12),
+                leaf_norms=leaf_norms.float())
     return StepMetrics(
-        loss=num / safe_den, examples=den, grad_norm=grad_norm,
+        loss=loss, examples=den, grad_norm=grad_norm,
         drop_fraction=None if counts is None
-        else counts[0] / counts[1].clamp_min(1.0))
+        else counts[0] / counts[1].clamp_min(1.0), health=health)
 
 
 @torch.no_grad()

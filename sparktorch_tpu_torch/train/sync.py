@@ -59,9 +59,27 @@ no device sync. Each dispatched chunk is a ``train_step`` range
 ``profile_dir`` captures a ``torch.profiler`` trace of the loop. The
 chaos sites ``worker.step``, ``data.batch`` (a poisoned batch replaces
 the resident one) and ``train.rank`` (a straggler's sleep) fire before
-each chunk's dispatch, beside the gang check. Not ported yet (ROADMAP,
-Queue 1): meshes with axes other than ``dp``, pipeline parallelism
-(item 8), and the goodput and health hooks (item 10, step 4).
+each chunk's dispatch, beside the gang check.
+
+Goodput and model health, as in the JAX package: each dispatched chunk
+is a goodput step span (``obs/goodput.py``; ``step_time_s`` comes off
+its duration, and it stamps the cross-rank skew ring), inside which
+the chunk's read-back lands; batch preparation and the streaming
+feeder's waits are ``data_wait``, the trainer's set-up is ``compile``
+(``site=train_init``) and the validation forward ``compute``
+(``site=eval``). The JAX trainer moves a step to ``compile`` when its
+jit cache grew under it; the port's counterpart is a hand-written
+kernel's first use, whose build and load (``ops/_build.py``) happen
+inside that step, so a step during which
+:func:`~sparktorch_tpu_torch.ops._build.loads` grew is re-bucketed to
+``compile``. The health lane (``obs/health.py``, on unless
+``SPARKTORCH_TPU_HEALTH=0``) is a per-rank ledger: each chunk's steps
+compute the :class:`~sparktorch_tpu_torch.train.step.HealthVec` on the
+card and the ledger reads it back ``fetch_lag`` chunks later; with a
+``replay_dir`` in its config it anchors the trainer's state before
+dispatch (after the ``data.batch`` chaos swapped in a poisoned batch)
+for replay bundles. Not ported yet (ROADMAP, Queue 1): meshes with
+axes other than ``dp`` and pipeline parallelism (item 8).
 """
 
 from __future__ import annotations
@@ -78,9 +96,16 @@ import torch.distributed as dist
 from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.inference import _resolve_device, torch_dtype
 from sparktorch_tpu_torch.obs import get_logger, get_telemetry
+from sparktorch_tpu_torch.obs import goodput as _goodput
+from sparktorch_tpu_torch.obs import health as _health
+from sparktorch_tpu_torch.ops import _build as _kernels
 from sparktorch_tpu_torch.parallel.launch import check_gang, notify_gang_step
 from sparktorch_tpu_torch.parallel.mesh import Mesh, build_mesh
-from sparktorch_tpu_torch.train.step import eval_step, train_step
+from sparktorch_tpu_torch.train.step import (
+    eval_step,
+    health_buffer,
+    train_step,
+)
 from sparktorch_tpu_torch.utils.checkpoint import CheckpointManager
 from sparktorch_tpu_torch.utils.data import (
     DataBatch,
@@ -275,11 +300,53 @@ def _dp_trainer(torch_obj, spec: ModelSpec, mesh: Mesh, dev: torch.device,
 
 def _dp_steps(n: int, module, loss_fn, optimizer, shards: "_Shards",
               mesh: Mesh, mini_batch: Optional[int] = None,
-              generator: Optional[torch.Generator] = None) -> list:
+              generator: Optional[torch.Generator] = None,
+              health_buf=None) -> list:
     """``n`` train steps on this rank's shard, queued back to back with
     no read-back; each makes its all-reduce over the mesh's group."""
     return [train_step(module, loss_fn, optimizer, shards.batch, mini_batch,
-                       generator, mesh.group) for _ in range(n)]
+                       generator, mesh.group, health_buf)
+            for _ in range(n)]
+
+
+def _health_lane(tele, rank, module):
+    """The run's health ledger (None when ``SPARKTORCH_TPU_HEALTH=0``),
+    re-based for this run, with its leaf keys, and the step's pre-step
+    parameter buffer."""
+    hl = _health.ensure(tele, rank=rank)
+    if hl is None:
+        return None, None
+    hl.reset()
+    if hl.leaf_keys is None:
+        hl.leaf_keys = _health.health_leaf_keys(module)
+    return hl, health_buffer(module)
+
+
+def _anchor(hl, module, optimizer):
+    """The ``data.batch`` chaos site's anchor callback: the pre-dispatch
+    replay anchor of ``hl`` (None without a ledger or a replay dir)."""
+    if hl is None or not hl.config.replay_dir:
+        return None
+    return lambda batch: hl.note_replay_anchor(
+        lambda: _health.trainer_state(module, optimizer), batch)
+
+
+def _note_health(hl, metrics: list, host_loss, host_gnorm) -> None:
+    """Hand a chunk's health vectors (left on the device, stacked over
+    the chunk's steps) and its read-back losses and grad norms to
+    ``hl``."""
+    if hl is None or not metrics:
+        return
+    hv = [m.health for m in metrics]
+    hl.note_step(
+        count=len(metrics),
+        device=None if hv[0] is None else {
+            "finite": torch.stack([h.finite for h in hv]),
+            "update_ratio": torch.stack([h.update_ratio for h in hv]),
+            "leaf_norms": torch.stack([h.leaf_norms for h in hv]),
+        },
+        host={"loss": np.asarray(host_loss, np.float32),
+              "grad_norm": np.asarray(host_gnorm, np.float32)})
 
 
 def _check_pipeline_args(n_micro: int, pipeline_schedule: str,
@@ -294,11 +361,12 @@ def _check_pipeline_args(n_micro: int, pipeline_schedule: str,
 
 
 def _fire_chaos(rank: int, step: int, batch: DataBatch,
-                kill: bool = True) -> DataBatch:
+                kill: bool = True, anchor=None) -> DataBatch:
     """The chaos sites before a chunk's dispatch, in the JAX package's
     order: ``worker.step`` (a seeded kill raises ``ChaosKill`` here),
-    ``data.batch`` (a poisoned copy replaces the resident batch), then
-    ``train.rank`` (a straggler sleeps before the step span, so its
+    ``data.batch`` (a poisoned copy replaces the resident batch), the
+    health ledger's replay ``anchor`` of the batch about to dispatch,
+    then ``train.rank`` (a straggler sleeps before the step span, so its
     delay shows as a late arrival, not a longer step). Returns the batch
     to dispatch."""
     if kill:
@@ -306,6 +374,8 @@ def _fire_chaos(rank: int, step: int, batch: DataBatch,
     act = _chaos.fire("data.batch", worker=rank, step=step)
     if act and act.get("poison"):
         batch = _chaos.poison_batch(batch)
+    if anchor is not None:
+        anchor(batch)
     _chaos.straggle(rank, step)
     return batch
 
@@ -363,7 +433,8 @@ def train_distributed(
             spec.input_shape = tuple(train_batch.x.shape[1:])
         shards = _Shards(train_batch, mesh, dev, seed, local=True)
     else:
-        with tele.span("train/data_prep"):
+        # Batch preparation and placement: the card waits on input.
+        with tele.span("train/data_prep"), _goodput.span("data_wait"):
             train_batch, val_batch = handle_features(data, labels,
                                                      validation_pct, seed)
             if spec.input_shape is None:
@@ -374,10 +445,13 @@ def train_distributed(
                              shard_batch(val_batch, mesh.rank, mesh.dp)
                              ).to(dev)
 
-    with tele.span("train/init"):
+    with tele.span("train/init"), _goodput.span("compile",
+                                                 {"site": "train_init"}):
         module, optimizer, loss_fn, ckpt, global_step = _dp_trainer(
             torch_obj, spec, mesh, dev, checkpoint_dir, resume)
     last_ckpt_step = global_step
+    hl, health_buf = _health_lane(tele, mesh.rank, module)
+    anchor = _anchor(hl, module, optimizer)
 
     stopper = (EarlyStopping(patience=early_stop_patience)
                if early_stop_patience is not None and early_stop_patience > 0
@@ -406,25 +480,42 @@ def train_distributed(
                 # the chaos sites sit beside the check.
                 check_gang()
                 notify_gang_step(i)
-                shards.batch = _fire_chaos(mesh.rank, i, shards.batch)
+                shards.batch = _fire_chaos(mesh.rank, i, shards.batch,
+                                           anchor=anchor)
                 n = min(chunk, iters - i)
                 first = (recorder.records[-1]["iter"] + 1
                          if recorder.records else 0)
-                with tele.span("train/step_chunk" if chunk > 1
-                               else "train/step"), \
-                        step_annotation(first, telemetry=tele, device=dev):
-                    t0 = time.perf_counter()
-                    steps = _dp_steps(n, module, loss_fn, optimizer, shards,
-                                      mesh, mini_batch, sample_gen)
-                    # The chunk's one read-back: (n, 3) loss, examples,
-                    # grad norm, and the MoE drop fraction where the model
-                    # has one. The span closes after it: no extra sync.
-                    host = torch.stack(
-                        [torch.stack([v for v in m if v is not None])
-                         for m in steps]).tolist()
-                    dt = (time.perf_counter() - t0) / n
-                val_loss = (float(eval_step(module, loss_fn, val_batch, group))
-                            if val_batch is not None else None)
+                loads0 = (_kernels.loads() if _goodput.active() is not None
+                          else None)
+                with _goodput.step_span(step=i) as led:
+                    with tele.span("train/step_chunk" if chunk > 1
+                                   else "train/step"), \
+                            step_annotation(first, telemetry=tele,
+                                            device=dev):
+                        steps = _dp_steps(n, module, loss_fn, optimizer,
+                                          shards, mesh, mini_batch,
+                                          sample_gen, health_buf)
+                        # The chunk's one read-back: (n, 3) loss,
+                        # examples, grad norm, and the MoE drop fraction
+                        # where the model has one. The spans close after
+                        # it: no extra sync.
+                        host = torch.stack(
+                            [torch.stack([v for v in m[:4] if v is not None])
+                             for m in steps]).tolist()
+                        # Inside the range, so the lane's device work
+                        # (the stacks, the delayed read) is the step's.
+                        _note_health(hl, steps, [r[0] for r in host],
+                                     [r[2] for r in host])
+                    led.count = n
+                    if loads0 is not None and _kernels.loads() > loads0:
+                        led.rebucket("compile")
+                dt = led.duration_s / n
+                val_loss = None
+                if val_batch is not None:
+                    # Productive device work, just not a train step.
+                    with _goodput.span("compute", {"site": "eval"}):
+                        val_loss = float(eval_step(module, loss_fn,
+                                                   val_batch, group))
                 for loss, examples, gnorm, *drop in host:
                     record = {
                         "round": shuffle_round,
@@ -463,6 +554,9 @@ def train_distributed(
         completed = True
     finally:
         profiler.__exit__(None, None, None)
+        if hl is not None:
+            # The delayed fetch's tail: the section ends on the last step.
+            hl.flush()
         _finalize_checkpoint(ckpt, module, optimizer, global_step,
                              completed, mesh)
     return _result(module, spec, recorder)
@@ -680,10 +774,14 @@ def train_distributed_streaming(
     steps = steps_per_chunk or (-(-chunk_rows // mini_batch)
                                 if mini_batch is not None else 1)
 
-    module, optimizer, loss_fn = _build_trainer(torch_obj, spec, dev)
+    # Set-up, the JAX trainer's compile-dominated init.
+    with _goodput.span("compile", {"site": "train_init"}):
+        module, optimizer, loss_fn = _build_trainer(torch_obj, spec, dev)
     ckpt, global_step = _open_checkpoint(checkpoint_dir, resume, module,
                                          optimizer)
     last_ckpt_step = global_step
+    hl, health_buf = _health_lane(tele, 0, module)
+    anchor = _anchor(hl, module, optimizer)
     # Fold the restored step into the shuffle seed: a resumed run draws
     # fresh permutations instead of replaying the epochs already run.
     shuffle_rng = np.random.default_rng(seed + 1 + global_step)
@@ -699,24 +797,39 @@ def train_distributed_streaming(
             check_gang()
             order = shuffle_rng.permutation(n)
             starts = range(0, n, chunk_rows)
-            pending = feeder.put(order[:chunk_rows])
+            # The epoch's first chunk has nothing to hide under.
+            with _goodput.span("data_wait", {"site": "streaming_chunk"}):
+                pending = feeder.put(order[:chunk_rows])
             for ci, lo in enumerate(starts):
                 check_gang()
                 notify_gang_step(it)
-                batch = _fire_chaos(0, it, feeder.take(pending), kill=False)
-                with tele.span("train_streaming/chunk"):
-                    t0 = time.perf_counter()
+                batch = _fire_chaos(0, it, feeder.take(pending), kill=False,
+                                    anchor=anchor)
+                loads0 = (_kernels.loads() if _goodput.active() is not None
+                          else None)
+                with _goodput.step_span(step=it) as led, \
+                        tele.span("train_streaming/chunk"):
                     metrics = [train_step(module, loss_fn, optimizer, batch,
-                                          mini_batch, sample_gen)
+                                          mini_batch, sample_gen,
+                                          health_buf=health_buf)
                                for _ in range(steps)]
-                    # The next chunk's upload rides under these steps.
+                    # The next chunk's upload rides under these steps; its
+                    # host-side wait is a nested data_wait.
                     if ci + 1 < len(starts):
                         nxt = starts[ci + 1]
-                        pending = feeder.put(order[nxt:nxt + chunk_rows])
-                    host = torch.stack([torch.stack((m.loss, m.examples))
+                        with _goodput.span("data_wait",
+                                           {"site": "streaming_chunk"}):
+                            pending = feeder.put(order[nxt:nxt + chunk_rows])
+                    host = torch.stack([torch.stack((m.loss, m.examples,
+                                                     m.grad_norm))
                                         for m in metrics]).tolist()
-                    dt = (time.perf_counter() - t0) / steps
-                for loss, examples in host:
+                    _note_health(hl, metrics, [r[0] for r in host],
+                                 [r[2] for r in host])
+                    led.count = steps
+                    if loads0 is not None and _kernels.loads() > loads0:
+                        led.rebucket("compile")
+                dt = led.duration_s / steps
+                for loss, examples, _gnorm in host:
                     record = {
                         "round": epoch, "iter": it, "loss": loss,
                         "val_loss": None, "examples": examples,
@@ -735,5 +848,7 @@ def train_distributed_streaming(
                              f"{ci} loss {host[-1][0]:.6f}")
         completed = True
     finally:
+        if hl is not None:
+            hl.flush()
         _finalize_checkpoint(ckpt, module, optimizer, global_step, completed)
     return _result(module, spec, recorder)

@@ -11,6 +11,8 @@ Layout: ``<dir>/<step>/state.pt``. A save writes
 does not exist; then the directory is pruned to ``max_to_keep`` steps.
 Tensors go to the CPU before ``torch.save`` (a CUDA tensor would pickle
 its device), and ``restore`` loads under ``weights_only=True``.
+Each save and restore is a goodput ``checkpoint`` span (``op`` save,
+restore, save_model, load_model), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import shutil
 from typing import Any, Optional
 
 import torch
+
+from sparktorch_tpu_torch.obs import goodput as _goodput
 
 _TMP_MARKER = ".tmp-"
 _STATE_FILE = "state.pt"
@@ -101,7 +105,8 @@ class CheckpointManager:
         tmp = f"{final}{_TMP_MARKER}{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        _save_file(os.path.join(tmp, _STATE_FILE), state)
+        with _goodput.span("checkpoint", {"op": "save"}):
+            _save_file(os.path.join(tmp, _STATE_FILE), state)
         if os.path.exists(final):  # a forced save over the same step
             shutil.rmtree(final)
         os.replace(tmp, final)
@@ -130,8 +135,9 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self._dir}")
-        return _load_file(os.path.join(self._dir, str(step), _STATE_FILE),
-                          map_location)
+        with _goodput.span("checkpoint", {"op": "restore"}):
+            return _load_file(os.path.join(self._dir, str(step),
+                                           _STATE_FILE), map_location)
 
     def wait(self) -> None:
         pass
@@ -151,12 +157,14 @@ def save_model(directory: str, params: Any, model_state: Any = None) -> None:
     optional ``model_state`` under ``<directory>/model/``."""
     path = os.path.join(os.path.abspath(directory), "model")
     os.makedirs(path, exist_ok=True)
-    _save_file(os.path.join(path, _STATE_FILE),
-               {"params": params, "model_state": model_state or {}})
+    with _goodput.span("checkpoint", {"op": "save_model"}):
+        _save_file(os.path.join(path, _STATE_FILE),
+                   {"params": params, "model_state": model_state or {}})
 
 
 def load_model(directory: str, map_location=None):
     """``(params, model_state)`` as :func:`save_model` wrote them."""
-    out = _load_file(os.path.join(os.path.abspath(directory), "model",
-                                  _STATE_FILE), map_location)
+    with _goodput.span("checkpoint", {"op": "load_model"}):
+        out = _load_file(os.path.join(os.path.abspath(directory), "model",
+                                      _STATE_FILE), map_location)
     return out["params"], out.get("model_state") or {}

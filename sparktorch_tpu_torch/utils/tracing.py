@@ -8,11 +8,10 @@ trace and, on a CUDA device, as an NVTX range. The bookkeeping is the
 JAX package's: the ``tracing.profile_runs`` counter, the
 ``tracing.profile_s`` histogram (the capture's wall cost), the
 ``tracing.trace_url`` info value, the ``profile_trace`` event and the
-``tracing.annotated_steps`` counter.
-
-Not ported yet (ROADMAP, Queue 1, item 10, step 4): the trace analyzer
-(``obs/xprof.py``) that the JAX package runs over a finished capture,
-so ``profile_run``'s handle keeps ``"analysis": None``.
+``tracing.annotated_steps`` counter. With ``analyze`` (the default) a
+finished capture is read by the trace analyzer
+(:func:`~sparktorch_tpu_torch.obs.xprof.analyze_and_publish`), told how
+many ``train_step`` ranges the bus counted during the capture.
 """
 
 from __future__ import annotations
@@ -52,17 +51,20 @@ def profile_run(log_dir: Optional[str], telemetry=None,
     profiler plugin reads; chrome://tracing and Perfetto open it too).
 
     Yields a handle dict: ``"trace_path"`` is the written file once the
-    block exits (None when profiling is off), and ``"analysis"`` stays
-    None — the JAX package's analyzer is not ported yet, and its
-    contract allows None ("analysis disabled"). ``analyze`` is accepted
-    for the JAX signature."""
-    del analyze
+    block exits (None when profiling is off), and ``"analysis"`` the
+    :class:`~sparktorch_tpu_torch.obs.xprof.TraceAnalysis` of the
+    capture, published onto the bus (None when ``analyze`` is off or
+    the analysis failed: a torn capture bumps
+    ``xprof.analyze_failures`` and never raises). The analyzer's
+    truncation check compares the trace's ``train_step`` ranges with
+    the ``tracing.annotated_steps`` counted during the capture."""
     handle: dict = {"analysis": None, "trace_path": None}
     if not log_dir:
         yield handle
         return
     tele = telemetry or get_telemetry()
     tele.counter("tracing.profile_runs")
+    steps_before = tele.counter_value("tracing.annotated_steps")
     # Not a span: a span here would sit on the thread's span stack for
     # the whole run and re-path every trainer span under it, so metric
     # names would depend on whether profiling is on. A histogram
@@ -90,6 +92,14 @@ def profile_run(log_dir: Optional[str], telemetry=None,
         tele.info("tracing.trace_url", url)
         tele.event("profile_trace", log_dir=log_dir, trace_url=url,
                    view_cmd=f"tensorboard --logdir {log_dir}")
+        if analyze:
+            from sparktorch_tpu_torch.obs.xprof import analyze_and_publish
+
+            expected = int(tele.counter_value("tracing.annotated_steps")
+                           - steps_before)
+            handle["analysis"] = analyze_and_publish(
+                path, telemetry=tele,
+                expected_steps=expected if expected > 0 else None)
 
 
 @contextlib.contextmanager

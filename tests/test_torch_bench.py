@@ -50,6 +50,35 @@ def test_sync_epoch_bench_measures_a_positive_slope():
     assert np.isfinite(rec["final_loss"])
 
 
+def test_sync_epoch_bench_trace_phase_gives_the_comm_budget():
+    # moe_lm's trace keys: an analysed capture of two more calls; one
+    # process, no group, so no collective.
+    x, y = _mnist()
+    rec = bench._sync_epoch_bench(_tiny_mlp_spec(), x, y, 64, iters=3,
+                                  repeats=2, device="cpu", with_trace=True)
+    budget = rec["comm_budget"]
+    assert set(budget) == {"comm_s", "comm_fraction", "overlap_fraction",
+                           "collective_s", "collective_counts",
+                           "n_collective_events"}
+    assert budget["comm_s"] == rec["comm_fraction"] == 0
+    assert rec["overlap_fraction"] == 0
+    assert rec["phase_s"]["comm_s"] == 0 and rec["phase_s"]["trace"] > 0
+    moe_keys, omitted, added = bench.RECORD_KEYS["moe_lm"]
+    assert not omitted and {"comm_budget", "comm_fraction",
+                            "overlap_fraction", "comm_drift"} <= moe_keys
+
+
+def test_gang_obs_gates_hold_on_the_cpu():
+    # The JAX gate on torch.profiler-shaped synthetic ranks: merged
+    # scrapes reconcile, the gang budget sums and maxes, the truncation
+    # warning trips once.
+    rec = bench.bench_gang_obs()
+    assert set(rec) == bench.RECORD_KEYS["gang_obs"][0]
+    assert rec["gang_step_skew_s"] > 0 and rec["truncation_trips"] == 1
+    assert rec["gang_comm_fraction"] == pytest.approx(1 / 3, abs=1e-4)
+    assert rec["gang_drift"]["status"] == "no_prior_record"
+
+
 def test_steady_rate_drops_the_first_windows():
     # Two workers, windows of 4 iterations dispatched at t = 0, 1, 2, 3:
     # the 16 iterations dispatched after the second stamp (t = 1) over
@@ -135,7 +164,8 @@ def test_config_choices_and_unported_options():
         "mnist_mlp_sync", "mnist_cnn_sync", "lazy_cnn_sync",
         "resnet18_hogwild", "hogwild_wire", "bert_dp",
         "resnet50_inference", "long_context_lm", "moe_lm", "serve_online",
-        "hogwild_ps_fleet", "hogwild_chaos", "hogwild_chaos_soak"}
+        "hogwild_ps_fleet", "hogwild_chaos", "hogwild_chaos_soak",
+        "gang_obs", "elastic_ctl"}
     with pytest.raises(SystemExit):
         bench.main(["--config", "moe_a2a"])  # needs an ep mesh axis
     # --telemetry-dump is ported: without a card the run raises first.

@@ -15,6 +15,7 @@ JAX import sits inside a test function.
 import os
 import threading
 import time
+import types
 
 import pytest
 
@@ -262,8 +263,11 @@ def test_elastic_min_world_floor_and_unported_collector(tmp_path):
     ctl.add_rank(1, start_fn)
     with pytest.raises(WorkerFailed, match="min_world"):
         ctl.run(poll_interval_s=0.01, deadline_s=30)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ElasticController(work, lambda p: True, collector=object())
+    # The fleet collector is ported: the controller reads its /gang view.
+    view = {"ranks": {}, "heartbeats": {"ranks": {}}}
+    collector = types.SimpleNamespace(gang_view=lambda: view)
+    assert ElasticController(work, lambda p: True,
+                             collector=collector)._gang_view() is view
     with pytest.raises(ValueError):
         ElasticController(work, lambda p: True).add_rank(0)
 

@@ -405,11 +405,12 @@ def test_unported_settings_name_the_roadmap(setting, match):
 # Telemetry and chaos (the JAX names, the same counts)
 # ---------------------------------------------------------------------------
 
-# Names of modules the port has not ported yet (ROADMAP, Queue 1, item
-# 10, step 4): the JAX workers' health ledgers and stack profiler
-# publish them, and the JAX wire client's request tracer samples 1% of
-# its requests by default.
-UNPORTED = ("health.", "profile.", "xprof.", "rpctrace.")
+# Names the port's runs do not publish: the JAX trainer arms the stack
+# profiler (``profile.*``, which the port's hogwild driver leaves off),
+# and the JAX wire client's request tracer (``rpctrace.*``, not ported
+# yet) samples 1% of its requests by default. The workers' health
+# ledgers' ``health.*`` names are compared.
+UNPORTED = ("profile.", "xprof.", "rpctrace.")
 # The frame tables name the leaves (Flax paths against state_dict
 # names), so the bytes on the wire differ between the packages.
 WIRE_BYTES = "param_server.wire_bytes_total"
@@ -523,3 +524,46 @@ def test_worker_chaos_sites_match_jax(config, site):
     if site == "train.rank":
         np.testing.assert_allclose(out["port"][1], out["jax"][1],
                                    atol=1e-5, rtol=1e-5)
+
+
+def test_worker_health_ledgers_and_goodput_match_jax():
+    """One health ledger a worker (rank ``w<id>``) on the shared bus: a
+    batch poisoned on worker 1 surfaces as w1's anomaly in both
+    packages, w0 clean; under each package's goodput ledger the pulls
+    are exposed comm, the loads data waits, the windows steps (one
+    stamp each) and the drains compute."""
+    from sparktorch_tpu import ft as jax_ft
+    from sparktorch_tpu import obs as jax_obs
+    from sparktorch_tpu.obs import goodput as jax_goodput
+    from sparktorch_tpu.obs import health as jax_health
+    from sparktorch_tpu_torch import ft, obs
+    from sparktorch_tpu_torch.obs import goodput, health
+
+    jax_obj, obj, _ = _pair("mlp")
+    x, y = _data((48,), n=48)
+    out = {}
+    for name, o, g, h, pkg, run in (
+            ("jax", jax_obs, jax_goodput, jax_health, jax_ft,
+             lambda t: jax_train_async(jax_obj, x, labels=y, iters=6,
+                                       partitions=2, seed=0, telemetry=t)),
+            ("port", obs, goodput, health, ft,
+             lambda t: train_async(obj, x, labels=y, iters=6, partitions=2,
+                                   seed=0, telemetry=t, device="cpu"))):
+        tele = o.Telemetry(run_id=name)
+        led = g.GoodputLedger(tele, rank=0)
+        with led.activate(), pkg.inject(pkg.ChaosConfig(
+                poison_batch_at={1: 5}), telemetry=tele):
+            run(tele)
+        merged = h.merge_sections({"driver": tele.get_section("health")})
+        doc = led.snapshot()
+        out[name] = (
+            sorted((a["rank"], a["akind"], a["step"])
+                   for a in merged["anomalies"]),
+            {r: d["steps_ingested"] for r, d in merged["per_rank"].items()},
+            {b for b, v in doc["buckets"].items() if v > 0} - {"idle"},
+            doc["n_steps"], doc["lanes"], len(led.skew.snapshot()["stamps"]))
+    assert out["port"][:2] == out["jax"][:2]
+    assert out["port"][0] == [("w1", "nonfinite", 5)]
+    assert out["port"][2] >= {"compute", "exposed_comm", "data_wait"}
+    assert out["port"][2] <= out["jax"][2] | {"compute"}
+    assert out["port"][3:] == (12, 2, 12)

@@ -241,7 +241,13 @@ def test_run_hogwild_worker_takes_ctx_telemetry():
     assert snap["counters"] == {"hogwild.iters{worker=3}": 4.0,
                                 "hogwild.pushes{worker=3}": 2.0,
                                 "tracing.annotated_steps": 2.0}
-    assert sorted(snap["gauges"]) == ["hogwild.pulled_version{worker=3}"]
+    # The worker's health ledger (rank w3) publishes the health.* gauges.
+    assert sorted(snap["gauges"]) == sorted(
+        ["hogwild.pulled_version{worker=3}", "health.loss{rank=w3}",
+         "health.last_step{rank=w3}", "health.pending_fetch{rank=w3}"]
+        + [f"health.anomaly{{akind={k},rank=w3}}" for k in (
+            "nonfinite", "loss_spike", "grad_explosion", "plateau")])
+    assert snap["sections"]["health"]["ranks"]["w3"]["steps_ingested"] == 4
     # As in the JAX package, a worker process keeps no phase histograms.
     assert snap["histograms"] == {}
     assert server.telemetry.counter_value("param_server.applies") == 2.0

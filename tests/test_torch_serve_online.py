@@ -647,8 +647,10 @@ def test_unported_paths_raise_and_name_their_item(trained):
         assert puller.poll_once() is False and puller.version == -1
     finally:
         rep.stop()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Router(collector=object())
+    # The fleet collector is ported: a router takes one (its weights
+    # come from the collector's merged scrape).
+    collector = types.SimpleNamespace(merged_snapshot=lambda: {})
+    assert Router(collector=collector).collector is collector
     # The ctl worker context is ported: beside the JAX entry, a ctx whose
     # cancel is already set returns the same document at once, and the
     # stack profiler is armed on the context's bus.

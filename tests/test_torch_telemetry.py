@@ -211,7 +211,8 @@ def test_heartbeat_freeze_under_chaos_matches_jax(tmp_path):
 
 
 def test_obs_exports_the_core_only():
-    # The core, and the ported modules the supervisor and ctl/ import.
+    # The core, the ported modules the supervisor and ctl/ import, and
+    # the health lane, replay, trace analyzer and fleet collector.
     assert set(obs.__all__) == {
         "Span", "Telemetry", "format_key", "get_telemetry", "set_telemetry",
         "wall_ts", "JsonlSink", "read_jsonl", "write_jsonl",
@@ -221,7 +222,11 @@ def test_obs_exports_the_core_only():
         "AlertManager", "AlertRule", "FlightRecorder", "attach_recorder",
         "collect_postmortem", "read_postmortem", "GoodputLedger",
         "LedgerSpan", "mfu_honest", "ScrapeError", "mint_run_id", "run_tag",
-        "scrape_json", "scrape_text", "snapshot_histogram"}
+        "scrape_json", "scrape_text", "snapshot_histogram", "HealthConfig",
+        "TrainHealthLedger", "health_alert_rules", "tree_checksum",
+        "load_bundle", "replay_bundle", "GangAnalysis", "TraceAnalysis",
+        "TraceParseError", "analyze_and_publish", "analyze_trace",
+        "merge_analyses", "FleetCollector"}
     assert set(obs.__all__) < set(jax_obs.__all__)
     assert obs.HEARTBEAT_DIR_ENV == jax_obs.HEARTBEAT_DIR_ENV
     assert json.loads(json.dumps(obs.Telemetry().snapshot()))["counters"] == {}

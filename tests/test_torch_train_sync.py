@@ -429,11 +429,13 @@ def test_streaming_positional_call_and_metrics_hook_run_alike():
     assert set(got.summary) == set(want.summary)
 
 
-# Names of modules the port has not ported yet (ROADMAP, Queue 1, item
-# 10, step 4): the JAX trainers' health ledger, stack profiler and trace
-# analyzer publish them, and the JAX request tracer samples 1% of wire
-# requests by default.
-UNPORTED = ("health.", "profile.", "xprof.", "rpctrace.")
+# Names the port's fits do not publish: the JAX trainers arm the stack
+# profiler (``profile.*``, which the port's trainers leave off), a JAX
+# capture's analysis (``xprof.*``) follows from its compile-laden
+# trace, and the JAX request tracer (``rpctrace.*``, not ported yet)
+# samples 1% of wire requests by default. The health lane's
+# ``health.*`` names are compared.
+UNPORTED = ("profile.", "xprof.", "rpctrace.")
 
 
 def _named(snap):
@@ -522,3 +524,66 @@ def test_chaos_sites_of_the_sync_fit_match_jax(make, site):
         assert [e["step"] for e in out["port"][0]] == [1, 2, 3]
         np.testing.assert_allclose(out["port"][1], out["jax"][1],
                                    atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("streaming", [False, True],
+                         ids=["resident", "streaming"])
+def test_fit_goodput_and_health_lanes_match_jax(streaming, monkeypatch):
+    """Under each package's goodput ledger: the same buckets hold
+    seconds and the steps count alike (the JAX trainer moves its first
+    chunk, which compiles, to ``compile`` and stamps no skew step for
+    it; the port does so only at a kernel's first build, none on the
+    CPU), and the health sections agree. With
+    ``SPARKTORCH_TPU_HEALTH=0`` the port's ``data_wait{site=health}``
+    is exactly 0."""
+    from sparktorch_tpu import obs as jax_obs
+    from sparktorch_tpu.obs import goodput as jax_goodput
+    from sparktorch_tpu.train.sync import (
+        train_distributed_streaming as jax_streaming,
+    )
+    from sparktorch_tpu_torch import obs
+    from sparktorch_tpu_torch.obs import goodput
+    from sparktorch_tpu_torch.train.sync import train_distributed_streaming
+
+    jax_obj, obj, x, y = _mlp_pair()
+    if streaming:
+        kw, n_steps, chunk = dict(labels=y, chunk_rows=16, epochs=2), 4, 1
+        runs = (lambda t: jax_streaming(jax_obj, x, telemetry=t, **kw),
+                lambda t: train_distributed_streaming(obj, x, telemetry=t,
+                                                      device="cpu", **kw))
+    else:
+        kw, n_steps, chunk = dict(labels=y, iters=6, steps_per_call=3), 6, 3
+        runs = (lambda t: jax_train(jax_obj, x, telemetry=t, **kw),
+                lambda t: train_distributed(obj, x, telemetry=t,
+                                            device="cpu", **kw))
+    docs = {}
+    for name, o, g, run in (("jax", jax_obs, jax_goodput, runs[0]),
+                            ("port", obs, goodput, runs[1])):
+        tele = o.Telemetry(run_id=name)
+        led = g.GoodputLedger(tele, rank=0)
+        with led.activate():
+            run(tele)
+        docs[name] = (led.snapshot(), led.skew.snapshot(),
+                      tele.get_section("health")["ranks"]["0"], led)
+    (jdoc, jskew, jhealth, _), (pdoc, pskew, phealth, pled) = (
+        docs["jax"], docs["port"])
+    positive = {b for b, v in jdoc["buckets"].items() if v > 0} - {"idle"}
+    assert {b for b, v in pdoc["buckets"].items() if v > 0} - {"idle"} \
+        == positive >= {"compute", "compile", "data_wait"}
+    moved = jdoc["compiles"] - pdoc["compiles"]  # chunks re-bucketed
+    assert pdoc["compiles"] == 1 and moved >= 1  # the set-up; compiles
+    assert pdoc["n_steps"] == n_steps == jdoc["n_steps"] + chunk * moved
+    # A re-bucketed span stamps no skew step.
+    assert len(pskew["stamps"]) == len(jskew["stamps"]) + moved
+    for key in ("steps_ingested", "last_step", "counts", "fetch_lag"):
+        assert phealth[key] == jhealth[key], key
+    assert phealth["steps_ingested"] == n_steps
+    assert pled.site_s("data_wait", "health") > 0
+
+    monkeypatch.setenv("SPARKTORCH_TPU_HEALTH", "0")
+    tele = obs.Telemetry(run_id="off")
+    off = goodput.GoodputLedger(tele, rank=0)
+    with off.activate():
+        runs[1](tele)
+    assert off.site_s("data_wait", "health") == 0.0
+    assert tele.get_section("health") is None
