@@ -50,7 +50,8 @@ the CPU path):
    dense CE: loss within 1e-2 (relative), grad norm within 1e-2, and a
    gradient cosine above 0.99 for every parameter;
 7. bench: the configs of ``sparktorch_tpu_torch.bench.CONFIGS`` but
-   ``serve_online`` and ``hogwild_ps_fleet`` (the port's benchmark entry: BASELINE configs 1–5,
+   ``serve_online``, ``hogwild_ps_fleet``, ``rpc_trace`` and the other
+   obs configs (OBS_CONFIGS: CPU tests only) (the port's benchmark entry: BASELINE configs 1–5,
    the MNIST-CNN headline, ``hogwild_wire``, the long-context LM, the
    MoE LM, ``hogwild_chaos`` and ``hogwild_chaos_soak``, whose JAX gates
    raise inside them; those of BENCH_DEPTH at a cut depth; ``hogwild_wire`` at the
@@ -174,6 +175,20 @@ the CPU path):
    ones, losses finite, 12/12/12 launches a step; (d) one worker of a
    2-layer encoder at BERT-base width, 3 steps, float32 pulls, on 4
    shards against the single server: parameters within 1e-6·max|param|;
+   rpc, a leg of (b) on its module and fleet, every request sampled:
+   (a) 32 traced single-row requests through a fresh 2-replica
+   ``InferenceTier``: 32 trees ``infer`` → ``replica`` →
+   {``queue_wait``, ``execute``}, each root's wall at least its slowest
+   child's, 12 ``flash_fwd`` launches a batch the trace shows, the rows
+   equal to an untraced rerun's bit for bit and within 5e-2·max(1,
+   max|logit|) of dense attention; (b) traced int8 delta pulls of the
+   fleet's leaves through a ``ShardedTransport`` — the first sync, a
+   dense push's pull, whose hops' ``shard_pull``, ``serve`` and
+   ``render`` seconds are (d), and a pull with shard 2 slowed 1.0 s —
+   each one tree of 4 ``shard_pull`` → ``serve`` → ``render`` hops, the
+   slowed shard the critical path in ``FleetCollector.rpc_traces()`` and
+   in ``timeline --rpc`` from the collector's JSONL sink; (c) the
+   bench's ``rpc_trace`` at the JAX depth, every gate holding;
 18. supervise: the ft supervisor and ``ctl/`` on the LM of phase 5 at
    s = 2,048 (no remat) on 2 rows — (a) ``train_async(supervise=True,
    ft_policy=...)`` over local transport, 8 steps clean and under
@@ -191,7 +206,7 @@ the CPU path):
    ``supervise=True``.
 
 No kernel of KERNELS lies on phases 8, 11–14, on 15 (c), (d), on 16
-(a), on 17 (a), on the bench's chaos configs, in this process during
+(a), on 17 (a), on 17's rpc (b) and (c), on the bench's chaos configs, in this process during
 18 (b) and on the moe phase's (d): each expects 0 launches. Phase 15 runs after every kernel is built, so its
 executor processes load the built kernels.
 The total wall time prints before the last two lines.
@@ -339,6 +354,11 @@ BENCH_DEPTH = {"resnet18_hogwild": dict(iters=64, **_SYNC_DEPTH),
                "moe_lm": _SYNC_DEPTH,
                "hogwild_chaos_soak": dict(rounds=2, freeze_rounds=1),
                "hogwild_ps_fleet": dict(pairs=2)}
+# The bench's obs configs: rpc_trace runs in the fleet phase's rpc leg;
+# the other five (no kernel on their paths, ~1 minute together) run in
+# the CPU tests only.
+OBS_CONFIGS = ("rpc_trace", "health", "goodput", "skew", "profile",
+               "obs_history")
 # The serving tier's phase: BERT-base (flash, bf16 compute) behind an
 # InferenceTier of SERVE_REPLICAS replicas with buckets SERVE_BUCKETS,
 # SERVE_REQUESTS open-loop single-row requests of SERVE_SEQ ids at twice
@@ -2462,8 +2482,9 @@ def bench_hogwild_wire_dump(torch, bench):
 def bench_phase(torch):
     """The configs of ``bench.CONFIGS`` (the port's benchmark entry; those
     of BENCH_DEPTH at a cut depth, the sync legs' span at BENCH_SPAN_S)
-    but ``serve_online`` and ``hogwild_ps_fleet``, which their own phases
-    run, each record printed on a line of its own and held to the JAX
+    but ``serve_online``, ``hogwild_ps_fleet`` and ``rpc_trace``, which
+    their own phases run, and OBS_CONFIGS' other five (CPU tests only),
+    each record printed on a line of its own and held to the JAX
     config's keys less the documented omissions, with the launches it
     made; ``hogwild_wire`` runs once through the CLI with
     ``--telemetry-dump``."""
@@ -2478,7 +2499,8 @@ def bench_phase(torch):
     chaos = ("hogwild_chaos", "hogwild_chaos_soak", "gang_obs")
     configs = {k: v for k, v in bench.CONFIGS.items()
                if k not in ("serve_online", "hogwild_wire",
-                            "hogwild_ps_fleet", "elastic_ctl", *chaos)}
+                            "hogwild_ps_fleet", "elastic_ctl", *chaos,
+                            *OBS_CONFIGS)}
     for name, config in configs.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -3872,13 +3894,250 @@ def fleet_push_to_replicas(torch, what, fleet, tier, grads, tele, peaks,
                 poll_max_s=[h["max"] for h in polls])
 
 
+# The traced serving path (a leg of the fleet phase, on its BERT-base
+# module and its 4-shard fleet; every request sampled): (a) RPC_REQUESTS
+# single-row requests through an InferenceTier of SERVE_REPLICAS
+# replicas, then the same rows untraced; (b) and (d) traced int8 delta
+# pulls through a ShardedTransport: a dense push's pull, then one with
+# shard RPC_SLOW_SHARD slowed by RPC_SLOW_S a request; (c) the bench's
+# rpc_trace at the JAX depth.
+RPC_REQUESTS, RPC_SLOW_SHARD, RPC_SLOW_S = 32, "2", 1.0
+
+
+def rpc_tree_shape(node):
+    """A stitched tree's names, kinds and children, as nested tuples."""
+    return (node["name"], node["kind"],
+            tuple(sorted(rpc_tree_shape(c) for c in node["children"])))
+
+
+def rpc_serve_leg(torch, module, dense, ids):
+    """(a): each traced request one ``infer`` -> ``replica`` ->
+    {``queue_wait``, ``execute``} tree, every root's wall at least its
+    slowest child's, ``flash_fwd`` launched 12 times a batch the trace
+    shows, and the rows equal to an untraced run's bit for bit (one row
+    a request: bucket 1 both times)."""
+    from sparktorch_tpu_torch.obs import Telemetry, rpctrace
+    from sparktorch_tpu_torch.serve.router import InferenceTier
+
+    n_layers = module.config.n_layers
+    tele = Telemetry(run_id="rpc_serve")
+    tracer = rpctrace.tracer_for(tele)
+    tracer.sample_rate = 1.0
+    tracer.resize(8 * RPC_REQUESTS)
+    tier = InferenceTier(module, n_replicas=SERVE_REPLICAS, telemetry=tele,
+                         buckets=SERVE_BUCKETS, warm_input=ids[:1],
+                         device="cuda")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        traced = [tier.submit(ids[i:i + 1]) for i in range(RPC_REQUESTS)]
+        traced_s = time.perf_counter() - t0
+        got = read_counts()
+        deadline = time.monotonic() + 10.0
+        while (len(tracer.spans) < 4 * RPC_REQUESTS
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        spans = tracer.spans
+        tracer.sample_rate = -1.0  # the tracer off: the untraced run
+        t0 = time.perf_counter()
+        untraced = [tier.submit(ids[i:i + 1]) for i in range(RPC_REQUESTS)]
+        untraced_s = time.perf_counter() - t0
+        if len(tracer.spans) != len(spans):
+            raise AssertionError("rpc (a): the untraced run recorded spans")
+    finally:
+        tier.stop()
+    trees = rpctrace.stitch_spans(spans)
+    want = ("infer", "client", (("replica", "client", (
+        ("execute", "server", ()), ("queue_wait", "server", ()))),))
+    shapes = {rpc_tree_shape(t["root"]) for t in trees}
+    if len(trees) != RPC_REQUESTS or shapes != {want} or any(
+            t["orphans"] or t["extra_roots"] for t in trees):
+        raise AssertionError(f"rpc (a): {len(trees)} trees of shapes "
+                             f"{shapes}, want {RPC_REQUESTS} of {want}")
+    for t in trees:
+        kids = [c for n in (t["root"], t["root"]["children"][0])
+                for c in n["children"]]
+        if t["wall_s"] < max(float(c["dur_s"]) for c in kids):
+            raise AssertionError(f"rpc (a): root wall {t['wall_s']} below "
+                                 f"a child's {[c['dur_s'] for c in kids]}")
+    executes = [s for s in spans if s["name"] == "execute"]
+    batches = len({(s["ann"]["replica"], s["ts"]) for s in executes})
+    if {s["ann"]["bucket"] for s in executes} != {1}:
+        raise AssertionError(f"rpc (a): buckets "
+                             f"{sorted({s['ann']['bucket'] for s in executes})}")
+    expect_counts("rpc (a) traced requests", got,
+                  dict(NO_KERNELS, flash_fwd=n_layers * batches))
+    unequal = [i for i, (a, b) in enumerate(zip(traced, untraced))
+               if not np.array_equal(a, b)]
+    if unequal:
+        raise AssertionError(f"rpc (a): traced rows {unequal} differ from "
+                             "the untraced run's")
+    from sparktorch_tpu_torch.inference import BatchPredictor
+
+    dense.load_state_dict(module.state_dict())
+    ref = BatchPredictor(dense, device="cuda", chunk=CHUNK).predict(
+        ids[:RPC_REQUESTS])
+    err = float(np.abs(np.concatenate(traced) - ref).max())
+    limit = 5e-2 * max(1.0, float(np.abs(ref).max()))
+    if not err <= limit:
+        raise AssertionError(f"rpc (a): rows off dense attention by {err} "
+                             f"(limit {limit})")
+    walls = sorted(t["wall_s"] for t in trees)
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s["name"], []).append(float(s["dur_s"]))
+    p50 = {k: round(float(np.median(v)) * 1e3, 3) for k, v in by_name.items()}
+    log(f"rpc (a) {RPC_REQUESTS} traced single-row requests, "
+        f"{SERVE_REPLICAS} replicas: {len(trees)} trees infer -> replica -> "
+        f"{{queue_wait, execute}}, {batches} batches, span p50 ms {p50}, "
+        f"root wall p50 {walls[len(walls) // 2] * 1e3:.3f} ms, max "
+        f"{walls[-1] * 1e3:.3f} ms; rows equal to the untraced run's bit "
+        f"for bit; off dense attention by {err:.3e} (limit {limit:.3e}); "
+        f"traced {traced_s:.2f} s, untraced {untraced_s:.2f} s")
+    return got, dict(requests=RPC_REQUESTS, trees=len(trees),
+                     batches=batches, span_p50_ms=p50,
+                     root_wall_p50_ms=walls[len(walls) // 2] * 1e3,
+                     traced_s=traced_s, untraced_s=untraced_s,
+                     max_abs_err=err)
+
+
+def rpc_pull_hops(tree):
+    """``{shard: {hop, serve, render}}`` seconds of one stitched pull."""
+    hops = {}
+    for hop in tree["root"]["children"]:
+        serve = hop["children"][0] if hop["children"] else None
+        render = (serve["children"][0]
+                  if serve is not None and serve["children"] else None)
+        hops[hop["ann"]["shard"]] = {
+            "hop_s": round(float(hop["dur_s"]), 4),
+            "serve_s": serve and round(float(serve["dur_s"]), 4),
+            "render_s": render and round(float(render["dur_s"]), 4)}
+    return hops
+
+
+def rpc_fleet_leg(torch, fleet):
+    """(b) and (d): traced int8 delta pulls of the fleet's BERT-base
+    leaves through a ShardedTransport: each pull one tree of 4
+    ``shard_pull`` -> ``serve`` -> ``render`` hops; a dense push's pull
+    timed hop by hop (d); the next with one shard slowed, that shard the
+    critical path in the collector's stitched trees and in
+    ``timeline --rpc`` from its JSONL sink (b)."""
+    import contextlib
+    import io
+
+    from sparktorch_tpu_torch.ft import ChaosConfig, inject
+    from sparktorch_tpu_torch.net.sharded import ShardedTransport
+    from sparktorch_tpu_torch.obs import FleetCollector, Telemetry, rpctrace
+    from sparktorch_tpu_torch.obs import timeline
+
+    tele = Telemetry(run_id="rpc_fleet")
+    rpctrace.tracer_for(tele).sample_rate = 1.0
+    t = ShardedTransport(fleet, pull_quant="int8", telemetry=tele)
+    sink = os.path.join(SCRATCH, "rpc_collector.jsonl")
+    collector = None
+    try:
+        version = t.pull(-1)[0]
+        ones = {(n,): torch.ones_like(v) for n, v in fleet.assemble().items()}
+        walls = {}
+        for label in ("dense", "slowed"):
+            fleet.scatter_push(ones, wait=True)
+            slow = (inject(ChaosConfig(seed=0, slow_shard_s={
+                RPC_SLOW_SHARD: RPC_SLOW_S})) if label == "slowed"
+                else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with slow:
+                version = t.pull(version)[0]
+            walls[label] = time.perf_counter() - t0
+        time.sleep(0.2)  # the handlers close their serve spans
+        collector = FleetCollector.for_fleet(fleet, poll_interval_s=0,
+                                             jsonl_path=sink, telemetry=tele)
+        collector.poll()
+        traces = [tr for tr in collector.rpc_traces()
+                  if tr["root"]["name"] == "pull"]
+    finally:
+        t.close()
+        if collector is not None:
+            collector.stop()
+    hop = ("shard_pull", "client", (
+        ("serve", "server", (("render", "server", ()),)),))
+    want = ("pull", "client", (hop,) * FLEET_SHARDS)
+    shapes = {rpc_tree_shape(tr["root"]) for tr in traces}
+    if len(traces) != 3 or shapes != {want}:
+        raise AssertionError(f"rpc (b): {len(traces)} pull trees of shapes "
+                             f"{shapes}")
+    slowed, dense_pull, first = traces  # newest first
+    crit = slowed["critical"]
+    if str(crit["shard"]) != RPC_SLOW_SHARD:
+        raise AssertionError(f"rpc (b): critical path {crit}, want shard "
+                             f"{RPC_SLOW_SHARD}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = timeline.main(["--rpc", sink])
+    rendered = buf.getvalue()
+    head = [ln for ln in rendered.splitlines() if ln.startswith("trace ")]
+    if rc != 0 or not head or f"shard {RPC_SLOW_SHARD}" not in head[0] \
+            or "bound by" not in head[0]:
+        raise AssertionError(f"rpc (b): timeline --rpc (rc={rc}):\n"
+                             f"{rendered[:1200]}")
+    hops = {"first": rpc_pull_hops(first), "dense": rpc_pull_hops(dense_pull),
+            "slowed": rpc_pull_hops(slowed)}
+    log(f"rpc (b) traced int8 delta pulls of BERT-base from "
+        f"{FLEET_SHARDS} shards: 3 trees of {FLEET_SHARDS} shard_pull -> "
+        f"serve -> render hops; with shard {RPC_SLOW_SHARD} slowed by "
+        f"{RPC_SLOW_S} s the pull took {walls['slowed']:.3f} s and its "
+        f"critical path is {crit['name']} on shard {crit['shard']} "
+        f"({crit['fraction']:.0%} of the wall), in the collector and in "
+        f"timeline --rpc: {head[0].strip()}")
+    log(f"rpc (d) the dense push's pull without chaos, "
+        f"{walls['dense']:.3f} s (root {dense_pull['wall_s']:.4f} s), by "
+        f"shard (hop, serve, render s): {hops['dense']}; the first sync: "
+        f"{hops['first']}")
+    return dict(walls_s=walls, critical=crit, hops=hops,
+                timeline_head=head[0].strip())
+
+
+def rpc_phase(torch, module, dense, fleet, ids):
+    """The traced serving path on the fleet phase's BERT-base and its
+    fleet: (a), (b) and (d) above, and (c) the bench's rpc_trace at the
+    JAX depth with its gates and record keys."""
+    from sparktorch_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    counts, out = {}, {}
+    counts["rpc_serve"], out["serve"] = rpc_serve_leg(torch, module, dense,
+                                                      ids)
+    reset_counts()
+    out["fleet"] = rpc_fleet_leg(torch, fleet)
+    counts["rpc_fleet"] = read_counts()
+    expect_counts("rpc (b) traced pulls", counts["rpc_fleet"], NO_KERNELS)
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = bench.CONFIGS["rpc_trace"]()
+    wall = time.perf_counter() - t0
+    counts["rpc_bench"] = read_counts()
+    log(json.dumps(rec))
+    expect_counts("rpc (c) bench", counts["rpc_bench"], NO_KERNELS)
+    check_record_keys(bench, "rpc_trace", rec)
+    log(f"rpc (c) bench: overhead {rec['overhead_pct']}% at the default "
+        f"{rec['sample_rate_default']} sampling (fast path "
+        f"{rec['fast_path_us']} us, sampled chain {rec['sampled_chain_us']}"
+        f" us, wire op p50 {rec['wire_op_p50_ms']} ms), {rec['pull_trees']} "
+        f"pull trees, reconcile {rec['reconcile']}, slow shard "
+        f"{rec['slow_shard']}; {wall:.1f} s")
+    out["bench"] = rec
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase rpc: {out['wall_s']:.1f} s")
+    return counts, out
+
+
 def fleet_phase(torch):
     """The sharded parameter-server fleet: (a) the bench's
     ``hogwild_ps_fleet`` (2 interleaved pairs, BENCH_DEPTH), every gate
     holding; (b)
     BERT-base behind the serving tier, its weights in a 4-shard fleet on
     the card and each replica pulling int8 deltas through a
-    ``ShardedTransport``, after a dense push and a sparse one; (c)
+    ``ShardedTransport``, after a dense push and a sparse one, then
+    ``rpc_phase`` on that module and fleet; (c)
     ``train_async(shards=4, pull_quant="int8")`` of BERT-base; (d) one
     worker on a 4-shard fleet against the single server."""
     from sparktorch_tpu_torch import bench, serialize_torch_obj
@@ -4002,6 +4261,12 @@ def fleet_phase(torch):
                             first_sync_bytes=first_bytes, fleet_s=fleet_s,
                             params=sum(v.numel() for v in ones.values()),
                             leaves=len(names), pushes=pushes)
+        # The traced serving path, on this module and this fleet, the
+        # tier's pullers stopped first (their polls would share the
+        # shards' renders).
+        tier.stop()
+        rpc_counts, out["rpc"] = rpc_phase(torch, module, dense, fleet, ids)
+        counts.update(rpc_counts)
     finally:
         tier.stop()
         fleet.stop()

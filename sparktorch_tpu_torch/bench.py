@@ -25,8 +25,18 @@ restart, exact records, the recovery latency) and ``hogwild_chaos_soak``
 supervised rounds), ``gang_obs`` (the fleet collector over rank
 exporters: merged scrapes, the gang trace budget, the truncation
 warning) and ``elastic_ctl`` (an elastic multi-process run through a
-SIGKILL, a shrink and a grow, seen through the collector's ``/gang``).
-Weights are seeded, never pretrained.
+SIGKILL, a shrink and a grow, seen through the collector's ``/gang``),
+and the six obs configs that render through ``obs/timeline.py``:
+``rpc_trace`` (the request tracer's overhead at 1% sampling, its spans
+against the wire histograms, a slowed shard on the critical path),
+``health`` (a poisoned batch caught, replayed bitwise in a fresh
+process, the lane's cost), ``goodput`` (the time ledger's buckets under
+training, a slowed shard and an elastic kill), ``skew`` (a straggling
+rank's wait charged to it, the alert reaching a controller),
+``profile`` (the stack sampler's cost and a planted hot frame) and
+``obs_history`` (a sustained-p99 alert on a slowed shard, a postmortem
+of a SIGKILLed worker, the history tier's sweep cost). Weights are
+seeded, never pretrained.
 
 The sync configs run :func:`_sync_epoch_bench`: data-parallel over the
 mesh of :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` (the
@@ -52,11 +62,18 @@ Where the records differ from the JAX package's (``RECORD_KEYS`` below):
   they give the launches per step.
 - The drift gates (``moe_lm``'s ``comm_drift``, ``gang_obs``'s
   ``gang_drift``, ``elastic_ctl``'s ``elastic_drift``, ``serve_online``'s
-  ``serve_drift``) compare with the newest prior record, and every prior
+  ``serve_drift`` and the obs configs' ``health_drift``,
+  ``goodput_drift``, ``skew_drift``, ``profile_drift``, ``obs_drift``)
+  compare with the newest prior record, and every prior
   record is the JAX package's on a TPU (``BENCH_r*.json``,
   ``benchmarks/``), which may not carry over: they always read
   ``{"status": "no_prior_record", "tolerance": ...}`` with the JAX
   gate's default tolerance.
+- The obs configs' A/A steps are torch matmuls on the config's device
+  where the JAX configs jit theirs, and ``goodput``'s training leg asks
+  for the one compile the port's trainer has (its set-up; a hand
+  kernel's first build would add one, and MnistMLP runs none) where the
+  JAX leg asks for two (the set-up and the first chunk's jit).
 - Left out: ``resnet50_inference``'s ``measured_run_*`` (long-haul runs
   logged on the TPU rig), the headline's append to ``benchmarks/`` (the
   port writes only where ``--log`` says) and the other non-BASELINE
@@ -202,6 +219,33 @@ RECORD_KEYS = {
          "restarts", "resizes", "removed", "generation", "world_size",
          "parts_by_generation", "chaos_kills", "records_exact",
          "elastic_drift", "wall_s"}, set(), set()),
+    "rpc_trace": (
+        {"config", "unit", "value", "overhead_pct", "fast_path_us",
+         "sampled_chain_us", "traced_cost_per_op_us", "wire_op_p50_ms",
+         "sample_rate_default", "pull_trees", "reconcile", "slow_shard",
+         "phase_s"}, set(), set()),
+    "health": (
+        {"config", "unit", "value", "note_step_us", "overhead_pct_of_step",
+         "overhead_pct_aa_wall", "overhead_pct_note_floor",
+         "step_wall_off_ms", "step_wall_on_ms", "detect", "replay", "aa",
+         "alerts", "health_drift", "wall_s"}, set(), set()),
+    "goodput": (
+        {"config", "unit", "value", "ledger_span_us", "overhead_pct_of_step",
+         "step_wall_ms", "training", "run_report", "wire", "elastic",
+         "goodput_drift", "wall_s"}, set(), set()),
+    "skew": (
+        {"config", "unit", "value", "stamp_us", "stamp_pct_of_step",
+         "step_wall_ms", "decomposition", "aa", "alerts", "skew_drift",
+         "wall_s"}, set(), set()),
+    "profile": (
+        {"config", "unit", "value", "sample_tick_us", "overhead_pct_of_step",
+         "step_wall_off_ms", "step_wall_on_ms", "hz", "hot", "run_report",
+         "profile_drift", "wall_s"}, set(), set()),
+    "obs_history": (
+        {"config", "unit", "value", "sweep_on_ms", "sweep_off_ms",
+         "sweep_on_min_ms", "sweep_off_min_ms", "sweep_overhead_pct",
+         "alert", "postmortem", "obs_drift", "phase_s", "wall_s"},
+        set(), set()),
 }
 
 
@@ -2320,6 +2364,1780 @@ def bench_elastic_ctl(n_parts: int = 36, part_sleep_s: float = 0.4,
     }
 
 
+def _per_iter_us(fn, iters: int, batches: int = 7) -> float:
+    """The best of ``batches`` timed loops of ``iters`` calls, in
+    microseconds a call."""
+    best = float("inf")
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / iters)
+    return best * 1e6
+
+
+def _zeros_of(tree) -> dict:
+    """Host zeros shaped like a flat tree of tensors."""
+    return {k: np.zeros(tuple(v.shape), np.float32) for k, v in tree.items()}
+
+
+def bench_rpc_trace(device=None) -> dict:
+    """The JAX bench's request-tracing gate: the tracer must be cheap,
+    honest and diagnostic; raises otherwise.
+
+    - **overhead**: the per-op tracing cost at the default head sampling
+      (the unsampled fast path plus 1% of a 7-commit sampled chain
+      against a full ring, each timed by a tight microbenchmark, two
+      roots an op) over the wall of a binary-wire push and fresh pull
+      against a live server with the tracer off: < 2%;
+    - **reconcile**: with every request sampled, each fresh pull of a
+      4-shard fleet stitches to exactly one tree, each shard's ``serve``
+      span p50 agrees with its ``param_server.wire_latency_s`` p50
+      (the same handler window through two pipelines) within half of
+      it or 2 ms, and every root's wall holds its slowest serve hop;
+    - **critical path**: a seeded slow shard (``slow_shard_s``) is the
+      critical path of every traced pull in the collector's stitched
+      trees and in ``timeline --rpc`` rendered from its JSONL sink.
+
+    MnistMLP under SGD at 1e-2, as in the JAX config; the shards' leaves
+    live on ``device``."""
+    import contextlib
+    import io
+    import os
+
+    from sparktorch_tpu_torch.ft import ChaosConfig, inject
+    from sparktorch_tpu_torch.models import MnistMLP
+    from sparktorch_tpu_torch.net.sharded import ShardedTransport
+    from sparktorch_tpu_torch.net.transport import BinaryTransport
+    from sparktorch_tpu_torch.obs import FleetCollector, Telemetry, rpctrace
+    from sparktorch_tpu_torch.obs import timeline as _timeline
+    from sparktorch_tpu_torch.obs.telemetry import wall_ts
+    from sparktorch_tpu_torch.serve.fleet import ParamServerFleet
+    from sparktorch_tpu_torch.serve.param_server import (
+        ParameterServer,
+        ParamServerHttp,
+    )
+
+    dev = _resolve_device(device)
+    n_shards, n_pulls, slow_pulls, op_iters = 4, 10, 3, 48
+    with _Phase(dev, "init") as p_init:
+        torch.manual_seed(0)
+        spec = _spec(MnistMLP(), optimizer="sgd",
+                     optimizer_params={"lr": 1e-2}, input_shape=(784,))
+
+    # -- overhead at the default sampling --------------------------------
+    # The mechanism timed directly and divided by the measured op wall:
+    # the difference of two end-to-end timings does not converge on a
+    # shared host (the JAX bench's finding), and this statistic charges
+    # every op a whole root plus its share of a heavy sampled chain.
+    with _Phase(dev, "measure_overhead") as p_overhead:
+        mtr = rpctrace.tracer_for(Telemetry(run_id="rpc_overhead_micro"))
+        mtr.sample_rate = 0.0
+
+        def fast():
+            with mtr.root_span("pull", kind="client", host="h", port=1):
+                pass
+
+        fast_us = _per_iter_us(fast, 2000)
+        mtr.sample_rate = 1.0
+        for _ in range(mtr._ring.maxlen + 8):
+            with mtr.root_span("fill"):
+                pass
+
+        def sampled():
+            with mtr.root_span("push", kind="client", host="h",
+                               port=1) as sp:
+                with mtr.child_span("encode", sp.ctx):
+                    pass
+                with mtr.child_span("socket", sp.ctx):
+                    pass
+                with mtr.child_span("serve", sp.ctx, kind="server",
+                                    route="/update.bin"):
+                    pass
+                with mtr.child_span("decode", sp.ctx, kind="server"):
+                    pass
+                mtr.record("queue_wait", sp.ctx, wall_ts(), 0.001,
+                           kind="server")
+                with mtr.child_span("apply", sp.ctx, kind="server"):
+                    pass
+
+        sampled_us = _per_iter_us(sampled, 300)
+        roots_per_op = 2  # the timed op is a push and a pull
+        traced_cost_us = roots_per_op * (
+            fast_us + rpctrace.DEFAULT_SAMPLE_RATE
+            * max(sampled_us - fast_us, 0.0))
+
+        op_tele = Telemetry(run_id="rpc_overhead_op")
+        rpctrace.tracer_for(op_tele).sample_rate = -1.0
+        server = ParameterServer(spec, telemetry=op_tele, device=dev)
+        http = ParamServerHttp(server, port=0).start()
+        try:
+            transport = BinaryTransport(http.url, telemetry=op_tele)
+            zeros = _zeros_of(server.slot.read()[1])
+            transport.push(zeros)
+            server.drain()
+            transport.pull(-1)
+            walls = []
+            for _ in range(op_iters):
+                t0 = time.perf_counter()
+                transport.push(zeros)
+                transport.pull(-1)
+                walls.append(time.perf_counter() - t0)
+            transport.close()
+        finally:
+            http.stop()
+            server.stop()
+        op_us = float(np.median(walls)) * 1e6
+        overhead_pct = 100.0 * traced_cost_us / op_us
+
+    # -- traced sharded pulls reconcile with wire_latency_s --------------
+    with _Phase(dev, "measure_reconcile") as p_reconcile:
+        rec_tele = Telemetry(run_id="rpc_reconcile")
+        tracer = rpctrace.tracer_for(rec_tele)
+        tracer.sample_rate = 1.0
+        tracer.resize(8192)  # every span of the bounded run
+        fleet = ParamServerFleet(spec, n_shards=n_shards, telemetry=rec_tele,
+                                 device=dev).start()
+        sink = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                            f"rpc_trace_sink_{os.getpid()}.jsonl")
+        collector = None
+        try:
+            transport = ShardedTransport(fleet, telemetry=rec_tele,
+                                         run_id=rec_tele.run_id)
+            zeros = _zeros_of(fleet.assemble())
+            have, pulled = -1, 0
+            for _ in range(n_pulls):
+                transport.push(zeros)  # advances every leaf's version
+                fleet.drain()
+                snap = transport.pull(have)
+                if snap is not None:
+                    have = snap[0]
+                    pulled += 1
+            # A handler closes its serve span just after its reply.
+            time.sleep(0.1)
+            spans = tracer.spans
+            pull_trees = [t for t in rpctrace.stitch_spans(spans)
+                          if t["root"]["name"] == "pull"
+                          and t["root"]["status"] == "ok"]
+            if pulled != n_pulls:
+                raise AssertionError(
+                    f"only {pulled}/{n_pulls} pulls were fresh: the push "
+                    "cadence failed to mint versions")
+            if len(pull_trees) != n_pulls:
+                raise AssertionError(
+                    f"stitched pull trees != sampled pulls: "
+                    f"{len(pull_trees)} vs {n_pulls}")
+            serve_by_shard: Dict[str, List[float]] = {}
+            for s in spans:
+                if s["name"] == "serve" \
+                        and s["ann"].get("route") == "/delta.bin":
+                    serve_by_shard.setdefault(
+                        str(s["ann"].get("shard")), []).append(s["dur_s"])
+            if len(serve_by_shard) != n_shards:
+                raise AssertionError(
+                    f"serve spans seen for shards {sorted(serve_by_shard)} "
+                    f"!= {n_shards} shards")
+            recon = {}
+            for sid, durs in serve_by_shard.items():
+                span_p50 = float(np.percentile(durs, 50))
+                hist = rec_tele.histogram(
+                    "param_server.wire_latency_s",
+                    labels={"route": "/delta.bin", "shard": sid})
+                hist_p50 = hist["p50"]
+                if hist_p50 is None:
+                    raise AssertionError(
+                        f"no wire_latency_s series for shard {sid}")
+                tol = max(0.5 * hist_p50, 0.002)
+                recon[sid] = {"span_p50_ms": round(span_p50 * 1e3, 3),
+                              "hist_p50_ms": round(hist_p50 * 1e3, 3),
+                              "spans": len(durs),
+                              "hist_count": hist["count"]}
+                if abs(span_p50 - hist_p50) > tol:
+                    raise AssertionError(
+                        f"shard {sid} serve-span p50 {span_p50 * 1e3:.2f}ms "
+                        f"does not reconcile with wire_latency_s p50 "
+                        f"{hist_p50 * 1e3:.2f}ms (tol {tol * 1e3:.2f}ms)")
+
+            def serves(node, acc):
+                if node["name"] == "serve":
+                    acc.append(float(node["dur_s"] or 0.0))
+                for c in node.get("children") or []:
+                    serves(c, acc)
+                return acc
+
+            for t in pull_trees:
+                hops = serves(t["root"], [])
+                if hops and t["wall_s"] < max(hops) - 1e-4:
+                    raise AssertionError(
+                        f"trace {t['trace_id'][:8]}: root wall "
+                        f"{t['wall_s'] * 1e3:.2f}ms < slowest serve hop "
+                        f"{max(hops) * 1e3:.2f}ms")
+
+            # -- a seeded slow shard is the critical path ----------------
+            slow_shard, delay_s = "2", 0.12
+            with inject(ChaosConfig(slow_shard_s={slow_shard: delay_s},
+                                    seed=0)):
+                for _ in range(slow_pulls):
+                    transport.push(zeros)
+                    fleet.drain()
+                    snap = transport.pull(have)
+                    if snap is not None:
+                        have = snap[0]
+            time.sleep(0.1)
+            collector = FleetCollector.for_fleet(
+                fleet, poll_interval_s=0, jsonl_path=sink)
+            collector.poll()
+            slow_trees = [t for t in collector.rpc_traces()
+                          if t["root"]["name"] == "pull"
+                          and t["wall_s"] >= delay_s * 0.8][:slow_pulls]
+            if len(slow_trees) < slow_pulls:
+                raise AssertionError(
+                    f"collector stitched only {len(slow_trees)} slow-pull "
+                    f"trees of {slow_pulls}")
+            named = sum(1 for t in slow_trees
+                        if str((t.get("critical") or {}).get("shard"))
+                        == slow_shard)
+            if named < slow_pulls:
+                raise AssertionError(
+                    f"slow shard {slow_shard} named as critical path in "
+                    f"only {named}/{slow_pulls} traced pulls: "
+                    f"{[t.get('critical') for t in slow_trees]}")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = _timeline.main(["--rpc", sink])
+            rendered = buf.getvalue()
+            if rc != 0 or f"shard {slow_shard}" not in rendered \
+                    or "bound by" not in rendered:
+                raise AssertionError(
+                    f"timeline --rpc did not name shard {slow_shard} "
+                    f"(rc={rc})")
+            transport.close()
+        finally:
+            if collector is not None:
+                collector.stop()
+            fleet.stop()
+            try:
+                os.remove(sink)
+            except OSError:
+                pass
+
+    if overhead_pct >= 2.0:
+        raise AssertionError(
+            f"tracing overhead {overhead_pct:.3f}% >= 2% at default "
+            f"sampling (fast path {fast_us:.2f}us + amortized sampled "
+            f"chain {sampled_us:.1f}us x {rpctrace.DEFAULT_SAMPLE_RATE} "
+            f"vs wire op p50 {op_us / 1e3:.2f}ms)")
+
+    return {
+        "config": "rpc_trace", "unit": "% (tracing overhead)",
+        "value": round(overhead_pct, 4),
+        "overhead_pct": round(overhead_pct, 4),
+        "fast_path_us": round(fast_us, 2),
+        "sampled_chain_us": round(sampled_us, 1),
+        "traced_cost_per_op_us": round(traced_cost_us, 2),
+        "wire_op_p50_ms": round(op_us / 1e3, 3),
+        "sample_rate_default": rpctrace.DEFAULT_SAMPLE_RATE,
+        "pull_trees": len(pull_trees),
+        "reconcile": recon,
+        "slow_shard": {"shard": slow_shard, "delay_s": delay_s,
+                       "named": named, "pulls": slow_pulls},
+        "phase_s": _phase_s(init=p_init, measure_overhead=p_overhead,
+                            measure_reconcile=p_reconcile),
+    }
+
+
+def _aa_matmul_step(m: int):
+    """The A/A legs' step: four chained ``m x m`` matmuls and the mean
+    of the result (the JAX bench's), on the operand's device."""
+    def step(a):
+        b = a
+        for _ in range(4):
+            b = (b @ a) * (1.0 / m)
+        return b, (b.sum() / b.numel()).float()
+
+    return step
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def bench_health(device=None, poison_step: int = 6, iters: int = 12,
+                 aa_steps: int = 20, aa_reps: int = 3) -> dict:
+    """The JAX bench's model-health gate; raises unless the health
+    lane's four claims hold end to end:
+
+    - **detection is real and bounded**: a batch poisoned at
+      ``poison_step`` (``ChaosConfig.poison_batch_at``) on a real
+      ``train_distributed`` run trips the NaN sentinel at that step,
+      within 2 steps of the delayed fetch, with dotted parameter names
+      in the per-leaf grad-norm table; the latched ``health_nonfinite``
+      alert fires one episode over 3 sweeps;
+    - **replay is bitwise**: the bundle the sentinel wrote reproduces
+      the recorded numerics in a fresh process
+      (``python -m sparktorch_tpu_torch.obs.replay`` exits 0);
+    - **the lane is attributed and nearly free**: in interleaved A/A
+      runs the health-on arm's goodput ``data_wait`` is > 0 (the delayed
+      fetch) and the off arm's exactly 0.0; the lane costs < 1% of the
+      step wall by the A/A wall delta or the note_step floor; a clean
+      run raises no anomaly and no alert;
+    - **the fleet path works**: the rank's section merges into
+      ``GET /health`` rank-tagged, renders through ``timeline --health``
+      from the collector's sink and from the saved document, shows in
+      ``--follow`` as a ``health.run`` line, and the postmortem shows
+      the health at death.
+
+    The headline is ``note_step``'s host cost (2,000 notes); its drift
+    gate reads ``no_prior_record``."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import subprocess
+    import sys
+    import tempfile
+    import threading
+
+    from sparktorch_tpu_torch.ft import ChaosConfig, inject
+    from sparktorch_tpu_torch.models import Net
+    from sparktorch_tpu_torch.native.gang import GangMetricsExporter
+    from sparktorch_tpu_torch.obs import FleetCollector, Telemetry
+    from sparktorch_tpu_torch.obs import goodput as _goodput
+    from sparktorch_tpu_torch.obs import health as _health
+    from sparktorch_tpu_torch.obs import timeline as _timeline
+    from sparktorch_tpu_torch.obs.alerts import AlertManager
+    from sparktorch_tpu_torch.obs.blackbox import collect_postmortem
+    from sparktorch_tpu_torch.obs.collector import scrape_json
+    from sparktorch_tpu_torch.obs.history import MetricsHistory
+    from sparktorch_tpu_torch.obs.telemetry import wall_ts
+    from sparktorch_tpu_torch.train.sync import train_distributed
+    from sparktorch_tpu_torch.utils.serde import ModelSpec
+
+    dev = _resolve_device(device)
+    t_start = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="bench_health_")
+    replay_dir = os.path.join(workdir, "replay")
+
+    # -- A/A overhead and attribution, on a clean step ------------------
+    # First, in a quiet process: the ledger's per-step cost is fixed (a
+    # queue and one delayed scalar read), quoted against a
+    # training-sized step.
+    m = 768
+    aa_step = _aa_matmul_step(m)
+    xm = torch.ones((m, m), dtype=torch.float32, device=dev)
+    aa_step(xm)
+    _sync(dev)
+
+    def aa_arm(health_on: bool):
+        tele_a = Telemetry(
+            run_id=f"bench_health_aa_{'on' if health_on else 'off'}")
+        led = _goodput.GoodputLedger(telemetry=tele_a, rank="aa")
+        hl_a = (_health.TrainHealthLedger(rank="aa", telemetry=tele_a)
+                if health_on else None)
+        walls, notes = [], []
+        with led.activate():
+            for _ in range(aa_steps):
+                t0 = time.perf_counter()
+                _o, mean = aa_step(xm)
+                _sync(dev)
+                if hl_a is not None:
+                    t1 = time.perf_counter()
+                    hl_a.note_step(device={"loss": mean})
+                    notes.append(time.perf_counter() - t1)
+                walls.append(time.perf_counter() - t0)
+            if hl_a is not None:
+                hl_a.flush()
+        dw = float(tele_a.get_section(_goodput.SECTION)["buckets"]
+                   ["data_wait"])
+        n_anom = (len(hl_a.snapshot()["anomalies"])
+                  if hl_a is not None else 0)
+        return min(walls), dw, n_anom, notes, tele_a
+
+    gc.collect()
+    offs, ons, dw_on, note_walls = [], [], [], []
+    tele_clean = None
+    for _ in range(aa_reps):
+        w, dw, _n, _notes, _t = aa_arm(False)
+        offs.append(w)
+        if dw != 0.0:
+            raise AssertionError(
+                f"health-OFF arm shows data_wait {dw}s: the A/A delta is "
+                "meaningless")
+        w, dw, n_anom, notes, tele_clean = aa_arm(True)
+        ons.append(w)
+        dw_on.append(dw)
+        note_walls += notes
+        if n_anom:
+            raise AssertionError(
+                f"clean health-ON arm raised {n_anom} anomalies: false "
+                "positives")
+    if min(dw_on) <= 0.0:
+        raise AssertionError(
+            f"health-ON arms left data_wait empty ({dw_on}): the delayed "
+            "fetch is not attributed")
+    # Two witnesses of the 1% bound, either passes: the A/A wall delta
+    # (min of reps per arm), and the note_step floor against the step
+    # floor (the ledger's whole synchronous footprint).
+    w_off, w_on = min(offs), min(ons)
+    aa_frac = max(w_on - w_off, 0.0) / max(w_off, 1e-9)
+    note_frac = min(note_walls) / max(w_off, 1e-9)
+    overhead_frac = min(aa_frac, note_frac)
+    if overhead_frac >= 0.01:
+        raise AssertionError(
+            f"health lane overhead is over 1% of the {w_off * 1e3:.3f}ms "
+            f"step wall by both witnesses: A/A wall delta "
+            f"{100 * aa_frac:.2f}% (on {w_on * 1e3:.3f}ms vs off "
+            f"{w_off * 1e3:.3f}ms, min of {aa_reps} interleaved runs) and "
+            f"note_step floor {100 * note_frac:.2f}% "
+            f"({min(note_walls) * 1e6:.1f}us)")
+    clean_hist = MetricsHistory(retention=4)
+    clean_mgr = AlertManager(clean_hist, rules=_health.health_alert_rules(),
+                             telemetry=tele_clean)
+    clean_fired = []
+    base_aa = wall_ts()
+    for k in range(2):
+        clean_hist.append(tele_clean.snapshot(), ts=base_aa + k)
+        clean_fired += [e for e in clean_mgr.evaluate(ts=base_aa + k)
+                        if e["event"] == "fired"]
+    if clean_fired:
+        raise AssertionError(
+            f"clean leg fired alerts: {[e['alert'] for e in clean_fired]}")
+
+    # -- a seeded poison drill on a real trainer ------------------------
+    rng = np.random.default_rng(0)
+    n_features, rows = 10, 256
+    x = rng.normal(size=(rows, n_features)).astype(np.float32)
+    y = rng.normal(size=(rows,)).astype(np.float32)
+    torch.manual_seed(0)
+    spec = ModelSpec(module=Net(in_features=n_features), loss="mse",
+                     optimizer="adam", optimizer_params={"lr": 1e-2},
+                     input_shape=(n_features,))
+    tele = Telemetry(run_id="bench_health_drill")
+    cfg = _health.HealthConfig(
+        warmup_steps=3, replay_dir=replay_dir,
+        replay_builder="sparktorch_tpu_torch.obs.replay:net_builder",
+        replay_builder_kwargs={"n_features": n_features, "rows": rows,
+                               "device": dev.type})
+    prev_hl = _health.install(None)
+    try:
+        hl = _health.ensure(tele, rank=0, config=cfg)
+        if hl is None:
+            raise AssertionError(
+                "health lane disabled (SPARKTORCH_TPU_HEALTH=0): the gate "
+                "cannot run")
+        ledger = _goodput.GoodputLedger(telemetry=tele, rank=0)
+        with ledger.activate(), \
+                inject(ChaosConfig(poison_batch_at={0: poison_step}),
+                       telemetry=tele):
+            train_distributed(spec, x, labels=y, iters=iters, seed=0,
+                              steps_per_call=1, telemetry=tele, device=dev)
+        doc = hl.snapshot()
+    finally:
+        _health.install(prev_hl)
+
+    anomalies = doc["anomalies"]
+    if not anomalies:
+        raise AssertionError(
+            f"poisoned step {poison_step} raised no anomaly: {doc}")
+    first = anomalies[0]
+    if first["akind"] != "nonfinite" or first["step"] != poison_step:
+        raise AssertionError(
+            f"first anomaly is {first['akind']} @ step {first['step']}, "
+            f"want nonfinite @ {poison_step}: {anomalies[:3]}")
+    lag_past_fetch = first["detect_lag"] - cfg.fetch_lag
+    if not 0 <= lag_past_fetch <= 2:
+        raise AssertionError(
+            f"detection lag {first['detect_lag']} steps vs fetch_lag "
+            f"{cfg.fetch_lag}: the sentinel must trip within 2 steps of "
+            "the delayed fetch")
+    leaves = doc.get("top_grad_leaves") or []
+    if not leaves or not any("." in str(k) for k, _ in leaves):
+        raise AssertionError(
+            f"top grad leaves lack dotted param names: {leaves}")
+    gdoc = tele.get_section(_goodput.SECTION)
+    if float(gdoc["buckets"]["data_wait"]) <= 0.0:
+        raise AssertionError(
+            f"health fetches left data_wait empty: {gdoc['buckets']}")
+    g_wall = float(gdoc["wall_s"])
+    g_total = sum(float(v) for v in gdoc["buckets"].values())
+    if abs(g_total - g_wall) > 0.02 * g_wall or \
+            float(gdoc["overattributed_s"]) > 0.02 * g_wall:
+        raise AssertionError(
+            f"drill ledger not MECE: buckets sum {g_total:.3f}s vs wall "
+            f"{g_wall:.3f}s, overattributed {gdoc['overattributed_s']}s")
+
+    # -- the bundle replays bitwise in a fresh process ------------------
+    bundles = (doc.get("replay") or {}).get("bundles") or []
+    target = f"replay_step{poison_step:06d}_r0.json"
+    meta_path = next((b for b in bundles
+                      if os.path.basename(b) == target), None)
+    if meta_path is None:
+        raise AssertionError(
+            f"no bundle for the poisoned step {poison_step}: {bundles}")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    if meta["anchor_step"] != poison_step:
+        raise AssertionError(
+            f"anchor did not re-arm on the poisoned batch: anchor "
+            f"{meta['anchor_step']} vs step {poison_step}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "sparktorch_tpu_torch.obs.replay",
+         meta_path], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or "bitwise reproduction" not in proc.stdout:
+        raise AssertionError(
+            f"replay did not reproduce bitwise (rc={proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}")
+
+    # -- the latched alert: one episode ---------------------------------
+    history = MetricsHistory(retention=8)
+    mgr = AlertManager(history, rules=_health.health_alert_rules(),
+                       telemetry=tele)
+    base = wall_ts()
+    fired = []
+    for k in range(3):
+        history.append(tele.snapshot(), ts=base + k)
+        fired += [e for e in mgr.evaluate(ts=base + k)
+                  if e["event"] == "fired"]
+    if [e["alert"] for e in fired] != ["health_nonfinite"]:
+        raise AssertionError(
+            f"want exactly one latched health_nonfinite episode over 3 "
+            f"sweeps, got {[(e['alert'], e['episode']) for e in fired]}")
+
+    # -- collector merge, GET /health, timeline renders -----------------
+    exp = GangMetricsExporter(telemetry=tele, port=0).start()
+    sink = os.path.join(workdir, "collector_sink.jsonl")
+    collector = FleetCollector({0: exp.url}, poll_interval_s=0,
+                               jsonl_path=sink)
+    collector.start(poll_loop=False)
+    try:
+        collector.poll()
+        run_doc = scrape_json(f"{collector.url}/health")
+        pm_path = collect_postmortem(workdir, "bench-health drill",
+                                     telemetry=tele, collector=collector)
+    finally:
+        collector.stop()
+        exp.stop()
+    if run_doc.get("kind") != "health_run" or \
+            "0" not in (run_doc.get("per_rank") or {}):
+        raise AssertionError(
+            f"/health missing the drill rank: "
+            f"{sorted(run_doc.get('per_rank') or {})}")
+    worst = run_doc.get("worst") or {}
+    if worst.get("akind") != "nonfinite" or worst.get("rank") != "0":
+        raise AssertionError(
+            f"/health worst anomaly is not the rank-tagged NaN: {worst}")
+    saved = os.path.join(workdir, "health.json")
+    with open(saved, "w") as f:
+        f.write(json.dumps(run_doc))
+    for args_, what in ((["--health", sink], "collector sink"),
+                        (["--health", saved], "saved /health doc")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = _timeline.main(args_)
+        out_txt = buf.getvalue()
+        if rc != 0 or "model health" not in out_txt \
+                or "nonfinite" not in out_txt:
+            raise AssertionError(
+                f"timeline --health ({what}) failed (rc={rc}) or lost the "
+                f"anomaly:\n{out_txt[:800]}")
+    stop_ev = threading.Event()
+    stop_ev.set()
+    follow_lines = list(_timeline.follow(sink, poll_s=0.0, stop=stop_ev))
+    if not any("health.run" in ln and "worst=nonfinite" in ln
+               for ln in follow_lines):
+        raise AssertionError(
+            "--follow tail lacks the health.run one-liner:\n"
+            + "\n".join(follow_lines[:10]))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = _timeline.main(["--postmortem", pm_path])
+    out_txt = buf.getvalue()
+    if rc != 0 or "model health at death" not in out_txt \
+            or "nonfinite" not in out_txt:
+        raise AssertionError(
+            f"postmortem lost the health-at-death view (rc={rc}):\n"
+            f"{out_txt[:800]}")
+
+    # -- note_step's host cost (the drift-gated value) ------------------
+    hl_ub = _health.TrainHealthLedger(
+        rank="ub", telemetry=Telemetry(run_id="bench_health_ub"))
+    n_ub = 2000
+    t0 = time.perf_counter()
+    for i in range(n_ub):
+        hl_ub.note_step(host={"loss": 1.0 + 1e-4 * i, "grad_norm": 0.5})
+    note_step_us = (time.perf_counter() - t0) / n_ub * 1e6
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    return {
+        "config": "health", "unit": "us (note_step cost)",
+        "value": round(note_step_us, 3),
+        "note_step_us": round(note_step_us, 3),
+        "overhead_pct_of_step": round(100 * overhead_frac, 4),
+        "overhead_pct_aa_wall": round(100 * aa_frac, 4),
+        "overhead_pct_note_floor": round(100 * note_frac, 4),
+        "step_wall_off_ms": round(w_off * 1e3, 3),
+        "step_wall_on_ms": round(w_on * 1e3, 3),
+        "detect": {
+            "step": poison_step, "akind": first["akind"],
+            "detect_lag": first["detect_lag"],
+            "fetch_lag": cfg.fetch_lag,
+            "anomalies_total": sum(doc["counts"].values()),
+        },
+        "replay": {
+            "bundle": os.path.basename(meta_path),
+            "anchor_step": meta["anchor_step"],
+            "bitwise": True,
+        },
+        "aa": {
+            "data_wait_on_s": round(min(dw_on), 6),
+            "data_wait_off_s": 0.0,
+            "clean_anomalies": 0,
+        },
+        "alerts": {"episodes": 1, "clean_episodes": 0},
+        "health_drift": _no_prior_drift(0.5),
+        "wall_s": round(time.perf_counter() - t_start, 2),
+    }
+
+
+def bench_skew(device=None, steps: int = 8, delay_s: float = 0.3,
+               from_step: int = 2, stamp_iters: int = 4000) -> dict:
+    """The JAX bench's cross-rank step-skew gate; raises unless
+
+    - **the decomposition lands on the right rank**: a seeded
+      ``delay_s`` a step straggler on rank 1 (``slow_rank_s``, fired
+      before the step span, so the rank is late into the fence) puts
+      >= 80% of the injected seconds in the merged ``GET /skew``
+      document's ``straggler_wait_s``, charged to rank 1, straggler wait
+      over wire, and the persistent-laggard verdict names rank 1 with a
+      cause hypothesis;
+    - **the alert reaches the controller**: ``skew_straggler_sustained``
+      latches one episode over 4 collector sweeps and arrives at an
+      ``ElasticController`` as a scale signal;
+    - **the A/A leg stays quiet**: the same fence with no chaos shows
+      ~0 straggler wait and no alert;
+    - **stamping is nearly free**: the per-step stamp costs < 1% of a
+      training-sized step (two 768 x 768 matmul pairs on ``device``);
+    - **the render path works**: ``timeline --skew`` from the sink and
+      from the saved document, and ``--follow``'s ``skew.run`` line.
+
+    The headline is the stamp's host cost; its drift gate reads
+    ``no_prior_record``."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from sparktorch_tpu_torch.ctl.elastic import ElasticController
+    from sparktorch_tpu_torch.ft import ChaosConfig, inject
+    from sparktorch_tpu_torch.ft import chaos as _chaos
+    from sparktorch_tpu_torch.native.gang import GangMetricsExporter
+    from sparktorch_tpu_torch.obs import FleetCollector, Telemetry
+    from sparktorch_tpu_torch.obs import goodput as _goodput
+    from sparktorch_tpu_torch.obs import skew as _skew
+    from sparktorch_tpu_torch.obs import timeline as _timeline
+    from sparktorch_tpu_torch.obs.collector import scrape_json
+
+    dev = _resolve_device(device)
+    t_start = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="bench_skew_")
+    injected_total = delay_s * (steps - from_step)
+
+    def fleet_leg(tag: str, chaos_cfg):
+        """One 2-rank fence workload through a collector with the skew
+        rules armed and a controller subscribed: ``(run_doc, latched
+        episodes, scale signals, sink)``. The ranks stamp as the
+        trainers do: chaos before the step span, the fence wait a
+        nested exposed_comm span."""
+        teles = [Telemetry(run_id=f"bench_skew_{tag}") for _ in range(2)]
+        leds = [_goodput.GoodputLedger(telemetry=teles[r], rank=r)
+                for r in range(2)]
+        barrier = threading.Barrier(2)
+        errs: list = []
+
+        def rank_fn(r):
+            try:
+                led = leds[r]
+                for i in range(steps):
+                    _chaos.straggle(r, i)
+                    with led.step_span(step=i):
+                        with led.span("exposed_comm"):
+                            barrier.wait()
+                led.close()
+            except Exception as e:  # noqa: BLE001 - surfaced below
+                errs.append(e)
+
+        threads = [threading.Thread(target=rank_fn, args=(r,))
+                   for r in range(2)]
+        cm = (inject(chaos_cfg, telemetry=teles[0]) if chaos_cfg
+              else contextlib.nullcontext())
+        with cm:
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        if errs:
+            raise AssertionError(f"{tag} rank thread died: {errs[0]!r}")
+        exps = [GangMetricsExporter(telemetry=teles[r], port=0).start()
+                for r in range(2)]
+        sink = os.path.join(workdir, f"sink_{tag}.jsonl")
+        collector = FleetCollector(
+            {r: exps[r].url for r in range(2)}, poll_interval_s=0,
+            jsonl_path=sink, alert_rules=_skew.skew_alert_rules())
+        ctl = ElasticController([], lambda w: True,
+                                telemetry=collector.telemetry,
+                                alerts=collector.alerts)
+        collector.start(poll_loop=False)
+        try:
+            # The sustained rule wants consecutive breaches; one more
+            # sweep shows the latch holds at one episode.
+            for _ in range(4):
+                collector.poll()
+            run_doc = scrape_json(f"{collector.url}/skew")
+        finally:
+            collector.stop()
+            for e in exps:
+                e.stop()
+            ctl.detach_alerts()
+        state = collector.alerts.doc()["rules"]["skew_straggler_sustained"]
+        return run_doc, int(state["episodes"]), list(ctl.scale_signals), sink
+
+    # -- A/A: the same fence, no chaos, quiet ----------------------------
+    aa_run, aa_eps, aa_signals, _aa_sink = fleet_leg("aa", None)
+    aa_wait = float(aa_run.get("straggler_wait_s") or 0.0)
+    if aa_wait > 0.1 * injected_total:
+        raise AssertionError(
+            f"A/A leg shows {aa_wait:.3f}s straggler wait (injected "
+            f"nothing; bound {0.1 * injected_total:.3f}s): the "
+            "decomposition charges healthy fence jitter as straggling")
+    if aa_eps or aa_signals:
+        raise AssertionError(
+            f"A/A leg paged: {aa_eps} alert episode(s), "
+            f"{len(aa_signals)} scale signal(s): false positives")
+
+    # -- a seeded straggler on rank 1 ------------------------------------
+    chaos_run, chaos_eps, chaos_signals, chaos_sink = fleet_leg(
+        "chaos", ChaosConfig(slow_rank_s={1: (from_step, delay_s)}))
+    wait = float(chaos_run.get("straggler_wait_s") or 0.0)
+    if wait < 0.8 * injected_total:
+        raise AssertionError(
+            f"injected {injected_total:.2f}s of straggling but only "
+            f"{wait:.3f}s landed in straggler_wait_s (<80%)")
+    wire = chaos_run.get("wire_s")
+    if wire is None or wait <= float(wire):
+        raise AssertionError(
+            f"straggler wait {wait:.3f}s does not dominate wire {wire}: "
+            "exposed_comm was not split")
+    to_r1 = float((chaos_run.get("wait_by_laggard") or {}).get("1") or 0.0)
+    if to_r1 < 0.8 * injected_total:
+        raise AssertionError(
+            f"only {to_r1:.3f}s of the {injected_total:.2f}s injected wait "
+            f"is charged to rank 1: {chaos_run.get('wait_by_laggard')}")
+    lag = chaos_run.get("laggard") or {}
+    if lag.get("rank") != "1" or not lag.get("persistent") \
+            or not lag.get("cause"):
+        raise AssertionError(
+            "verdict did not name rank 1 as a persistent straggler with a "
+            f"cause hypothesis: {lag}")
+    if chaos_eps != 1:
+        raise AssertionError(
+            "want exactly one latched skew_straggler_sustained episode "
+            f"over 4 sweeps, got {chaos_eps}")
+    if not any(s.get("rule") == "skew_straggler_sustained"
+               for s in chaos_signals):
+        raise AssertionError(
+            "the latched firing never reached the ElasticController as a "
+            f"scale signal: {chaos_signals}")
+
+    # -- the renders: sink, saved document, follow ------------------------
+    saved = os.path.join(workdir, "skew.json")
+    with open(saved, "w") as f:
+        f.write(json.dumps(chaos_run))
+    for args_, what in ((["--skew", chaos_sink], "collector sink"),
+                        (["--skew", saved], "saved /skew doc")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = _timeline.main(args_)
+        out_txt = buf.getvalue()
+        if rc != 0 or "step skew" not in out_txt \
+                or "persistent straggler" not in out_txt:
+            raise AssertionError(
+                f"timeline --skew ({what}) failed (rc={rc}) or lost the "
+                f"verdict:\n{out_txt[:800]}")
+    stop_ev = threading.Event()
+    stop_ev.set()
+    follow_lines = list(_timeline.follow(chaos_sink, poll_s=0.0,
+                                         stop=stop_ev))
+    if not any("skew.run" in ln and "laggard=rank 1" in ln
+               for ln in follow_lines):
+        raise AssertionError(
+            "--follow tail lacks the skew.run one-liner:\n"
+            + "\n".join(follow_lines[:10]))
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    # -- the stamp's cost against a training-sized step ------------------
+    led_ub = _goodput.GoodputLedger(
+        telemetry=Telemetry(run_id="bench_skew_ub"), rank="ub")
+    t0 = time.perf_counter()
+    for i in range(stamp_iters):
+        led_ub.skew.record(i, 1, 0.0, 1.0)
+    stamp_us = (time.perf_counter() - t0) / stamp_iters * 1e6
+    m = 768
+    xm = torch.ones((m, m), dtype=torch.float32, device=dev)
+
+    def rep(a):
+        return (a @ a) @ (a @ a) * (1.0 / m)
+
+    rep(xm)
+    _sync(dev)
+    rep_walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rep(xm)
+        _sync(dev)
+        rep_walls.append(time.perf_counter() - t0)
+    step_wall = min(rep_walls)
+    stamp_frac = (stamp_us * 1e-6) / max(step_wall, 1e-9)
+    if stamp_frac >= 0.01:
+        raise AssertionError(
+            f"step stamp costs {stamp_us:.2f}us: {100 * stamp_frac:.3f}% of "
+            f"the {step_wall * 1e3:.3f}ms representative step wall (>=1%)")
+
+    return {
+        "config": "skew", "unit": "us (step stamp cost)",
+        "value": round(stamp_us, 3),
+        "stamp_us": round(stamp_us, 3),
+        "stamp_pct_of_step": round(100 * stamp_frac, 4),
+        "step_wall_ms": round(step_wall * 1e3, 3),
+        "decomposition": {
+            "injected_s": round(injected_total, 3),
+            "straggler_wait_s": round(wait, 3),
+            "wire_s": round(float(wire), 3),
+            "straggler_fraction": chaos_run.get("straggler_fraction"),
+            "attributed_to_rank1_s": round(to_r1, 3),
+            "laggard": {"rank": lag.get("rank"),
+                        "persistent": bool(lag.get("persistent")),
+                        "cause": lag.get("cause")},
+        },
+        "aa": {"straggler_wait_s": round(aa_wait, 6), "episodes": 0,
+               "scale_signals": 0},
+        "alerts": {"episodes": 1, "scale_signals": len(chaos_signals)},
+        "skew_drift": _no_prior_drift(0.5),
+        "wall_s": round(time.perf_counter() - t_start, 2),
+    }
+
+
+def _profile_hot_planted(stop_t: float) -> float:
+    """The hot function ``bench_profile`` plants inside a compute span:
+    plain Python arithmetic with no callees, so every sample of it is
+    self time of this frame."""
+    acc = 0.0
+    while time.perf_counter() < stop_t:
+        for i in range(2000):
+            acc += i * i
+    return acc
+
+
+def bench_profile(device=None, n_steps: int = 30, reps: int = 3,
+                  hot_s: float = 1.2) -> dict:
+    """The JAX bench's stack-profiler gate; raises unless
+
+    - **it is nearly free**: with the sampler at its default rate, a
+      768 x 768 matmul step on ``device`` grows by < 1% against an A/A
+      profiler-off arm (min of interleaved runs);
+    - **attribution is real**: a busy loop planted inside a ``compute``
+      span is the compute bucket's top self-time frame with >= 80% of
+      its samples;
+    - **the fleet path works**: two ranks' sections merge into
+      ``GET /profile`` over HTTP, and ``timeline --profile`` names the
+      planted frame from the saved document and from the collector's
+      sink.
+
+    The headline is the sampler's cost a tick; its drift gate reads
+    ``no_prior_record``."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from sparktorch_tpu_torch.native.gang import GangMetricsExporter
+    from sparktorch_tpu_torch.obs import FleetCollector, Telemetry
+    from sparktorch_tpu_torch.obs import goodput as _goodput
+    from sparktorch_tpu_torch.obs import timeline as _timeline
+    from sparktorch_tpu_torch.obs.collector import scrape_json
+    from sparktorch_tpu_torch.obs.profile import StackProfiler, top_frames
+
+    dev = _resolve_device(device)
+    t_start = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="bench_profile_")
+
+    # -- A/A overhead, profiler off and on, interleaved ------------------
+    m = 768
+    xm = torch.ones((m, m), dtype=torch.float32, device=dev)
+    xm @ xm
+    _sync(dev)
+    tick_costs_us: List[float] = []
+
+    def arm(profiler_on: bool) -> float:
+        prof = StackProfiler() if profiler_on else None
+        if prof is not None:
+            prof.start()
+        walls = []
+        try:
+            for _ in range(n_steps):
+                t0 = time.perf_counter()
+                xm @ xm
+                _sync(dev)
+                walls.append(time.perf_counter() - t0)
+        finally:
+            if prof is not None:
+                doc = prof.stop()
+                if doc["ticks"] <= 0:
+                    raise AssertionError(
+                        "profiler-on arm took no sample ticks")
+                tick_costs_us.append(float(doc["sample_tick_us"]))
+        return min(walls)
+
+    offs, ons = [], []
+    for _ in range(reps):
+        offs.append(arm(False))
+        ons.append(arm(True))
+    w_off, w_on = min(offs), min(ons)
+    overhead_frac = max(w_on - w_off, 0.0) / max(w_off, 1e-9)
+    if overhead_frac >= 0.01:
+        raise AssertionError(
+            f"sampler overhead is {100 * overhead_frac:.2f}% of the "
+            f"{w_off * 1e3:.3f}ms step wall (bound: 1%; on "
+            f"{w_on * 1e3:.3f}ms vs off {w_off * 1e3:.3f}ms, min of {reps} "
+            "interleaved runs)")
+    sample_tick_us = min(tick_costs_us)
+
+    # -- a planted hot function owns its bucket --------------------------
+    tele0 = Telemetry(run_id="bench_profile_r0")
+    prof0 = StackProfiler(telemetry=tele0, rank=0, hz=250.0,
+                          publish_interval_s=0.2)
+    prof0.start()
+    try:
+        with _goodput.span("compute"):
+            _profile_hot_planted(time.perf_counter() + hot_s)
+    finally:
+        doc0 = prof0.stop()
+    buckets0 = doc0.get("buckets") or {}
+    if "compute" not in buckets0:
+        raise AssertionError(f"no compute bucket sampled: {sorted(buckets0)}")
+    frames = top_frames(doc0, "compute", n=3)
+    if not frames or not frames[0][0].startswith("_profile_hot_planted"):
+        raise AssertionError(
+            "planted hot function is not the compute bucket's top "
+            f"self-time frame: {frames}")
+    bucket_samples = int(buckets0["compute"].get("samples") or 0)
+    hot_share = frames[0][1] / max(bucket_samples, 1)
+    if hot_share < 0.8:
+        raise AssertionError(
+            f"planted function holds only {100 * hot_share:.1f}% of the "
+            f"compute bucket's {bucket_samples} samples (want >= 80%)")
+
+    # -- a 2-rank merge over HTTP and the renders ------------------------
+    tele1 = Telemetry(run_id="bench_profile_r1")
+    prof1 = StackProfiler(telemetry=tele1, rank=1, hz=250.0,
+                          publish_interval_s=0.2)
+    release = threading.Event()
+
+    def rank1_waits():
+        with _goodput.span("data_wait", {"site": "bench"}):
+            release.wait(timeout=10.0)
+
+    waiter = threading.Thread(target=rank1_waits, daemon=True)
+    waiter.start()
+    prof1.start()
+    time.sleep(0.3)
+    release.set()
+    waiter.join(timeout=5.0)
+    prof1.stop()
+
+    exp0 = GangMetricsExporter(telemetry=tele0, port=0).start()
+    exp1 = GangMetricsExporter(telemetry=tele1, port=0).start()
+    sink = os.path.join(workdir, "collector_sink.jsonl")
+    collector = FleetCollector({0: exp0.url, 1: exp1.url},
+                               poll_interval_s=0, jsonl_path=sink)
+    collector.start(poll_loop=False)
+    try:
+        collector.poll()
+        run_doc = scrape_json(f"{collector.url}/profile")
+    finally:
+        collector.stop()
+        exp0.stop()
+        exp1.stop()
+    ranks_seen = set(run_doc.get("per_rank") or {})
+    if not {"0", "1"} <= ranks_seen:
+        raise AssertionError(
+            f"/profile per_rank missing ranks: {sorted(ranks_seen)}")
+    if "data_wait" not in (run_doc.get("buckets") or {}):
+        raise AssertionError(
+            "rank1's data_wait bucket lost in the merge: "
+            f"{sorted(run_doc.get('buckets') or {})}")
+    merged_top = top_frames(run_doc, "compute", n=1)
+    if not merged_top or \
+            not merged_top[0][0].startswith("_profile_hot_planted"):
+        raise AssertionError(
+            f"merged /profile lost the planted frame: {merged_top}")
+    saved = os.path.join(workdir, "profile.json")
+    with open(saved, "w") as f:
+        f.write(json.dumps(run_doc))
+    for path, what in ((sink, "collector sink"),
+                       (saved, "saved /profile doc")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = _timeline.main([path, "--profile"])
+        out_txt = buf.getvalue()
+        if rc != 0 or "_profile_hot_planted" not in out_txt:
+            raise AssertionError(
+                f"timeline --profile ({what}) failed (rc={rc}) or did not "
+                f"name the planted frame:\n{out_txt[:800]}")
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    return {
+        "config": "profile", "unit": "us (sample tick cost)",
+        "value": round(sample_tick_us, 3),
+        "sample_tick_us": round(sample_tick_us, 3),
+        "overhead_pct_of_step": round(100 * overhead_frac, 4),
+        "step_wall_off_ms": round(w_off * 1e3, 3),
+        "step_wall_on_ms": round(w_on * 1e3, 3),
+        "hz": float(doc0["hz"]),
+        "hot": {
+            "ticks": doc0["ticks"],
+            "bucket_samples": bucket_samples,
+            "hot_share": round(hot_share, 4),
+            "top_frame": frames[0][0],
+        },
+        "run_report": {
+            "n_ranks": run_doc["n_ranks"],
+            "samples_total": run_doc["samples_total"],
+            "buckets": sorted(run_doc["buckets"]),
+            "truncated": run_doc["truncated"],
+        },
+        "profile_drift": _no_prior_drift(1.0),
+        "wall_s": round(time.perf_counter() - t_start, 2),
+    }
+
+
+def _obs_pm_worker(ctx, parts, rank, out, gate):
+    """One rank of ``bench_obs_history``'s postmortem leg (a
+    ``ctl.worker`` child): a span a partition on the worker's own bus
+    (its flight recorder's evidence), parked before partition 2 until
+    ``gate`` exists, so the kill at step 2 cannot outrun the
+    collector's first scrape of this rank's ring."""
+    import os as _os
+    import time as _t
+
+    for i, p in enumerate(parts):
+        if ctx.should_stop():
+            return
+        if i == 2 and not _os.path.exists(gate):
+            hold = _t.perf_counter() + 30.0
+            while (not _os.path.exists(gate) and _t.perf_counter() < hold
+                   and not ctx.should_stop()):
+                _t.sleep(0.05)
+        ctx.notify_step(i)
+        with ctx.telemetry.span("work/partition", labels={"part": p}):
+            path = _os.path.join(out, p + ".done")
+            if not _os.path.exists(path):
+                tmp = path + f".tmp{_os.getpid()}"
+                with open(tmp, "w") as f:
+                    f.write(f"{rank}")
+                _os.replace(tmp, path)
+            _t.sleep(0.25)
+
+
+def bench_obs_history(device=None, n_pulls: int = 6,
+                      slow_delay_s: float = 0.5, for_sweeps: int = 3) -> dict:
+    """The JAX bench's metrics-history, alerting and flight-recorder
+    gate; raises unless
+
+    - **alerting is causal, not noisy**: against a live 2-shard fleet a
+      seeded slow shard fires the sustained p99 rule on the client's
+      ``sharded.shard_pull_latency_s`` hop (where the injected delay
+      lands) within ``for_sweeps`` + 1 sweeps of the first breach, one
+      episode, shown in the collector's ``/gang`` over HTTP, while an
+      A/A control run fires nothing; ``/history`` answers a rate query;
+    - **postmortems hold the causal window**: a seeded SIGKILL of a
+      process worker (``kill_process_at``) writes a postmortem whose
+      event window holds the kill's ``ctl.*`` transition and the
+      victim's last spans (from the collector's last-good scrape of the
+      dead process's ring), rendered by ``timeline --postmortem``;
+    - **the memory tier is nearly free**: a collector sweep with
+      history and alerts stays within 10% + 0.2 ms of a history-off
+      sweep (min of 60 interleaved sweeps).
+
+    The fleet's shards keep their leaves on ``device``. The headline is
+    the history-on sweep's median; its drift gate reads
+    ``no_prior_record``."""
+    import contextlib
+    import functools
+    import io
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from sparktorch_tpu_torch.ctl import ElasticController, spawn_worker
+    from sparktorch_tpu_torch.ft import (
+        ChaosConfig,
+        FtPolicy,
+        RestartPolicy,
+        inject,
+    )
+    from sparktorch_tpu_torch.models import MnistMLP
+    from sparktorch_tpu_torch.native.gang import GangMetricsExporter
+    from sparktorch_tpu_torch.net.sharded import ShardedTransport
+    from sparktorch_tpu_torch.obs import AlertRule, FleetCollector, Telemetry
+    from sparktorch_tpu_torch.obs import timeline as _timeline
+    from sparktorch_tpu_torch.obs.blackbox import (
+        events_from_snapshot,
+        read_postmortem,
+    )
+    from sparktorch_tpu_torch.obs.collector import scrape_json
+    from sparktorch_tpu_torch.serve.fleet import ParamServerFleet
+
+    dev = _resolve_device(device)
+    t_start = time.perf_counter()
+    torch.manual_seed(0)
+    spec = _spec(MnistMLP(), optimizer="sgd", optimizer_params={"lr": 1e-2},
+                 input_shape=(784,))
+    slow_shard = "1"
+    threshold_s = slow_delay_s * 0.4  # far above a clean hop, far below
+
+    def alert_leg(chaos_cfg) -> dict:
+        leg_tele = Telemetry(run_id="bench_obs_alert")
+        fleet = ParamServerFleet(spec, n_shards=2, telemetry=leg_tele,
+                                 device=dev).start()
+        # The client's hop latency, not the server's wire_latency_s:
+        # the delay lands before the handler's clock.
+        rules = [AlertRule(
+            name="hot_shard_p99", metric="sharded.shard_pull_latency_s",
+            labels={"shard": slow_shard}, kind="sustained", field="p99",
+            op=">", threshold=threshold_s, for_sweeps=for_sweeps)]
+        collector = FleetCollector.for_fleet(fleet, poll_interval_s=0,
+                                             alert_rules=rules)
+        collector.start(poll_loop=False)
+        first_breach_sweep = fired_sweep = None
+        try:
+            transport = ShardedTransport(fleet, telemetry=leg_tele)
+            zeros = _zeros_of(fleet.assemble())
+            have = -1
+            ctx = (inject(chaos_cfg, telemetry=leg_tele) if chaos_cfg
+                   else contextlib.nullcontext())
+            with ctx:
+                for sweep in range(n_pulls):
+                    transport.push(zeros)
+                    fleet.drain()
+                    snap = transport.pull(have)
+                    if snap is not None:
+                        have = snap[0]
+                    collector.poll()
+                    state = collector.alerts.doc()["rules"]["hot_shard_p99"]
+                    if first_breach_sweep is None and state["streak"] > 0:
+                        first_breach_sweep = sweep
+                    if fired_sweep is None and state["state"] == "firing":
+                        fired_sweep = sweep
+            gang = scrape_json(f"{collector.url}/gang")
+            hist_rate = scrape_json(
+                f"{collector.url}/history?name=collector.scrapes_total"
+                "&query=rate")
+            transport.close()
+            return {"doc": collector.alerts.doc(),
+                    "gang_alerts": gang.get("alerts") or {},
+                    "first_breach_sweep": first_breach_sweep,
+                    "fired_sweep": fired_sweep,
+                    "history_rate_ok": hist_rate.get("value") is not None}
+        finally:
+            collector.stop()
+            fleet.stop()
+
+    with _Phase(dev, "alert_legs") as p_alerts:
+        control = alert_leg(None)
+        chaotic = alert_leg(ChaosConfig(
+            seed=7, slow_shard_s={slow_shard: slow_delay_s}))
+    ctl_rule = control["doc"]["rules"]["hot_shard_p99"]
+    if ctl_rule["episodes"] != 0 or control["gang_alerts"].get("active"):
+        raise AssertionError(
+            f"A/A control run fired alerts: {ctl_rule} (active "
+            f"{control['gang_alerts'].get('active')})")
+    hot_rule = chaotic["doc"]["rules"]["hot_shard_p99"]
+    if hot_rule["episodes"] != 1 or hot_rule["state"] != "firing":
+        raise AssertionError(
+            f"seeded degradation did not fire exactly one episode: "
+            f"{hot_rule}")
+    if chaotic["first_breach_sweep"] is None \
+            or chaotic["fired_sweep"] is None \
+            or (chaotic["fired_sweep"] - chaotic["first_breach_sweep"]
+                > for_sweeps + 1):
+        raise AssertionError(
+            f"alert missed its rule window: first breach sweep "
+            f"{chaotic['first_breach_sweep']}, fired sweep "
+            f"{chaotic['fired_sweep']} (for_sweeps={for_sweeps})")
+    if "hot_shard_p99" not in (chaotic["gang_alerts"].get("active") or []):
+        raise AssertionError(
+            "/gang alerts section does not show the firing rule: "
+            f"{chaotic['gang_alerts']}")
+    if not (control["history_rate_ok"] and chaotic["history_rate_ok"]):
+        raise AssertionError(
+            "/history rate query answered null on a live collector")
+
+    # -- a seeded worker kill writes a postmortem ------------------------
+    with _Phase(dev, "postmortem_leg") as p_pm:
+        tele = Telemetry(run_id="bench_obs_pm")
+        workdir = tempfile.mkdtemp(prefix="bench_obs_pm_")
+        out = os.path.join(workdir, "parts")
+        hb_dir = os.path.join(workdir, "hb")
+        pm_dir = os.path.join(workdir, "postmortems")
+        os.makedirs(out)
+        work = [f"part{i:02d}" for i in range(8)]
+        scrape_gate = os.path.join(workdir, "scrape.gate")
+
+        def completed(p):
+            return os.path.exists(os.path.join(out, p + ".done"))
+
+        workers = {}
+
+        def start_fn(rank, attempt, generation, assignment):
+            fn = functools.partial(_obs_pm_worker, parts=tuple(assignment),
+                                   rank=rank, out=out, gate=scrape_gate)
+            w = spawn_worker(fn, rank=rank, heartbeat_dir=hb_dir,
+                             name=f"rank{rank}", telemetry=tele, ctl_port=0)
+            workers[rank] = w
+            return w
+
+        policy = FtPolicy(restart=RestartPolicy(max_restarts=2,
+                                                backoff_base_s=0.05,
+                                                backoff_max_s=0.2), seed=0)
+        ctl = ElasticController(work, completed, policy=policy,
+                                telemetry=tele, min_world=1,
+                                postmortem_dir=pm_dir, name="bench_obs_pm")
+        ctl.add_rank(0, start_fn)
+        ctl.add_rank(1, start_fn)
+        collector = None
+        try:
+            with inject(ChaosConfig(seed=13, kill_process_at={0: 2}),
+                        telemetry=tele) as inj:
+                run_err = []
+
+                def run():
+                    try:
+                        ctl.run(poll_interval_s=0.05, deadline_s=120.0)
+                    except BaseException as e:  # noqa: BLE001 - surfaced
+                        run_err.append(e)
+
+                runner = threading.Thread(target=run, daemon=True)
+                runner.start()
+                # The collector needs the workers' exporter URLs, which
+                # exist only once run() launched them.
+                deadline = time.perf_counter() + 30.0
+                urls = {}
+                while time.perf_counter() < deadline and len(urls) < 2:
+                    for rank, w in list(workers.items()):
+                        if rank not in urls:
+                            url = w.ctl_url(timeout_s=0.1)
+                            if url:
+                                urls[rank] = url
+                    time.sleep(0.05)
+                if len(urls) < 2:
+                    raise AssertionError(
+                        f"worker exporters never published URLs: {urls}")
+                collector = FleetCollector(urls, telemetry=tele,
+                                           poll_interval_s=0.1)
+                collector.start(poll_loop=True)
+                ctl.collector = collector
+                # Open the kill's gate once the victim's ring is in the
+                # collector's last-good scrape.
+                scraped = time.perf_counter() + 30.0
+                while time.perf_counter() < scraped:
+                    with collector._lock:
+                        st = collector._ranks.get("0")
+                        snap = st.snapshot if st is not None else None
+                    if snap and any(e.get("kind") == "span"
+                                    for e in events_from_snapshot(snap)):
+                        break
+                    time.sleep(0.05)
+                else:
+                    raise AssertionError(
+                        "collector never scraped rank 0's blackbox ring")
+                with open(scrape_gate + ".tmp", "w") as f:
+                    f.write("ok")
+                os.replace(scrape_gate + ".tmp", scrape_gate)
+                runner.join(timeout=120.0)
+                if runner.is_alive():
+                    raise AssertionError("postmortem leg run() hung")
+                if run_err:
+                    raise AssertionError(
+                        f"postmortem leg failed: {run_err[0]}")
+        finally:
+            if collector is not None:
+                collector.stop()
+        missing = [p for p in work if not completed(p)]
+        if missing:
+            raise AssertionError(f"partitions incomplete: {missing}")
+        kills = [e for e in inj.events if e["site"] == "ctl.process"]
+        if len(kills) != 1 or kills[0]["rank"] != 0:
+            raise AssertionError(
+                f"chaos kill fired {kills} (want one SIGKILL on rank 0)")
+        bundles = sorted(os.listdir(pm_dir)) if os.path.isdir(pm_dir) else []
+        if not bundles:
+            raise AssertionError("no postmortem bundle written")
+        # The kill's bundle is the first (written in detection order).
+        bundle = read_postmortem(os.path.join(pm_dir, bundles[0]))
+        kinds = {str(e.get("kind")) for e in bundle["events"]}
+        if not kinds & {"ctl.restart_scheduled", "restart_scheduled"}:
+            raise AssertionError(
+                f"bundle window lacks the kill's ctl.* transition: "
+                f"{sorted(kinds)}")
+        victim_spans = [e for e in bundle["events"]
+                        if e.get("kind") == "span"
+                        and str(e.get("rank")) == "0"]
+        if not victim_spans:
+            raise AssertionError(
+                f"bundle window lacks the victim's last spans (kinds "
+                f"{sorted(kinds)})")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = _timeline.main(["--postmortem",
+                                 os.path.join(pm_dir, bundles[0])])
+        if rc != 0 or "postmortem:" not in buf.getvalue():
+            raise AssertionError(f"timeline --postmortem failed (rc={rc})")
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # -- the sweep with history and alerts against one without -----------
+    gc.collect()  # the legs above leave garbage a sweep would collect
+    with _Phase(dev, "overhead_leg") as p_ovr:
+        ovr_tele = Telemetry(run_id="bench_obs_ovr")
+        ovr_tele.counter("reqs_total", 10)
+        for _ in range(64):
+            ovr_tele.observe("lat_s", 0.01)
+        exporters = [GangMetricsExporter(telemetry=ovr_tele, port=0).start()
+                     for _ in range(2)]
+        targets = {i: e.url for i, e in enumerate(exporters)}
+        rules = [AlertRule(name="ovr", metric="lat_s", labels={"rank": "0"},
+                           kind="sustained", field="p99", threshold=1e9,
+                           for_sweeps=2)]
+        col_on = FleetCollector(targets, poll_interval_s=0,
+                                alert_rules=rules)
+        col_off = FleetCollector(targets, poll_interval_s=0, history=False)
+        on_walls, off_walls = [], []
+        try:
+            for _ in range(4):  # both paths warm
+                col_on.poll()
+                col_off.poll()
+            for i in range(60):
+                ovr_tele.counter("reqs_total")
+                ovr_tele.observe("lat_s", 0.01)
+                # Interleaved, the order alternating.
+                pair = ((col_on, on_walls), (col_off, off_walls))
+                for col, walls in (pair if i % 2 == 0 else reversed(pair)):
+                    t0 = time.perf_counter()
+                    col.poll()
+                    walls.append(time.perf_counter() - t0)
+        finally:
+            col_on.stop()
+            col_off.stop()
+            for e in exporters:
+                e.stop()
+        on_ms = float(np.median(on_walls)) * 1e3
+        off_ms = float(np.median(off_walls)) * 1e3
+        on_min_ms = float(np.min(on_walls)) * 1e3
+        off_min_ms = float(np.min(off_walls)) * 1e3
+        tol = 0.10
+        # The min of a deterministic sweep isolates its cost; the median
+        # breathes with the host's scheduler. 0.2 ms for timer jitter.
+        if on_min_ms > off_min_ms * (1.0 + tol) + 0.2:
+            raise AssertionError(
+                f"history+alerts sweep overhead past bound: min "
+                f"{on_min_ms:.3f}ms vs {off_min_ms:.3f}ms history-off "
+                f"(medians {on_ms:.3f}/{off_ms:.3f}ms; tol {tol:.0%} "
+                "+ 0.2ms)")
+
+    return {
+        "config": "obs_history", "unit": "ms (history-on sweep p50)",
+        "value": round(on_ms, 3),
+        "sweep_on_ms": round(on_ms, 3),
+        "sweep_off_ms": round(off_ms, 3),
+        "sweep_on_min_ms": round(on_min_ms, 3),
+        "sweep_off_min_ms": round(off_min_ms, 3),
+        "sweep_overhead_pct": round(100.0 * (on_min_ms - off_min_ms)
+                                    / max(off_min_ms, 1e-9), 2),
+        "alert": {
+            "threshold_s": threshold_s,
+            "for_sweeps": for_sweeps,
+            "control_episodes": ctl_rule["episodes"],
+            "chaos_episodes": hot_rule["episodes"],
+            "first_breach_sweep": chaotic["first_breach_sweep"],
+            "fired_sweep": chaotic["fired_sweep"],
+        },
+        "postmortem": {
+            "bundles": len(bundles),
+            "victim_spans": len(victim_spans),
+            "event_kinds": sorted(kinds)[:12],
+        },
+        "obs_drift": _no_prior_drift(1.0),
+        "phase_s": _phase_s(alert_legs=p_alerts, postmortem_leg=p_pm,
+                            overhead_leg=p_ovr),
+        "wall_s": round(time.perf_counter() - t_start, 2),
+    }
+
+
+def bench_goodput(device=None, n_parts: int = 10, part_sleep_s: float = 0.25,
+                  n_pulls: int = 4, slow_delay_s: float = 0.5) -> dict:
+    """The JAX bench's run-level goodput gate; raises unless
+
+    - **attribution is real**: a streaming training run with checkpoints
+      shows ``compile``, ``checkpoint``, ``data_wait`` and ``compute``
+      seconds, the ledger MECE (buckets and idle sum to the wall within
+      2%, no over-attribution), and the run report served per rank and
+      run-wide over ``GET /goodput`` and rendered by
+      ``timeline --goodput`` with the biggest thief named;
+    - **chaos lands in the right bucket**: a seeded ``slow_shard_s``
+      delay on the wire moves ``exposed_comm`` by >= 80% of the injected
+      seconds and ``compute`` by <= 25% of them against an A/A leg,
+      whose downtime buckets are exactly zero;
+    - **downtime reconciles**: a SIGKILL on a real multi-process elastic
+      run lands at least its measured recovery gap in
+      ``restart_downtime``, which reconciles with the
+      ``ft_recovery_latency_s`` sum; the shrink and the grow land in
+      ``resize_downtime``; the driver's ledger stays MECE;
+    - **the ledger is nearly free**: a ``LedgerSpan`` costs < 1% of the
+      training run's step wall.
+
+    The port has no compiler: its ``compile`` bucket is the trainer's
+    set-up (``site=train_init``, one compile) and a hand kernel's first
+    build inside a step (none on this MLP), so the training leg asks for
+    at least one compile of > 0 s where the JAX leg asks for two (the
+    set-up and the first chunk's jit) and 10 ms. The rank-1 ledger steps
+    a 256 x 256 matmul on ``device``. The headline is the span's host
+    cost; its drift gate reads ``no_prior_record``."""
+    import contextlib
+    import functools
+    import io
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from sparktorch_tpu_torch.ctl import ElasticController, spawn_worker
+    from sparktorch_tpu_torch.ft import (
+        ChaosConfig,
+        FtPolicy,
+        RestartPolicy,
+        inject,
+    )
+    from sparktorch_tpu_torch.models import MnistMLP
+    from sparktorch_tpu_torch.native.gang import (
+        GangCoordinator,
+        GangMetricsExporter,
+    )
+    from sparktorch_tpu_torch.net.sharded import ShardedTransport
+    from sparktorch_tpu_torch.obs import FleetCollector, Telemetry
+    from sparktorch_tpu_torch.obs import goodput as _goodput
+    from sparktorch_tpu_torch.obs import timeline as _timeline
+    from sparktorch_tpu_torch.obs.collector import scrape_json
+    from sparktorch_tpu_torch.serve.fleet import ParamServerFleet
+    from sparktorch_tpu_torch.train.sync import train_distributed_streaming
+
+    dev = _resolve_device(device)
+    t_start = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="bench_goodput_")
+
+    def mece(doc: dict, leg: str, over_tol_frac: float = 0.02) -> None:
+        wall = float(doc["wall_s"])
+        total = sum(float(v) for v in doc["buckets"].values())
+        if abs(total - wall) > 0.02 * wall:
+            raise AssertionError(
+                f"{leg}: ledger not MECE: buckets sum {total:.3f}s vs wall "
+                f"{wall:.3f}s (> 2%)")
+        if float(doc["overattributed_s"]) > over_tol_frac * wall:
+            raise AssertionError(
+                f"{leg}: {doc['overattributed_s']}s over-attributed "
+                f"(double-counted regions) against {wall:.3f}s wall")
+
+    def zero_downtime(doc: dict, leg: str) -> None:
+        for b in ("restart_downtime", "resize_downtime"):
+            if float(doc["buckets"][b]) != 0.0:
+                raise AssertionError(
+                    f"{leg}: A/A run shows nonzero {b} "
+                    f"({doc['buckets'][b]}s)")
+
+    # -- training attribution: compile, checkpoint, data_wait ------------
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2048, 784)).astype(np.float32)
+    y = rng.integers(0, 10, (2048,)).astype(np.int32)
+    torch.manual_seed(0)
+    spec = _spec(MnistMLP(), optimizer="sgd", optimizer_params={"lr": 1e-2},
+                 input_shape=(784,))
+    tele0 = Telemetry(run_id="bench_goodput_r0")
+    ledger0 = _goodput.GoodputLedger(telemetry=tele0, rank=0)
+    with ledger0.activate():
+        train_distributed_streaming(
+            spec, (x, y), chunk_rows=512, epochs=2, mini_batch=64,
+            checkpoint_dir=os.path.join(workdir, "ckpt"),
+            checkpoint_every=8, telemetry=tele0, device=dev)
+    doc0 = tele0.get_section(_goodput.SECTION)
+    mece(doc0, "training leg")
+    zero_downtime(doc0, "training leg")
+    for bucket, floor in (("compile", 0.0), ("checkpoint", 0.001),
+                          ("data_wait", 0.0005), ("compute", 0.001)):
+        if float(doc0["buckets"][bucket]) <= floor:
+            raise AssertionError(
+                f"training leg: {bucket} bucket empty "
+                f"({doc0['buckets'][bucket]}s <= {floor}s floor): "
+                f"instrumentation lost: {doc0['buckets']}")
+    if doc0["compiles"] < 1 or doc0["n_steps"] <= 0:
+        raise AssertionError(
+            f"training leg: compiles {doc0['compiles']} (want >= 1: the "
+            f"set-up) / n_steps {doc0['n_steps']}")
+    step_wall_s = ((float(doc0["buckets"]["compute"])
+                    + float(doc0["buckets"]["exposed_comm"]))
+                   / doc0["n_steps"])
+
+    # Rank 1: a flops-declaring ledger over a matmul loop, so the merged
+    # /goodput report is per rank and carries MFU.
+    tele1 = Telemetry(run_id="bench_goodput_r1")
+    m = 256
+    xm = torch.ones((m, m), dtype=torch.float32, device=dev)
+    ledger1 = _goodput.GoodputLedger(telemetry=tele1, rank=1,
+                                     flops_per_step=2.0 * m ** 3)
+    for _ in range(5):
+        with ledger1.step_span():
+            xm @ xm
+            _sync(dev)
+    ledger1.set_comm_model(0.1, "estimate")
+    doc1 = ledger1.close()
+    mece(doc1, "rank1 leg")
+
+    # -- collector merge, GET /goodput, timeline renders -----------------
+    exp0 = GangMetricsExporter(telemetry=tele0, port=0).start()
+    exp1 = GangMetricsExporter(telemetry=tele1, port=0).start()
+    sink = os.path.join(workdir, "collector_sink.jsonl")
+    collector = FleetCollector({0: exp0.url, 1: exp1.url},
+                               poll_interval_s=0, jsonl_path=sink)
+    collector.start(poll_loop=False)
+    try:
+        collector.poll()
+        run_doc = scrape_json(f"{collector.url}/goodput")
+    finally:
+        collector.stop()
+        exp0.stop()
+        exp1.stop()
+    ranks_seen = set(run_doc.get("per_rank") or {})
+    if not {"0", "1"} <= ranks_seen:
+        raise AssertionError(
+            f"/goodput per_rank missing ranks: {sorted(ranks_seen)}")
+    if not 0.0 < float(run_doc["goodput"]) <= 1.0 or \
+            any("goodput" not in r for r in run_doc["per_rank"].values()):
+        raise AssertionError(
+            f"/goodput fractions malformed: run {run_doc.get('goodput')}")
+    thief = run_doc.get("biggest_thief")
+    if not thief or thief["bucket"] == "compute":
+        raise AssertionError(f"/goodput biggest_thief missing: {thief}")
+    if run_doc.get("mfu") is None:
+        raise AssertionError(
+            "/goodput lacks mfu despite a flops-declaring rank")
+    expected_thief = max(
+        ((b, s) for b, s in run_doc["buckets"].items() if b != "compute"),
+        key=lambda kv: kv[1])[0]
+    saved = os.path.join(workdir, "goodput.json")
+    with open(saved, "w") as f:
+        f.write(json.dumps(run_doc))
+    for args_, what in ((["--goodput", sink], "collector sink"),
+                        (["--goodput", saved], "saved /goodput doc")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = _timeline.main(args_)
+        out_txt = buf.getvalue()
+        if rc != 0 or f"biggest thief: {expected_thief}" not in out_txt:
+            raise AssertionError(
+                f"timeline --goodput ({what}) failed (rc={rc}) or did not "
+                f"name the biggest thief {expected_thief!r}:\n"
+                f"{out_txt[:800]}")
+
+    # -- a seeded slow shard moves exposed_comm, not compute -------------
+    wx = torch.ones((512, 512), dtype=torch.float32, device=dev)
+    (wx @ wx).sum().item()
+
+    def wire_leg(chaos_cfg) -> dict:
+        leg_tele = Telemetry(run_id="bench_goodput_wire")
+        fleet = ParamServerFleet(spec, n_shards=2, telemetry=leg_tele,
+                                 device=dev).start()
+        ledger = _goodput.GoodputLedger(telemetry=leg_tele, rank="wire")
+        try:
+            transport = ShardedTransport(fleet, telemetry=leg_tele)
+            have = -1
+            ctx = (inject(chaos_cfg, telemetry=leg_tele) if chaos_cfg
+                   else contextlib.nullcontext())
+            with ctx:
+                for _ in range(n_pulls):
+                    with ledger.span("exposed_comm", {"site": "pull"}):
+                        snap = transport.pull(have)
+                        if snap is not None:
+                            have = snap[0]
+                    with ledger.step_span():
+                        (wx @ wx).sum().item()
+            transport.close()
+            return ledger.close()
+        finally:
+            fleet.stop()
+
+    wire_ctrl = wire_leg(None)
+    wire_chaos = wire_leg(ChaosConfig(seed=7,
+                                      slow_shard_s={"1": slow_delay_s}))
+    zero_downtime(wire_ctrl, "wire control leg")
+    zero_downtime(wire_chaos, "wire chaos leg")
+    injected = slow_delay_s * n_pulls
+    comm_shift = (float(wire_chaos["buckets"]["exposed_comm"])
+                  - float(wire_ctrl["buckets"]["exposed_comm"]))
+    if comm_shift < 0.8 * injected:
+        raise AssertionError(
+            f"seeded slow shard did not land in exposed_comm: shift "
+            f"{comm_shift:.3f}s vs {injected:.3f}s injected")
+    compute_shift = (float(wire_chaos["buckets"]["compute"])
+                     - float(wire_ctrl["buckets"]["compute"]))
+    if compute_shift > 0.25 * injected:
+        raise AssertionError(
+            f"seeded slow shard leaked into compute: +{compute_shift:.3f}s "
+            f"(vs {injected:.3f}s injected)")
+
+    # -- elastic downtime: attribution and reconciliation ----------------
+    out = os.path.join(workdir, "parts")
+    hb_dir = os.path.join(workdir, "hb")
+    os.makedirs(out)
+    work = [f"part{i:03d}" for i in range(n_parts)]
+
+    def completed(p):
+        return os.path.exists(os.path.join(out, p + ".done"))
+
+    etele = Telemetry(run_id="bench_goodput_elastic")
+
+    def start_fn(rank, attempt, generation, assignment):
+        fn = functools.partial(_elastic_part_worker, parts=tuple(assignment),
+                               rank=rank, generation=generation, out=out,
+                               sleep_s=part_sleep_s)
+        return spawn_worker(fn, rank=rank, heartbeat_dir=hb_dir,
+                            name=f"rank{rank}", telemetry=etele)
+
+    coord = GangCoordinator(world_size=3, port=0,
+                            heartbeat_timeout_ms=30_000)
+    policy = FtPolicy(restart=RestartPolicy(max_restarts=2,
+                                            backoff_base_s=0.05,
+                                            backoff_max_s=0.2), seed=0)
+    ctl = ElasticController(work, completed, policy=policy, telemetry=etele,
+                            coordinator=coord, min_world=1,
+                            name="bench_goodput")
+    for r in range(3):
+        ctl.add_rank(r, start_fn)
+
+    def grower():
+        deadline = time.perf_counter() + 120.0
+        while time.perf_counter() < deadline and not ctl._stop.is_set():
+            if ctl._resizes["shrink"] >= 1:
+                ctl.grow(3, start_fn)
+                return
+            time.sleep(0.05)
+
+    threading.Thread(target=grower, daemon=True).start()
+    eledger = _goodput.GoodputLedger(telemetry=etele, rank="driver")
+    try:
+        with eledger.activate():
+            with inject(ChaosConfig(seed=11, kill_process_at={0: 2}),
+                        telemetry=etele) as inj:
+                summary = ctl.run(poll_interval_s=0.05, deadline_s=240.0)
+    finally:
+        coord.stop()
+    edoc = etele.get_section(_goodput.SECTION)
+    mece(edoc, "elastic leg")
+    missing = [p for p in work if not completed(p)]
+    if missing or summary["work_pending"]:
+        raise AssertionError(f"elastic leg incomplete: {missing}")
+    kills = [e for e in inj.events if e["site"] == "ctl.process"]
+    if len(kills) != 1 or summary["resizes"] != {"shrink": 1, "grow": 1}:
+        raise AssertionError(
+            f"elastic leg chaos schedule wrong: kills {kills}, resizes "
+            f"{summary['resizes']}")
+    recovery = [(v["sum"], v["max"]) for k, v in
+                etele.snapshot()["histograms"].items()
+                if k.startswith("ft_recovery_latency_s") and v["count"]]
+    if not recovery:
+        raise AssertionError("no ft_recovery_latency_s samples")
+    recovery_sum = sum(s for s, _ in recovery)
+    recovery_max = max(mx for _, mx in recovery)
+    restart_bucket = float(edoc["buckets"]["restart_downtime"])
+    if restart_bucket < recovery_max:
+        raise AssertionError(
+            f"seeded kill's measured gap {recovery_max:.3f}s not covered "
+            f"by restart_downtime {restart_bucket:.3f}s")
+    if abs(restart_bucket - recovery_sum) > 0.05 * recovery_sum + 0.05:
+        raise AssertionError(
+            f"restart_downtime {restart_bucket:.3f}s does not reconcile "
+            f"with ft_recovery_latency_s sum {recovery_sum:.3f}s")
+    resize_bucket = float(edoc["buckets"]["resize_downtime"])
+    if resize_bucket <= 0 or edoc["counts"].get("resize_downtime", 0) != 2:
+        raise AssertionError(
+            f"shrink+grow not attributed: resize_downtime {resize_bucket}s "
+            f"x{edoc['counts'].get('resize_downtime')}")
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    # -- the ledger's own cost against the step wall ---------------------
+    bare = _goodput.GoodputLedger(telemetry=None)
+    reps = 5000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with bare.step_span():
+            pass
+    span_cost_s = (time.perf_counter() - t0) / reps
+    span_us = span_cost_s * 1e6
+    overhead_frac = span_cost_s / max(step_wall_s, 1e-9)
+    if overhead_frac >= 0.01:
+        raise AssertionError(
+            f"ledger span overhead {span_us:.2f}us is "
+            f"{100 * overhead_frac:.2f}% of the measured "
+            f"{step_wall_s * 1e3:.3f}ms step wall (bound: 1%)")
+
+    return {
+        "config": "goodput", "unit": "us (LedgerSpan overhead)",
+        "value": round(span_us, 3),
+        "ledger_span_us": round(span_us, 3),
+        "overhead_pct_of_step": round(100 * overhead_frac, 4),
+        "step_wall_ms": round(step_wall_s * 1e3, 3),
+        "training": {
+            "buckets": doc0["buckets"],
+            "goodput": doc0["goodput"],
+            "compiles": doc0["compiles"],
+            "n_steps": doc0["n_steps"],
+        },
+        "run_report": {
+            "goodput": run_doc["goodput"],
+            "n_ranks": run_doc["n_ranks"],
+            "biggest_thief": run_doc.get("biggest_thief"),
+            "comm_source": run_doc.get("comm_source"),
+            "mfu": run_doc.get("mfu"),
+        },
+        "wire": {
+            "injected_s": injected,
+            "exposed_comm_shift_s": round(comm_shift, 3),
+            "compute_shift_s": round(compute_shift, 3),
+        },
+        "elastic": {
+            "restart_downtime_s": round(restart_bucket, 3),
+            "recovery_latency_sum_s": round(recovery_sum, 3),
+            "resize_downtime_s": round(resize_bucket, 3),
+            "goodput": edoc["goodput"],
+            "resizes": summary["resizes"],
+        },
+        "goodput_drift": _no_prior_drift(1.0),
+        "wall_s": round(time.perf_counter() - t_start, 2),
+    }
+
+
 CONFIGS: Dict[str, Callable[[], dict]] = {
     "mnist_mlp_sync": bench_mnist_mlp_sync,
     "mnist_cnn_sync": bench_mnist_cnn_sync,
@@ -2336,6 +4154,12 @@ CONFIGS: Dict[str, Callable[[], dict]] = {
     "hogwild_chaos_soak": bench_hogwild_chaos_soak,
     "gang_obs": bench_gang_obs,
     "elastic_ctl": bench_elastic_ctl,
+    "rpc_trace": bench_rpc_trace,
+    "health": bench_health,
+    "goodput": bench_goodput,
+    "skew": bench_skew,
+    "profile": bench_profile,
+    "obs_history": bench_obs_history,
 }
 
 

@@ -29,8 +29,10 @@ module is the client half:
   an add or a drain within one pull.
 
 The port's trees are flat ``state_dict`` names, so a leaf's path is
-``(name,)``. Not ported yet (ROADMAP, Queue 1, item 10, step 4): the
-rpctrace spans of each shard hop.
+``(name,)``. Each pull and push is one RPC trace root
+(:mod:`~sparktorch_tpu_torch.obs.rpctrace`) with a ``shard_pull`` or
+``shard_push`` child per shard hop; the shards' transports only
+propagate its context.
 """
 
 from __future__ import annotations
@@ -292,6 +294,17 @@ class ShardedTransport:
         if self.telemetry is not None:
             self.telemetry.counter(name, labels=labels or {})
 
+    def _tracer(self):
+        """This transport's tracer (the worker bus's), resolved once, so
+        the fan-out threads do not contend on the registry's lock. The
+        fan-out owns the request's root span."""
+        tracer = getattr(self, "_tracer_cached", None)
+        if tracer is None:
+            from sparktorch_tpu_torch.obs.rpctrace import tracer_for
+
+            tracer = self._tracer_cached = tracer_for(self.telemetry)
+        return tracer
+
     # -- fault degradation ---------------------------------------------------
 
     def _degrade(self, client: _ShardClient, exc: BaseException,
@@ -321,7 +334,11 @@ class ShardedTransport:
         (``have_version < 0``) gets the cached tree even on all-304s."""
         st = self._own
         t0 = time.perf_counter()
-        results = self._fan(self._pull_shard, list(self._clients.values()))
+        clients = list(self._clients.values())
+        with self._tracer().root_span("pull", kind="client",
+                                      shards=len(clients)) as root:
+            results = self._fan(
+                lambda c: self._pull_shard(c, root.ctx), clients)
         st["pull_s"] += time.perf_counter() - t0
         st["pulls"] += 1
         fresh = any(r and r.get("fresh") for r in results)
@@ -336,52 +353,70 @@ class ShardedTransport:
         st["pull_fresh"] += 1
         return version, wire.unflatten_tree(list(self._leaves.items()))
 
-    def _pull_shard(self, client: _ShardClient) -> Optional[dict]:
+    def _pull_shard(self, client: _ShardClient,
+                    trace_parent=None) -> Optional[dict]:
         # The client-side hop latency: where a straggling shard shows.
         hop_t0 = time.perf_counter()
         try:
-            return self._pull_shard_inner(client)
+            return self._pull_shard_inner(client, trace_parent)
         finally:
             if self.telemetry is not None:
                 self.telemetry.observe("sharded.shard_pull_latency_s",
                                        time.perf_counter() - hop_t0,
                                        labels={"shard": client.sid})
 
-    def _pull_shard_inner(self, client: _ShardClient) -> Optional[dict]:
-        try:
-            res = client.transport.pull_delta(lambda: client.have,
-                                              quant=self.pull_quant)
-            epoch = res.get("epoch")
-            if (epoch is not None and client.epoch is not None
-                    and epoch != client.epoch):
-                # The shard's slot was rebuilt: its versions restarted,
-                # so ours mean nothing there — pull all again from -1.
-                client.have = -1
-                self._count("sharded_epoch_resyncs_total",
-                            {"shard": client.sid})
+    def _pull_shard_inner(self, client: _ShardClient,
+                          trace_parent=None) -> Optional[dict]:
+        with self._tracer().child_span("shard_pull", trace_parent,
+                                       kind="client",
+                                       shard=client.sid) as tsp:
+            # The root's context when this hop does not record: the
+            # shard's transport then carries the root's sampling
+            # decision on, in place of minting a root a shard.
+            hop_ctx = tsp.ctx or trace_parent
+            try:
                 res = client.transport.pull_delta(lambda: client.have,
-                                                  quant=self.pull_quant)
+                                                  quant=self.pull_quant,
+                                                  _trace=hop_ctx)
                 epoch = res.get("epoch")
-            if epoch is not None:
-                client.epoch = epoch
-        except (TransportError, wire.WireError, OSError) as e:
-            if not client.synced:
-                # No cached leaves to freeze: a partial tree would fail
-                # the worker somewhere less clear. Fail the pull.
-                raise TransportError(
-                    f"shard {client.sid} unreachable before its first "
-                    "sync — no cached leaves to degrade to") from e
-            self._degrade(client, e, "pull")
-            return None
-        client.first_fail = None
-        if res.get("fresh"):
-            client.have = int(res["version"])
-            client.synced = True
-            with self._own_lock:
-                self._own["delta_leaves"] += len(res["leaves"])
-            # Disjoint keys per shard: concurrent merges never collide.
-            self._leaves.update(res["leaves"])
-        return res
+                if (epoch is not None and client.epoch is not None
+                        and epoch != client.epoch):
+                    # The shard's slot was rebuilt: its versions
+                    # restarted, so ours mean nothing there — pull all
+                    # again from -1.
+                    client.have = -1
+                    self._count("sharded_epoch_resyncs_total",
+                                {"shard": client.sid})
+                    res = client.transport.pull_delta(
+                        lambda: client.have, quant=self.pull_quant,
+                        _trace=hop_ctx)
+                    epoch = res.get("epoch")
+                if epoch is not None:
+                    client.epoch = epoch
+            except (TransportError, wire.WireError, OSError) as e:
+                tsp.set_error(e)
+                if not client.synced:
+                    # No cached leaves to freeze: a partial tree would
+                    # fail the worker somewhere less clear. Fail the
+                    # pull.
+                    raise TransportError(
+                        f"shard {client.sid} unreachable before its first "
+                        "sync — no cached leaves to degrade to") from e
+                self._degrade(client, e, "pull")
+                # The hop stays in the trace, closed in error and
+                # marked degraded.
+                tsp.annotate(degraded=True)
+                return None
+            client.first_fail = None
+            if res.get("fresh"):
+                client.have = int(res["version"])
+                client.synced = True
+                with self._own_lock:
+                    self._own["delta_leaves"] += len(res["leaves"])
+                # Disjoint keys per shard: concurrent merges never
+                # collide.
+                self._leaves.update(res["leaves"])
+            return res
 
     def push(self, grads) -> None:
         """Split the gradient tree by ring ownership and push each part to
@@ -394,22 +429,33 @@ class ShardedTransport:
         t1 = time.perf_counter()
         st["push_materialize_s"] += t1 - t0
 
-        def push_one(item) -> None:
+        def push_one(item, trace_parent=None) -> None:
             sid, paths = item
             if not paths:
                 return
             client = self._clients[sid]
-            try:
-                client.transport.push(
-                    wire.unflatten_tree([(p, flat[p]) for p in paths]))
-                client.first_fail = None
-            except (TransportError, wire.WireError, OSError) as e:
-                with self._own_lock:
-                    self._own["pushes_skipped"] += 1
-                self._count("sharded_pushes_skipped_total", {"shard": sid})
-                self._degrade(client, e, "push")
+            with self._tracer().child_span("shard_push", trace_parent,
+                                           kind="client", shard=sid) as tsp:
+                try:
+                    # The root's context when this hop does not record,
+                    # as in _pull_shard_inner.
+                    client.transport.push(
+                        wire.unflatten_tree([(p, flat[p]) for p in paths]),
+                        _trace=tsp.ctx or trace_parent)
+                    client.first_fail = None
+                except (TransportError, wire.WireError, OSError) as e:
+                    tsp.set_error(e)
+                    tsp.annotate(degraded=True)
+                    with self._own_lock:
+                        self._own["pushes_skipped"] += 1
+                    self._count("sharded_pushes_skipped_total",
+                                {"shard": sid})
+                    self._degrade(client, e, "push")
 
-        self._fan(push_one, list(groups.items()))
+        with self._tracer().root_span("push", kind="client",
+                                      shards=len(self._clients)) as root:
+            self._fan(lambda item: push_one(item, root.ctx),
+                      list(groups.items()))
         st["push_wire_s"] += time.perf_counter() - t1
         st["pushes"] += 1
 

@@ -21,13 +21,19 @@ delta pull (``GET /delta.bin``, optionally int8 with the server's error
 feedback): its reply carries the server slot's boot ``epoch`` and the
 fleet's ``ring_version``, 304s included. :meth:`~BinaryTransport.fetch_json`
 reads a small JSON control route (the fleet's ``/fleet.json``) over the
-same connection. Not ported yet (ROADMAP, Queue 1, item 10, step 4): the
-rpctrace hooks; a trace context (``_trace``) raises
-``NotImplementedError``.
+same connection.
+
+Each pull and push is an RPC trace root (:mod:`~sparktorch_tpu_torch.obs.rpctrace`,
+head-sampled), or propagates the context a caller hands down
+(``_trace``, as ``ShardedTransport`` does for each shard hop). A
+sampled context rides the ``X-Trace-Context`` header of a pull and the
+frame's trace extension of a push, whose ``encode`` and ``socket``
+halves are child spans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import socket
@@ -74,14 +80,6 @@ class _Connection(http.client.HTTPConnection):
 class TransportError(RuntimeError):
     """The server answered with an unexpected status, or stayed
     unreachable through every retry."""
-
-
-def no_trace(trace, what: str = "_trace") -> None:
-    """Refuse an RPC trace context: ``obs/rpctrace.py`` is not ported."""
-    if trace is not None:
-        raise NotImplementedError(
-            f"{what}: RPC trace contexts (obs/rpctrace.py) are not ported "
-            "yet (ROADMAP, Queue 1, item 10, step 4)")
 
 
 def _int_header(headers: Dict[str, str], name: str) -> Optional[int]:
@@ -183,6 +181,46 @@ class BinaryTransport:
         self.telemetry = telemetry
         self.run_tag = run_tag(run_id)
         self._conn: Optional[http.client.HTTPConnection] = None
+
+    def _rpct(self):
+        """The rpctrace module, imported at first use (``net`` imports
+        without the obs package) and kept on the transport."""
+        mod = getattr(self, "_rpctrace_mod", None)
+        if mod is None:
+            from sparktorch_tpu_torch.obs import rpctrace as mod
+
+            self._rpctrace_mod = mod
+        return mod
+
+    def _tracer(self):
+        """This transport's tracer, resolved once: the bus is fixed for
+        the transport's life, and the registry's lock stays off the
+        request path."""
+        tracer = getattr(self, "_tracer_cached", None)
+        if tracer is None:
+            tracer = self._tracer_cached = self._rpct().tracer_for(
+                self.telemetry)
+        return tracer
+
+    @contextlib.contextmanager
+    def _trace_root(self, name: str, trace):
+        """Yield the context this request propagates: the caller's when
+        one was handed down (the caller owns the hop's span), else a
+        freshly minted root: a push or pull against one server is
+        itself the request."""
+        if trace is not None:
+            yield trace
+            return
+        with self._tracer().root_span(name, kind="client", host=self.host,
+                                      port=self.port) as sp:
+            yield sp.ctx
+
+    def _trace_header(self, headers: Dict[str, str], ctx) -> Dict[str, str]:
+        """Add ``X-Trace-Context`` for a sampled request only: an
+        unsampled one costs the server nothing."""
+        if ctx is not None and ctx.sampled:
+            headers[self._rpct().TRACE_HEADER] = ctx.to_header()
+        return headers
 
     def _count(self, name: str) -> None:
         if self.telemetry is None:
@@ -288,24 +326,27 @@ class BinaryTransport:
         on every reconnect attempt. ``into`` (``nbytes -> writable
         buffer``) receives the body in place of a fresh bytes object:
         the arrays of ``params`` are then views of that buffer, good
-        until the caller reuses it."""
-        no_trace(_trace)
+        until the caller reuses it. ``_trace`` (a sampled SpanContext)
+        propagates a caller's request in place of a root minted here."""
         st = self.stats
-        t0 = time.perf_counter()
-        status, body, _ = self._request(
-            "GET", "/parameters.bin",
-            headers=lambda: {"X-Have-Version": self._have(have_version)},
-            timeout=self.pull_timeout, retry_on_timeout=True, into=into)
-        st["pull_s"] += time.perf_counter() - t0
-        st["pulls"] += 1
-        if status == 304:
-            return None
-        if status != 200:
-            raise TransportError(f"/parameters.bin -> {status}")
-        st["pull_fresh"] += 1
-        st["pull_bytes"] += len(body)
-        self._check_run_tag(body)
-        return wire.decode(body)
+        with self._trace_root("pull", _trace) as tctx:
+            t0 = time.perf_counter()
+            status, body, _ = self._request(
+                "GET", "/parameters.bin",
+                headers=lambda: self._trace_header(
+                    {"X-Have-Version": self._have(have_version)}, tctx),
+                timeout=self.pull_timeout, retry_on_timeout=True,
+                into=into)
+            st["pull_s"] += time.perf_counter() - t0
+            st["pulls"] += 1
+            if status == 304:
+                return None
+            if status != 200:
+                raise TransportError(f"/parameters.bin -> {status}")
+            st["pull_fresh"] += 1
+            st["pull_bytes"] += len(body)
+            self._check_run_tag(body)
+            return wire.decode(body)
 
     def pull_delta(self, have_version, quant: Optional[str] = None,
                    _trace=None) -> Dict[str, Any]:
@@ -322,38 +363,38 @@ class BinaryTransport:
         nonce; a change means its state was rebuilt and the client must
         pull again from -1) and ``ring_version`` (bumped when a shard is
         added or drained; a change means the shard map moved)."""
-        no_trace(_trace)
         st = self.stats
-        t0 = time.perf_counter()
+        with self._trace_root("pull", _trace) as tctx:
+            t0 = time.perf_counter()
 
-        def headers() -> Dict[str, str]:
-            h = {"X-Have-Version": self._have(have_version)}
-            if quant:
-                h["X-Pull-Quant"] = quant
-            return h
+            def headers() -> Dict[str, str]:
+                h = {"X-Have-Version": self._have(have_version)}
+                if quant:
+                    h["X-Pull-Quant"] = quant
+                return self._trace_header(h, tctx)
 
-        status, body, rhdrs = self._request(
-            "GET", "/delta.bin", headers=headers,
-            timeout=self.pull_timeout, retry_on_timeout=True)
-        st["pull_s"] += time.perf_counter() - t0
-        st["pulls"] += 1
-        out: Dict[str, Any] = {
-            "fresh": False, "version": None, "leaves": {},
-            "leaf_versions": {}, "nbytes": 0,
-            "epoch": _int_header(rhdrs, "X-Slot-Epoch"),
-            "ring_version": _int_header(rhdrs, "X-Ring-Version"),
-        }
-        if status == 304:
+            status, body, rhdrs = self._request(
+                "GET", "/delta.bin", headers=headers,
+                timeout=self.pull_timeout, retry_on_timeout=True)
+            st["pull_s"] += time.perf_counter() - t0
+            st["pulls"] += 1
+            out: Dict[str, Any] = {
+                "fresh": False, "version": None, "leaves": {},
+                "leaf_versions": {}, "nbytes": 0,
+                "epoch": _int_header(rhdrs, "X-Slot-Epoch"),
+                "ring_version": _int_header(rhdrs, "X-Ring-Version"),
+            }
+            if status == 304:
+                return out
+            if status != 200:
+                raise TransportError(f"/delta.bin -> {status}")
+            st["pull_fresh"] += 1
+            st["pull_bytes"] += len(body)
+            self._check_run_tag(body)
+            version, leaves, leaf_versions = wire.decode_delta(body)
+            out.update(fresh=True, version=version, leaves=leaves,
+                       leaf_versions=leaf_versions, nbytes=len(body))
             return out
-        if status != 200:
-            raise TransportError(f"/delta.bin -> {status}")
-        st["pull_fresh"] += 1
-        st["pull_bytes"] += len(body)
-        self._check_run_tag(body)
-        version, leaves, leaf_versions = wire.decode_delta(body)
-        out.update(fresh=True, version=version, leaves=leaves,
-                   leaf_versions=leaf_versions, nbytes=len(body))
-        return out
 
     def fetch_json(self, path: str, timeout: Optional[float] = None) -> Any:
         """GET and parse a small JSON control route (``/fleet.json``)
@@ -370,29 +411,37 @@ class BinaryTransport:
     def push(self, grads, _trace=None) -> None:
         """Quantize (with error feedback) and POST the gradient tree.
         Copying it to the host waits for the device, so that term is
-        timed apart from the wire."""
-        no_trace(_trace)
+        timed apart from the wire. A sampled context (minted here, or
+        handed down as ``_trace``) rides the frame's trace extension,
+        with the ``encode`` and ``socket`` halves as child spans."""
         st = self.stats
-        t0 = time.perf_counter()
-        host = tree_to_host(grads)
-        if self.quant is not None:
-            leaves, _ = wire.quantize_tree(host, self.quant, self._residuals)
-        else:
-            leaves = wire.flatten_tree(host)
-        buffers = wire.encode(leaves, run_tag=self.run_tag)
-        nbytes = wire.frame_nbytes(buffers)
-        t1 = time.perf_counter()
-        st["push_materialize_s"] += t1 - t0
-        # The buffer list, not an iterator: a retry re-sends it.
-        status, _, _ = self._request(
-            "POST", "/update.bin", body=buffers,
-            headers={"Content-Length": str(nbytes),
-                     "Content-Type": wire.CONTENT_TYPE})
-        if status != 200:
-            raise TransportError(f"/update.bin -> {status}")
-        st["push_wire_s"] += time.perf_counter() - t1
-        st["push_bytes"] += nbytes
-        st["pushes"] += 1
+        tracer = self._tracer()
+        with self._trace_root("push", _trace) as tctx:
+            t0 = time.perf_counter()
+            with tracer.child_span("encode", tctx, kind="internal"):
+                host = tree_to_host(grads)
+                if self.quant is not None:
+                    leaves, _ = wire.quantize_tree(host, self.quant,
+                                                   self._residuals)
+                else:
+                    leaves = wire.flatten_tree(host)
+                buffers = wire.encode(leaves, run_tag=self.run_tag,
+                                      trace=tctx)
+            nbytes = wire.frame_nbytes(buffers)
+            t1 = time.perf_counter()
+            st["push_materialize_s"] += t1 - t0
+            # The buffer list, not an iterator: a retry re-sends it.
+            with tracer.child_span("socket", tctx, kind="internal",
+                                   host=self.host, port=self.port):
+                status, _, _ = self._request(
+                    "POST", "/update.bin", body=buffers,
+                    headers={"Content-Length": str(nbytes),
+                             "Content-Type": wire.CONTENT_TYPE})
+            if status != 200:
+                raise TransportError(f"/update.bin -> {status}")
+            st["push_wire_s"] += time.perf_counter() - t1
+            st["push_bytes"] += nbytes
+            st["pushes"] += 1
 
     def post_loss(self, loss: float) -> bool:
         """Early-stop vote, as JSON."""

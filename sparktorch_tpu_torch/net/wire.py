@@ -7,8 +7,8 @@ tensors' raw bytes:
     0       4     magic  b"STWR"
     4       1     wire format version (1, or 2 for a delta frame)
     5       1     flags (bit 0: a 25-byte trace-context extension follows
-                  the header; this encoder never sets it, the decoder
-                  steps over it)
+                  the header: 16 bytes trace id, 8 bytes span id, 1
+                  flag byte whose bit 0 is the sampled bit)
     6       2     run tag (uint16 LE; 0 = untagged)
     8       8     snapshot version tag (int64 LE; -1 = untagged)
     16      4     table length in bytes (uint32 LE)
@@ -61,7 +61,8 @@ WIRE_VERSION_DELTA = 2
 _HEADER = struct.Struct("<4sBBHqIQ")
 HEADER_SIZE = _HEADER.size
 FLAG_TRACE = 0x01
-TRACE_EXT_SIZE = struct.calcsize("<16s8sB")
+_TRACE_EXT = struct.Struct("<16s8sB")
+TRACE_EXT_SIZE = _TRACE_EXT.size
 
 CONTENT_TYPE = "application/x-sparktorch-wire"
 BFLOAT16 = "bfloat16"
@@ -302,12 +303,19 @@ def _encode_node(node: Any, table_out: Any, buffers: Buffers,
 
 
 def encode(tree_or_leaves: Any, version: int = -1, run_tag: int = 0,
-           leaf_versions: Optional[Mapping] = None) -> Buffers:
+           leaf_versions: Optional[Mapping] = None,
+           trace: Optional[Any] = None) -> Buffers:
     """Frame a tree (or the flattened/quantized leaves of one) for the
     wire: ``[header+table bytes, buffer, buffer, ...]``, each buffer a
     view of the array's own memory. ``leaf_versions`` (``{path-tuple:
     int}``) makes it a version-2 delta frame, each leaf tagged with its
-    version (-1 where the map has none)."""
+    version (-1 where the map has none).
+
+    ``trace`` (anything with ``trace_id``/``span_id``/``sampled``, an
+    :class:`~sparktorch_tpu_torch.obs.rpctrace.SpanContext`) embeds the
+    request's tracing context as the ``FLAG_TRACE`` extension. Only a
+    sampled context travels: ``None`` or an unsampled one leaves the
+    frame byte-identical to an untraced one."""
     if isinstance(tree_or_leaves, list) and (
             not tree_or_leaves
             or (isinstance(tree_or_leaves[0], tuple)
@@ -320,9 +328,18 @@ def encode(tree_or_leaves: Any, version: int = -1, run_tag: int = 0,
     payload_len = _encode_node(tree, table, buffers, 0, (), leaf_versions)
     table_bytes = json.dumps(table, separators=(",", ":")).encode()
     wire_ver = WIRE_VERSION if leaf_versions is None else WIRE_VERSION_DELTA
-    header = _HEADER.pack(MAGIC, wire_ver, 0, int(run_tag) & 0xFFFF,
+    flags = 0
+    ext = b""
+    if trace is not None and getattr(trace, "sampled", False):
+        try:
+            ext = _TRACE_EXT.pack(bytes.fromhex(str(trace.trace_id)),
+                                  bytes.fromhex(str(trace.span_id)), 1)
+        except (ValueError, struct.error) as e:
+            raise WireError(f"malformed trace context {trace!r}") from e
+        flags |= FLAG_TRACE
+    header = _HEADER.pack(MAGIC, wire_ver, flags, int(run_tag) & 0xFFFF,
                           int(version), len(table_bytes), payload_len)
-    return [header + table_bytes, *buffers]
+    return [header + ext + table_bytes, *buffers]
 
 
 def frame_nbytes(buffers: Buffers) -> int:
@@ -343,6 +360,29 @@ def frame_run_tag(data: Union[bytes, bytearray, memoryview]) -> int:
     if magic != MAGIC:
         raise WireError(f"bad magic {magic!r}")
     return int(tag)
+
+
+def frame_trace(data: Union[bytes, bytearray, memoryview]):
+    """The tracing context in a frame's ``FLAG_TRACE`` extension, as an
+    :class:`~sparktorch_tpu_torch.obs.rpctrace.SpanContext`, or None on
+    an untraced frame. Reads the header alone, so a server opens its
+    serve span before it decodes the body. Raises :class:`WireError` on
+    a non-frame or a truncated extension."""
+    mv = memoryview(data)
+    if len(mv) < HEADER_SIZE:
+        raise WireError(f"frame truncated: {len(mv)} < header {HEADER_SIZE}")
+    magic, _ver, flags, _tag, _v, _t, _p = _HEADER.unpack_from(mv, 0)
+    if magic != MAGIC:
+        raise WireError(f"bad magic {magic!r}")
+    if not flags & FLAG_TRACE:
+        return None
+    if len(mv) < HEADER_SIZE + TRACE_EXT_SIZE:
+        raise WireError("frame truncated inside the trace extension")
+    trace_id, span_id, tflags = _TRACE_EXT.unpack_from(mv, HEADER_SIZE)
+    from sparktorch_tpu_torch.obs.rpctrace import SpanContext
+
+    return SpanContext.from_parts(trace_id.hex(), span_id.hex(),
+                                  bool(tflags & 1))
 
 
 def _decode_impl(data: Union[bytes, bytearray, memoryview], want: int

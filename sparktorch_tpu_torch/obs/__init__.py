@@ -19,9 +19,10 @@ postmortem bundles (``obs/blackbox.py``), the goodput ledger and the
 cross-rank skew ring (``obs/goodput.py``, ``obs/skew.py``), the stack
 profiler (``obs/profile.py``), the trainers' model-health lane and its
 bitwise replay (``obs/health.py``, ``obs/replay.py``), the
-``torch.profiler`` trace analyzer (``obs/xprof.py``) and the fleet
-collector (``obs/collector.py``). Not ported yet (ROADMAP, Queue 1,
-step 4): rpctrace and timeline.
+``torch.profiler`` trace analyzer (``obs/xprof.py``), the fleet
+collector (``obs/collector.py``), the per-request RPC tracer
+(``obs/rpctrace.py``) and the terminal renderer of all of them
+(``python -m sparktorch_tpu_torch.obs.timeline``).
 """
 
 from sparktorch_tpu_torch.obs.telemetry import (
@@ -82,6 +83,15 @@ from sparktorch_tpu_torch.obs.collector import (
     scrape_text,
     snapshot_histogram,
 )
+from sparktorch_tpu_torch.obs.rpctrace import (
+    RpcTracer,
+    SpanContext,
+    critical_path,
+    critical_summary,
+    stitch_spans,
+    tracer_for,
+    write_chrome_trace,
+)
 
 __all__ = [
     "Span",
@@ -130,4 +140,11 @@ __all__ = [
     "scrape_json",
     "scrape_text",
     "snapshot_histogram",
+    "RpcTracer",
+    "SpanContext",
+    "critical_path",
+    "critical_summary",
+    "stitch_spans",
+    "tracer_for",
+    "write_chrome_trace",
 ]

@@ -11,11 +11,10 @@
   is given) into one ``postmortem_<ts>.json``: the time-ordered event
   window, the metric deltas from a history, the heartbeat table, the
   goodput, profile and skew sections, and the elastic world document.
-  :func:`read_postmortem` reads one back.
-
-The port has no health ledger yet (ROADMAP, Queue 1, step 4), so a
-bundle's ``health`` is None unless a bus carries a section under the
-health ledger's names, which this module keeps as constants.
+  :func:`read_postmortem` reads one back. A bundle's ``health`` is the
+  model-health ledger's run document (:mod:`~sparktorch_tpu_torch.obs.health`):
+  the collector's merge, else the bus's run section, else its bare
+  per-rank section merged.
 """
 
 from __future__ import annotations
@@ -34,11 +33,6 @@ from sparktorch_tpu_torch.obs.telemetry import Telemetry, wall_ts
 _LOG = get_logger("sparktorch_tpu_torch.obs.blackbox")
 
 SECTION = "blackbox"
-
-# The health ledger's section names (``sparktorch_tpu/obs/health.py``),
-# kept as constants until that module is ported.
-HEALTH_SECTION = "health"
-HEALTH_RUN_SECTION = "health_run"
 
 DEFAULT_CAPACITY = 256
 DEFAULT_PUBLISH_INTERVAL_S = 0.25
@@ -272,10 +266,10 @@ def collect_postmortem(out_dir: str, reason: str,
                    or telemetry.get_section(_profile_mod.SECTION))
         if isinstance(section, Mapping):
             profile = dict(section)
-    # And the model-health ledger's run document, when a collector or
-    # the bus carries one. The port has no health ledger yet (ROADMAP,
-    # Queue 1, step 4): nothing publishes these sections, and a bare
-    # per-rank section is not merged here.
+    # And the model-health ledger's run document: did the numbers go
+    # bad before the process did, and on which rank. Same source order;
+    # a bare per-rank section (a trainer's bus) is merged to the run
+    # shape, so the renderer sees one document kind.
     health = None
     if collector is not None:
         try:
@@ -283,9 +277,15 @@ def collect_postmortem(out_dir: str, reason: str,
         except Exception:  # noqa: BLE001 - evidence is best-effort
             health = None
     if health is None and telemetry is not None:
-        section = telemetry.get_section(HEALTH_RUN_SECTION)
+        from sparktorch_tpu_torch.obs import health as _health_mod
+
+        section = telemetry.get_section(_health_mod.RUN_SECTION)
         if isinstance(section, Mapping):
             health = dict(section)
+        else:
+            section = telemetry.get_section(_health_mod.SECTION)
+            if isinstance(section, Mapping):
+                health = _health_mod.merge_sections({"local": section})
     # "Skew at death": the run's final cross-rank straggler verdict —
     # whether the dying run's exposed_comm was wire or one slow rank,
     # and which. Same source order; a bare single-rank section still

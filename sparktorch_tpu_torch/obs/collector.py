@@ -23,10 +23,10 @@ The :class:`FleetCollector` assembles the whole-gang view:
   (and the condensed ``goodput.run``, ``profile.run``, ``health.run``,
   ``skew.run`` and alert records) per poll.
 
-Not ported yet (ROADMAP, Queue 1, step 4): the request-trace stitch
-(``obs/rpctrace.py``): a scraped ``rpc_spans`` section is skipped with a
-warning counter, and :meth:`FleetCollector.rpc_traces` raises
-``NotImplementedError``.
+Every sweep also stitches the ranks' ``rpc_spans`` rings into
+whole-request trees (:mod:`~sparktorch_tpu_torch.obs.rpctrace`), each
+with its critical path, published as the ``rpc_traces`` section and
+condensed on ``/gang`` (:meth:`FleetCollector.rpc_traces`).
 
 The module-level helpers: run ids (:func:`mint_run_id`) and their
 16-bit wire tag (:func:`run_tag`); the one sanctioned way to read an
@@ -319,6 +319,7 @@ class FleetCollector:
         self.port = port
         self._lock = threading.Lock()
         self._gang_xprof: Optional[Dict[str, Any]] = None
+        self._rpc_doc: Optional[Dict[str, Any]] = None
         self._xprof_fingerprint: Optional[Tuple] = None
         self._httpd = None
         self._http_thread: Optional[threading.Thread] = None
@@ -580,30 +581,38 @@ class FleetCollector:
             self._gang_xprof = gang.to_dict()
 
     def _stitch_rpc(self) -> None:
-        """The JAX collector joins every scraped rank's ``rpc_spans``
-        ring into whole-request trees here; the per-request tracer
-        (``obs/rpctrace.py``) is not ported yet (ROADMAP, Queue 1, step
-        4). A scraped ``rpc_spans`` section is skipped, counted on
-        ``collector.rpc_spans_skipped_total{rank}`` and warned about —
-        never a reason to stop the sweep."""
+        """Join every scraped rank's ``rpc_spans`` ring (and this bus's
+        own) into whole-request trees by trace id: a worker's root and
+        the serving rank's queue-wait and apply spans live on different
+        buses until here. The document (each tree with its critical
+        path) is this bus's ``rpc_traces`` section, so the JSONL sink,
+        ``/telemetry``, ``/gang`` and ``timeline --rpc`` agree."""
+        from sparktorch_tpu_torch.obs import rpctrace
+
+        spans: List[Dict[str, Any]] = []
         with self._lock:
-            ranks = [r for r, st in self._ranks.items()
-                     if "rpc_spans" in ((st.snapshot or {}).get("sections")
-                                        or {})]
-        for rank in ranks:
-            self.telemetry.counter("collector.rpc_spans_skipped_total",
-                                   labels={"rank": rank})
-            _LOG.warning(
-                f"[sparktorch_tpu_torch:collector] rank {rank} published "
-                f"rpc_spans; the request-trace stitch is not ported yet "
-                f"(ROADMAP, Queue 1, step 4), skipped")
+            for st in self._ranks.values():
+                spans.extend(rpctrace.spans_from_snapshot(
+                    st.snapshot or {}))
+        own = self.telemetry.get_section(rpctrace.SECTION)
+        if isinstance(own, dict):
+            spans.extend(own.get("spans") or [])
+        if not spans:
+            return
+        traces = rpctrace.stitch_spans(spans, max_traces=32)
+        doc = {
+            "n_spans": len(spans),
+            "n_traces": len(traces),
+            "traces": traces,
+        }
+        with self._lock:
+            self._rpc_doc = doc
+        self.telemetry.set_section(rpctrace.TRACES_SECTION, doc)
 
     def rpc_traces(self) -> List[Dict[str, Any]]:
-        """The JAX collector's stitched whole-request trees; not ported
-        yet (``obs/rpctrace.py``, ROADMAP, Queue 1, step 4)."""
-        raise NotImplementedError(
-            "FleetCollector.rpc_traces: the request tracer (obs/"
-            "rpctrace.py) is not ported yet (ROADMAP, Queue 1, step 4)")
+        """The last stitched whole-request trees (newest first)."""
+        with self._lock:
+            return list((self._rpc_doc or {}).get("traces") or [])
 
     def _merge_goodput(self) -> None:
         """Fold every scraped rank's ``goodput`` ledger section (plus
@@ -858,6 +867,7 @@ class FleetCollector:
         with self._lock:
             status = self._rank_status_locked(now)
             gang_xprof = self._gang_xprof
+            rpc_doc = self._rpc_doc
         if self.fallback_jsonl and not any(
                 s["ok"] or s["scrapes"] for s in status.values()):
             # HA tail mode: this collector has NEVER landed a scrape
@@ -894,6 +904,28 @@ class FleetCollector:
             doc["alerts"] = self.alerts.doc()
         if self.history is not None:
             doc["history"] = self.history.describe()
+        if rpc_doc:
+            # The condensed per-request view (which requests, how slow,
+            # bounded by what); the full trees ride the section.
+            doc["rpc"] = {
+                "n_traces": rpc_doc.get("n_traces", 0),
+                "n_spans": rpc_doc.get("n_spans", 0),
+                "traces": [
+                    {
+                        "trace_id": t.get("trace_id"),
+                        "name": (t.get("root") or {}).get("name"),
+                        "wall_s": t.get("wall_s"),
+                        "n_spans": t.get("n_spans"),
+                        "status": (t.get("root") or {}).get("status"),
+                        "critical": {
+                            k: (t.get("critical") or {}).get(k)
+                            for k in ("name", "shard", "self_s",
+                                      "fraction")
+                        },
+                    }
+                    for t in (rpc_doc.get("traces") or [])[:8]
+                ],
+            }
         return doc
 
     def _fallback_gang_view(self, now: float) -> Optional[Dict[str, Any]]:

@@ -20,8 +20,9 @@ so memory is O(series x retention), never O(run length).
 Series are matched by name and a label SUBSET, like
 :func:`~sparktorch_tpu_torch.obs.collector.snapshot_histogram`; when
 several series match, the one with the most retained points wins. The
-port has no fleet collector yet (ROADMAP, Queue 1, step 4), so callers
-append their own buses' snapshots.
+fleet collector (:class:`~sparktorch_tpu_torch.obs.collector.FleetCollector`)
+appends its merged snapshot every poll; a caller may append its own
+bus's snapshots as well.
 """
 
 from __future__ import annotations

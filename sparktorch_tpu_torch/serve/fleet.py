@@ -45,8 +45,10 @@ for those. A delta render copies a leaf to the host once per (leaf,
 version) under the render lock, never the state lock, so a pull does not
 wait on an apply.
 
-Not ported yet: RPC trace contexts (``trace_ctx``; ``obs/rpctrace.py``,
-ROADMAP, Queue 1, item 10, step 4) raise ``NotImplementedError``;
+A push's ``trace_ctx`` (:mod:`~sparktorch_tpu_torch.obs.rpctrace`)
+rides a shard's queue item, and the writer records the request's
+``queue_wait`` and ``apply`` as child spans annotated with the shard id;
+the gateway's scattered push fans the context out to every shard.
 :func:`run_shard_server` takes a duck-typed ``ctx`` (``telemetry``,
 ``cancel``, ``heartbeat``) and runs as the ``shard_server`` kind of the
 ctl worker (:mod:`sparktorch_tpu_torch.ctl.worker`).
@@ -66,8 +68,9 @@ import torch
 from sparktorch_tpu_torch.inference import _resolve_device
 from sparktorch_tpu_torch.net import wire as binwire
 from sparktorch_tpu_torch.net.sharded import HashRing
-from sparktorch_tpu_torch.net.transport import no_trace, tree_to_host
-from sparktorch_tpu_torch.obs.telemetry import Telemetry
+from sparktorch_tpu_torch.net.transport import tree_to_host
+from sparktorch_tpu_torch.obs import rpctrace as _rpctrace
+from sparktorch_tpu_torch.obs.telemetry import Telemetry, wall_ts
 from sparktorch_tpu_torch.serve.param_server import (
     MAX_TOLERATED_ERRORS,
     ParamServerHttp,
@@ -290,8 +293,9 @@ class ParamShardServer:
         """Enqueue a gradient partial (a nested tree or ``{path: grad}``)
         for the writer thread, FIFO like the single server. Returns the
         apply's completion event either way, so a scatter can enqueue on
-        every shard first and wait on them together."""
-        no_trace(trace_ctx, "trace_ctx")
+        every shard first and wait on them together. ``trace_ctx`` rides
+        the queue item: the writer records this request's queue wait
+        and apply as child spans, where a sharded p99 hides."""
         if self._failed is not None:
             raise RuntimeError(
                 f"param shard {self.shard_id} failed") from self._failed
@@ -300,7 +304,8 @@ class ParamShardServer:
         with self._enqueue_lock:
             if not self._running:
                 raise ShardStopped(f"param shard {self.shard_id} is stopped")
-            self._queue.put((flat, done))
+            self._queue.put((flat, done, trace_ctx, wall_ts(),
+                             time.perf_counter()))
         self.telemetry.counter("param_server.pushes", labels=self._labels)
         if wait and not done.wait(timeout):
             raise TimeoutError(f"param shard {self.shard_id} apply timed out")
@@ -339,13 +344,17 @@ class ParamShardServer:
         return True
 
     def _apply_loop(self) -> None:
+        tracer = _rpctrace.tracer_for(self.telemetry)
         while self._running:
             try:
-                flat, done = self._queue.get(timeout=0.1)
+                flat, done, tctx, enq_ts, enq_t0 = self._queue.get(
+                    timeout=0.1)
             except queue.Empty:
                 continue
             try:
                 t0 = time.perf_counter()
+                tracer.record("queue_wait", tctx, enq_ts, t0 - enq_t0,
+                              kind="server", shard=self.shard_id)
                 # Host-to-device copies before the state lock: pulls and
                 # migrations never wait on a transfer.
                 staged = {}
@@ -353,7 +362,9 @@ class ParamShardServer:
                     like = self._master.get(path)
                     staged[path] = (as_tensor(grad, like) if like is not None
                                     else grad)
-                with self._state_lock:
+                with tracer.child_span("apply", tctx, kind="server",
+                                       shard=self.shard_id), \
+                        self._state_lock:
                     if self._apply(staged):
                         self._applied += 1
                         self.telemetry.counter("param_server.applies",
@@ -501,7 +512,7 @@ class ParamShardServer:
         with self._enqueue_lock:
             while True:
                 try:
-                    _flat, done = self._queue.get_nowait()
+                    done = self._queue.get_nowait()[1]
                 except queue.Empty:
                     break
                 done.set()
@@ -893,8 +904,9 @@ class ParamServerFleet:
         enqueuing on every shard before waiting on any. A shard drained
         between the ring read and the push fails fast with
         :class:`ShardStopped`, and the parts not yet landed re-route once
-        against the new ring."""
-        no_trace(trace_ctx, "trace_ctx")
+        against the new ring. ``trace_ctx`` (the gateway's serve span)
+        fans out to every shard writer, whose queue-wait and apply spans
+        come back annotated with their shard."""
         flat = _flat_grads(grads)
         pending = set(flat)
         events: List[Tuple[str, threading.Event]] = []
@@ -907,7 +919,7 @@ class ParamServerFleet:
                     if paths:
                         events.append((sid, shards[sid].push_gradients(
                             {p: flat[p] for p in paths}, wait=False,
-                            timeout=timeout)))
+                            timeout=timeout, trace_ctx=trace_ctx)))
                         # Only landed parts leave the retry set: a blind
                         # retry would apply twice where one landed.
                         pending.difference_update(paths)

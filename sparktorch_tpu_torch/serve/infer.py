@@ -35,8 +35,11 @@ stream. A replica runs on CUDA unless ``device="cpu"`` is passed.
 spawned as the ``replica_server`` kind of the ctl worker
 (:mod:`sparktorch_tpu_torch.ctl.worker`) or run by hand.
 
-Not ported yet: RPC trace contexts (``trace_ctx``, ``obs.rpctrace``;
-ROADMAP, Queue 1, item 10), which raise ``NotImplementedError``.
+A request's ``trace_ctx`` (:mod:`~sparktorch_tpu_torch.obs.rpctrace`,
+the router's replica hop) gets two child spans from the batch loop:
+``queue_wait`` (admission to the batch's pop) and ``execute`` (the
+shared forward, closed after its result is read back to the host, so
+it holds the card's work and not only the launch).
 """
 
 from __future__ import annotations
@@ -107,14 +110,17 @@ class InferFuture:
 
 
 class _Request:
-    __slots__ = ("x", "n", "future", "deadline_t", "enq_t0")
+    __slots__ = ("x", "n", "future", "deadline_t", "enq_ts", "enq_t0",
+                 "trace_ctx")
 
-    def __init__(self, x: np.ndarray, deadline_s: float):
+    def __init__(self, x: np.ndarray, deadline_s: float, trace_ctx=None):
         self.x = x
         self.n = int(x.shape[0])
         self.future = InferFuture()
+        self.enq_ts = wall_ts()
         self.enq_t0 = time.perf_counter()
         self.deadline_t = self.enq_t0 + float(deadline_s)
+        self.trace_ctx = trace_ctx
 
 
 def state_dict_for(module: torch.nn.Module, params=None, model_state=None
@@ -354,11 +360,9 @@ class InferenceReplica:
         :class:`Overloaded` (the counted 429) when the queue is full,
         :class:`ReplicaStopped` when the replica is down, and
         ``ValueError`` for a request bigger than the largest bucket
-        (that is a batch job — use the :class:`BatchPredictor`)."""
-        if trace_ctx is not None:
-            raise NotImplementedError(
-                "trace_ctx: RPC tracing (obs/rpctrace.py) is not ported "
-                "yet (ROADMAP, Queue 1, item 10)")
+        (that is a batch job — use the :class:`BatchPredictor`).
+        ``trace_ctx`` (the router's replica-hop context) parents this
+        request's ``queue_wait`` and ``execute`` spans."""
         x = np.asarray(x)
         if x.ndim < 1 or x.shape[0] < 1:
             raise ValueError(f"request needs a leading batch dim, "
@@ -371,8 +375,9 @@ class InferenceReplica:
             )
         act = _chaos.fire("serve.replica", replica=self.replica_id)
         if act and act.get("delay"):
-            # Straggler replica: correct, just slow — slept in the
-            # admission path.
+            # Straggler replica: correct, just slow. Slept in the
+            # admission path, so a traced request puts it on the
+            # router's replica hop, and batch work on ``execute``.
             time.sleep(float(act["delay"]))
         if act and act.get("die"):
             self.kill()
@@ -380,7 +385,7 @@ class InferenceReplica:
             raise ReplicaStopped(f"replica {self.replica_id} is down")
         self._warm_for(tuple(x.shape[1:]), x.dtype)
         req = _Request(x, deadline_s if deadline_s is not None
-                       else self.default_deadline_s)
+                       else self.default_deadline_s, trace_ctx)
         with self._cond:
             # Re-checked UNDER the condition: kill()/stop() drain the
             # queue under this lock, so a request admitted after the
@@ -452,6 +457,9 @@ class InferenceReplica:
             self._loop()
 
     def _loop(self) -> None:
+        from sparktorch_tpu_torch.obs.rpctrace import tracer_for
+
+        tracer = tracer_for(self.telemetry)
         tele = self.telemetry
         while True:
             with self._cond:
@@ -488,6 +496,7 @@ class InferenceReplica:
             # ONE slot read per batch: the whole module flips at once
             # (the live-update atomicity contract).
             module = self._slot.read()[1]
+            exec_ts = wall_ts()
             exec_t0 = time.perf_counter()
             try:
                 # Pad/concat inside the guarded region: ANY failure
@@ -522,6 +531,16 @@ class InferenceReplica:
             for req in live:
                 req_out = out[offset:offset + req.n]
                 offset += req.n
+                if req.trace_ctx is not None and req.trace_ctx.sampled:
+                    # Under the router's replica hop: where the
+                    # request's time went, queued or computed.
+                    tracer.record("queue_wait", req.trace_ctx,
+                                  req.enq_ts, pop_t0 - req.enq_t0,
+                                  kind="server", replica=self.replica_id)
+                    tracer.record("execute", req.trace_ctx, exec_ts,
+                                  exec_dur, kind="server",
+                                  replica=self.replica_id,
+                                  bucket=bucket, batch_rows=rows)
                 tele.observe("serve.request_latency_s",
                              done_t - req.enq_t0, labels=self._labels)
                 req.future._set_result(req_out)

@@ -42,9 +42,14 @@ per-tensor delta pull, each reply (304s too) carrying ``X-Slot-Epoch``
 and, with ``ring_version_fn``, ``X-Ring-Version``; ``shard=`` labels
 the wire metrics with the shard id and arms the ``fleet.shard`` chaos
 site (the frontend's kill, the straggler's delay), and
-``extra_json_routes`` mounts small JSON routes (``/fleet.json``). Not
-ported yet (ROADMAP, Queue 1, item 10, step 4): the rpctrace and
-goodput hooks; a ``trace_ctx`` raises ``NotImplementedError``.
+``extra_json_routes`` mounts small JSON routes (``/fleet.json``).
+
+Request tracing (:mod:`~sparktorch_tpu_torch.obs.rpctrace`): a sampled
+context arrives in a pushed frame's trace extension or the
+``X-Trace-Context`` header; each handler adds a ``serve`` span (with
+``render`` or ``decode`` below it) on the server's bus, and the writer
+thread records the push's ``queue_wait`` and ``apply``. An apply is
+also the rank's ``compute`` in an installed goodput ledger.
 """
 
 from __future__ import annotations
@@ -66,10 +71,12 @@ import torch
 from sparktorch_tpu_torch.ft import chaos as _chaos
 from sparktorch_tpu_torch.inference import _resolve_device
 from sparktorch_tpu_torch.net import wire as binwire
-from sparktorch_tpu_torch.net.transport import no_trace, run_tag, tree_to_host
+from sparktorch_tpu_torch.net.transport import run_tag, tree_to_host
+from sparktorch_tpu_torch.obs import goodput as _goodput
+from sparktorch_tpu_torch.obs import rpctrace as _rpctrace
 from sparktorch_tpu_torch.obs.prom import CONTENT_TYPE as PROM_CONTENT_TYPE
 from sparktorch_tpu_torch.obs.prom import render_prometheus
-from sparktorch_tpu_torch.obs.telemetry import Telemetry
+from sparktorch_tpu_torch.obs.telemetry import Telemetry, wall_ts
 from sparktorch_tpu_torch.utils.early_stopper import EarlyStopping
 from sparktorch_tpu_torch.utils.locks import VersionedSlot
 from sparktorch_tpu_torch.utils.optim import flax_shapes
@@ -173,12 +180,14 @@ class ParameterServer:
         """Queue a gradient tree (parameter name → gradient) for the
         writer thread. With ``wait`` the call returns once this
         gradient is applied, so a worker's next pull sees its own push
-        (``POST /update``, server.py:125-147)."""
-        no_trace(trace_ctx, "trace_ctx")
+        (``POST /update``, server.py:125-147). ``trace_ctx`` (a sampled
+        span context off the wire) rides the queue item, so the writer
+        records this request's queue wait and apply as child spans."""
         if self._failed is not None:
             raise RuntimeError("parameter server failed") from self._failed
         done = threading.Event() if wait else None
-        self._queue.put((grads, done))
+        self._queue.put((grads, done, trace_ctx, wall_ts(),
+                         time.perf_counter()))
         self.telemetry.counter("param_server.pushes")
         self.telemetry.gauge("param_server.queue_depth", self._queue.qsize())
         if done is not None and not done.wait(timeout):
@@ -194,14 +203,22 @@ class ParameterServer:
             return self.slot.swap(snapshot(self._master)) - 1
 
     def _apply_loop(self):
+        tracer = _rpctrace.tracer_for(self.telemetry)
         while self._running:
             try:
-                grads, done = self._queue.get(timeout=0.1)
+                grads, done, tctx, enq_ts, enq_t0 = self._queue.get(
+                    timeout=0.1)
             except queue.Empty:
                 continue
             try:
                 t0 = time.perf_counter()
-                version = self._apply(grads)
+                # The wait began on a handler thread and ends here: an
+                # after-the-fact record.
+                tracer.record("queue_wait", tctx, enq_ts, t0 - enq_t0,
+                              kind="server")
+                with tracer.child_span("apply", tctx, kind="server"), \
+                        _goodput.span("compute", {"site": "ps_apply"}):
+                    version = self._apply(grads)
                 dt = time.perf_counter() - t0
                 self.apply_s += dt
                 self._applied += 1
@@ -352,6 +369,10 @@ class ParamServerHttp:
         # push tagged by another run is counted, and applied all the
         # same (the tag is a join key, not an access check).
         server_tag = run_tag(tele.run_id)
+        # Each handler adds a serve span (and render/decode below it) on
+        # the server's bus; the collector stitches them under the
+        # client's root by trace id.
+        tracer = _rpctrace.tracer_for(tele)
 
         def cached_body(fmt: str) -> Tuple[int, Union[bytes, list]]:
             """(version, body) from one slot read; the host copy and
@@ -448,6 +469,27 @@ class ParamServerHttp:
                     if len(chunk):
                         self.wfile.write(chunk)
 
+            def _trace_ctx(self, raw: Optional[bytes] = None):
+                """The request's span context: a pushed frame's trace
+                extension when a body is given, else the HTTP header.
+                None on anything absent or malformed: a garbled context
+                never fails a request."""
+                if raw:
+                    try:
+                        ctx = binwire.frame_trace(raw)
+                    except binwire.WireError:
+                        ctx = None
+                    if ctx is not None:
+                        return ctx
+                return _rpctrace.SpanContext.from_header(
+                    self.headers.get(_rpctrace.TRACE_HEADER))
+
+            def _serve_span(self, route: str, ctx):
+                ann = {"route": route}
+                if shard_label is not None:
+                    ann["shard"] = shard_label
+                return tracer.child_span("serve", ctx, kind="server", **ann)
+
             def do_GET(self):
                 route = self.path.split("?", 1)[0]
                 if fire_shard_chaos(self, route):
@@ -455,25 +497,28 @@ class ParamServerHttp:
                 tele.counter("param_server.http_requests",
                              labels={"route": route})
                 if route == "/delta.bin" and hasattr(ps, "render_delta"):
-                    t0 = time.perf_counter()
-                    have = int(self.headers.get("X-Have-Version", "-1"))
-                    quant = self.headers.get("X-Pull-Quant") or None
-                    try:
-                        _version, body = ps.render_delta(
-                            have, quant=quant, run_tag=server_tag)
-                    except ValueError:
-                        self._send(400)
-                        return
-                    hdrs = delta_headers()
-                    if body is None:
-                        self._send(304, extra_headers=hdrs)
-                        record_wire(route, "tx", 0, t0)
-                        return
-                    act = _chaos.fire("param_server.pull", route=route)
-                    if act and act.get("truncate"):
-                        body = body[: max(1, len(body) // 2)]
-                    self._send(200, body, binwire.CONTENT_TYPE, hdrs)
-                    record_wire(route, "tx", len(body), t0)
+                    with self._serve_span(route, self._trace_ctx()) as ssp:
+                        t0 = time.perf_counter()
+                        have = int(self.headers.get("X-Have-Version", "-1"))
+                        quant = self.headers.get("X-Pull-Quant") or None
+                        try:
+                            with tracer.child_span("render", ssp.ctx,
+                                                   kind="server"):
+                                _version, body = ps.render_delta(
+                                    have, quant=quant, run_tag=server_tag)
+                        except ValueError:
+                            self._send(400)
+                            return
+                        hdrs = delta_headers()
+                        if body is None:
+                            self._send(304, extra_headers=hdrs)
+                            record_wire(route, "tx", 0, t0)
+                            return
+                        act = _chaos.fire("param_server.pull", route=route)
+                        if act and act.get("truncate"):
+                            body = body[: max(1, len(body) // 2)]
+                        self._send(200, body, binwire.CONTENT_TYPE, hdrs)
+                        record_wire(route, "tx", len(body), t0)
                     return
                 if route in extra_json:
                     try:
@@ -487,26 +532,8 @@ class ParamServerHttp:
                 if route == "/":
                     self._send(200, b"sparktorch-tpu parameter server")
                 elif route in ("/parameters", "/parameters.bin"):
-                    t0 = time.perf_counter()
-                    have = int(self.headers.get("X-Have-Version", "-1"))
-                    binary = route.endswith(".bin")
-                    version, body = cached_body("bin" if binary else "dill")
-                    if version <= have:
-                        self._send(304 if binary else 204)
-                        record_wire(route, "tx", 0, t0)
-                        return
-                    act = _chaos.fire("param_server.pull", route=route)
-                    if act and act.get("truncate"):
-                        # A torn reply whose declared length is honest
-                        # for the bytes sent: the client's frame check
-                        # must catch it.
-                        if binary:
-                            body = binwire.frame_bytes(body)
-                        body = body[: max(1, len(body) // 2)]
-                    self._send(200, body, binwire.CONTENT_TYPE
-                               if binary else None)
-                    record_wire(route, "tx", binwire.frame_nbytes(
-                        body if isinstance(body, list) else [body]), t0)
+                    with self._serve_span(route, self._trace_ctx()) as ssp:
+                        self._serve_parameters(route, ssp)
                 elif route == "/metrics":
                     self._send(200, render_prometheus(tele.snapshot()).encode(),
                                PROM_CONTENT_TYPE)
@@ -515,6 +542,57 @@ class ParamServerHttp:
                                "application/json")
                 else:
                     self._send(404)
+
+            def _serve_parameters(self, route: str, ssp) -> None:
+                t0 = time.perf_counter()
+                have = int(self.headers.get("X-Have-Version", "-1"))
+                binary = route.endswith(".bin")
+                with tracer.child_span("render", ssp.ctx, kind="server"):
+                    version, body = cached_body("bin" if binary else "dill")
+                if version <= have:
+                    self._send(304 if binary else 204)
+                    record_wire(route, "tx", 0, t0)
+                    return
+                act = _chaos.fire("param_server.pull", route=route)
+                if act and act.get("truncate"):
+                    # A torn reply whose declared length is honest for
+                    # the bytes sent: the client's frame check must
+                    # catch it.
+                    if binary:
+                        body = binwire.frame_bytes(body)
+                    body = body[: max(1, len(body) // 2)]
+                self._send(200, body, binwire.CONTENT_TYPE
+                           if binary else None)
+                record_wire(route, "tx", binwire.frame_nbytes(
+                    body if isinstance(body, list) else [body]), t0)
+
+            def _serve_update(self, route: str, raw: bytes, binary: bool,
+                              ssp) -> None:
+                t0 = time.perf_counter()
+                try:
+                    with tracer.child_span("decode", ssp.ctx, kind="server"):
+                        grads = (binwire.decode(raw)[1] if binary
+                                 else dill.loads(raw))
+                except Exception:
+                    # A malformed body is the client's fault: 400, never
+                    # counted against the apply budget.
+                    ssp.annotate(http_status=400)
+                    self._send(400)
+                    return
+                if binary:
+                    tag = binwire.frame_run_tag(raw)
+                    if tag and server_tag and tag != server_tag:
+                        tele.counter("param_server.run_tag_mismatches_total")
+                try:
+                    # A chaos 500 takes the path a failed apply takes.
+                    _chaos.fire("param_server.update", route=route)
+                    ps.push_gradients(grads, trace_ctx=ssp.ctx)
+                except Exception:
+                    ssp.annotate(http_status=500)
+                    self._send(500)
+                    return
+                self._send(200, b"OK")
+                record_wire(route, "rx", len(raw), t0)
 
             def do_POST(self):
                 route = self.path.split("?", 1)[0]
@@ -525,31 +603,10 @@ class ParamServerHttp:
                 raw = self.rfile.read(int(self.headers.get("Content-Length",
                                                            "0")))
                 if route in ("/update", "/update.bin"):
-                    t0 = time.perf_counter()
                     binary = route == "/update.bin"
-                    try:
-                        grads = (binwire.decode(raw)[1] if binary
-                                 else dill.loads(raw))
-                    except Exception:
-                        # A malformed body is the client's fault: 400,
-                        # never counted against the apply budget.
-                        self._send(400)
-                        return
-                    if binary:
-                        tag = binwire.frame_run_tag(raw)
-                        if tag and server_tag and tag != server_tag:
-                            tele.counter(
-                                "param_server.run_tag_mismatches_total")
-                    try:
-                        # A chaos 500 takes the path a failed apply
-                        # takes.
-                        _chaos.fire("param_server.update", route=route)
-                        ps.push_gradients(grads)
-                    except Exception:
-                        self._send(500)
-                        return
-                    self._send(200, b"OK")
-                    record_wire(route, "rx", len(raw), t0)
+                    with self._serve_span(route, self._trace_ctx(
+                            raw if binary else None)) as ssp:
+                        self._serve_update(route, raw, binary, ssp)
                 elif route == "/losses":
                     stop = ps.post_loss(dill.loads(raw))
                     self._send(200, dill.dumps({"stop": bool(stop)}))

@@ -26,9 +26,14 @@ every serving replica within a few poll intervals.
 Goodput: a hop (submit, queue and the replica's wall) is
 ``exposed_comm{site=router}`` on the router process's ambient ledger,
 and a retry's backoff ``exposed_comm{site=router_retry}``; the
-replica's own ledger attributes its compute. Not ported yet (ROADMAP,
-Queue 1, step 4): RPC trace spans and the stack profiler that
-``Router.start`` arms in the JAX package.
+replica's own ledger attributes its compute. ``Router.start`` arms the
+process's stack profiler (:func:`~sparktorch_tpu_torch.obs.profile.ensure`)
+beside it.
+
+Tracing (:mod:`~sparktorch_tpu_torch.obs.rpctrace`): each routed
+request is an ``infer`` root span with one ``replica`` child a hop
+(a retried request has several), whose context the replica's batch
+loop parents its ``queue_wait`` and ``execute`` under.
 """
 
 from __future__ import annotations
@@ -237,6 +242,11 @@ class Router:
         """Launch the background health loop (optional — an in-process
         tier that only ever fails on submit can rely on the inline
         sweeps)."""
+        # The stack sampler beside the router's goodput attribution:
+        # serving processes profile like training ones.
+        from sparktorch_tpu_torch.obs import profile as _profile
+
+        _profile.ensure(self.telemetry)
         if self._thread is None or not self._thread.is_alive():
             self._stop.clear()
             self._thread = threading.Thread(target=self._health_loop,
@@ -310,6 +320,9 @@ class Router:
         :class:`Overloaded` when every live replica refused admission
         (the tier-wide 429) and :class:`NoReplicasAvailable` when the
         deadline lapses with no live replica."""
+        from sparktorch_tpu_torch.obs.rpctrace import tracer_for
+
+        tracer = tracer_for(self.telemetry)
         budget = (deadline_s if deadline_s is not None
                   else self.default_deadline_s)
         deadline = time.monotonic() + budget
@@ -317,73 +330,85 @@ class Router:
         all_overloaded_rounds = 0
         wait_s = min(0.02, self.probe_interval_s)
         self.telemetry.counter("router.requests_total")
-        while True:
-            rid = self._choose(tried)
-            if rid is None:
-                # Nothing routable right now. If untried replicas may
-                # come back (monitor restart, probe pass), wait a beat
-                # and retry the FULL set inside the deadline; a request
-                # must survive the eviction window of a replica kill.
-                if time.monotonic() >= deadline:
-                    if tried and all_overloaded_rounds > 0:
-                        self.telemetry.counter("router.rejects_total")
-                        raise Overloaded(
-                            "every live replica refused admission")
-                    self.telemetry.counter("router.unroutable_total")
-                    raise NoReplicasAvailable(
-                        f"no live replica within {budget}s")
-                self.check_health()
-                tried.clear()
-                # Refusals reset with the round: a 429 from a replica
-                # that has since DIED must not turn the deadline's
-                # verdict from 503 into 429.
-                all_overloaded_rounds = 0
-                # Doubling backoff (20ms -> 100ms cap): under SUSTAINED
-                # uniform overload each retry round costs every replica
-                # a refused admission — the backoff cuts that spam ~5x
-                # while a short-lived eviction window still gets a fast
-                # first retry. The request's own deadline stays the
-                # shed knob: a client that wants a fast tier-wide 429
-                # passes a short deadline. The backoff is router wall.
-                with _goodput.span("exposed_comm", {"site": "router_retry"}):
-                    time.sleep(wait_s)
-                wait_s = min(wait_s * 2, 0.1)
-                continue
-            wait_s = min(0.02, self.probe_interval_s)
-            with self._lock:
-                st = self._replicas[rid]
-                st.outstanding += 1
-            remaining = max(deadline - time.monotonic(), 0.001)
-            try:
-                # The hop (submit, queue and the replica's wall) is
-                # this process's exposed comm; the replica's own ledger
-                # attributes its compute.
-                with _goodput.span("exposed_comm", {"site": "router"}):
-                    fut = st.handle.submit(x, deadline_s=remaining)
-                    out = fut.result(timeout=remaining + 1.0)
-                self.telemetry.counter("router.routed_total",
-                                       labels={"replica": rid})
-                return out
-            except Overloaded:
-                # Healthy but full: not an eviction — try the others,
-                # shed only when everyone says 429.
-                tried.add(rid)
-                all_overloaded_rounds += 1
-            except DeadlineExceeded:
-                # The REQUEST's own budget lapsed while queued — load,
-                # not replica death. Nothing left to retry with; surface
-                # it as-is.
-                self.telemetry.counter("router.deadline_exceeded_total")
-                raise
-            except (ReplicaStopped, TransportError, OSError,
-                    TimeoutError):
-                self.evict(rid, reason="error")
-                tried.add(rid)
-            finally:
+        with tracer.root_span("infer", kind="client") as root:
+            while True:
+                rid = self._choose(tried)
+                if rid is None:
+                    # Nothing routable right now. If untried replicas
+                    # may come back (monitor restart, probe pass), wait
+                    # a beat and retry the FULL set inside the
+                    # deadline; a request must survive the eviction
+                    # window of a replica kill.
+                    if time.monotonic() >= deadline:
+                        if tried and all_overloaded_rounds > 0:
+                            self.telemetry.counter("router.rejects_total")
+                            raise Overloaded(
+                                "every live replica refused admission")
+                        self.telemetry.counter("router.unroutable_total")
+                        raise NoReplicasAvailable(
+                            f"no live replica within {budget}s")
+                    self.check_health()
+                    tried.clear()
+                    # Refusals reset with the round: a 429 from a
+                    # replica that has since DIED must not turn the
+                    # deadline's verdict from 503 into 429.
+                    all_overloaded_rounds = 0
+                    # Doubling backoff (20ms -> 100ms cap): under
+                    # SUSTAINED uniform overload each retry round costs
+                    # every replica a refused admission — the backoff
+                    # cuts that spam ~5x while a short-lived eviction
+                    # window still gets a fast first retry. The
+                    # request's own deadline stays the shed knob: a
+                    # client that wants a fast tier-wide 429 passes a
+                    # short deadline. The backoff is router wall.
+                    with _goodput.span("exposed_comm",
+                                       {"site": "router_retry"}):
+                        time.sleep(wait_s)
+                    wait_s = min(wait_s * 2, 0.1)
+                    continue
+                wait_s = min(0.02, self.probe_interval_s)
                 with self._lock:
-                    cur = self._replicas.get(rid)
-                    if cur is not None:
-                        cur.outstanding = max(0, cur.outstanding - 1)
+                    st = self._replicas[rid]
+                    st.outstanding += 1
+                remaining = max(deadline - time.monotonic(), 0.001)
+                # The hop (submit, queue and the replica's wall) is this
+                # process's exposed comm; the replica's own ledger
+                # attributes its compute.
+                with tracer.child_span("replica", root.ctx, kind="client",
+                                       replica=rid) as tsp, \
+                        _goodput.span("exposed_comm", {"site": "router"}):
+                    try:
+                        fut = st.handle.submit(x, deadline_s=remaining,
+                                               trace_ctx=tsp.ctx)
+                        out = fut.result(timeout=remaining + 1.0)
+                        self.telemetry.counter("router.routed_total",
+                                               labels={"replica": rid})
+                        return out
+                    except Overloaded as e:
+                        # Healthy but full: not an eviction — try the
+                        # others, shed only when everyone says 429.
+                        tsp.set_error(e)
+                        tried.add(rid)
+                        all_overloaded_rounds += 1
+                    except DeadlineExceeded as e:
+                        # The REQUEST's own budget lapsed while queued
+                        # — load, not replica death. Nothing left to
+                        # retry with; surface it as-is.
+                        tsp.set_error(e)
+                        self.telemetry.counter(
+                            "router.deadline_exceeded_total")
+                        raise
+                    except (ReplicaStopped, TransportError, OSError,
+                            TimeoutError) as e:
+                        tsp.set_error(e)
+                        self.evict(rid, reason="error")
+                        tried.add(rid)
+                    finally:
+                        with self._lock:
+                            cur = self._replicas.get(rid)
+                            if cur is not None:
+                                cur.outstanding = max(
+                                    0, cur.outstanding - 1)
 
     @property
     def stats(self) -> Dict[str, Any]:

@@ -165,7 +165,8 @@ def test_config_choices_and_unported_options():
         "resnet18_hogwild", "hogwild_wire", "bert_dp",
         "resnet50_inference", "long_context_lm", "moe_lm", "serve_online",
         "hogwild_ps_fleet", "hogwild_chaos", "hogwild_chaos_soak",
-        "gang_obs", "elastic_ctl"}
+        "gang_obs", "elastic_ctl", "rpc_trace", "health", "goodput", "skew",
+        "profile", "obs_history"}
     with pytest.raises(SystemExit):
         bench.main(["--config", "moe_a2a"])  # needs an ep mesh axis
     # --telemetry-dump is ported: without a card the run raises first.
@@ -268,4 +269,64 @@ def test_serve_online_record_keys_are_the_jax_records():
     recs = [json.loads(line) for line in path.read_text().splitlines()
             if line.strip()]
     assert recs and all(set(r) - {"ts"} == jax_keys for r in recs)
+    assert omitted == added == set()
+
+
+# The obs configs at a cut CPU depth, where the JAX config has a
+# parameter for it (rpc_trace and profile run whole): each call raises
+# if a gate fails.
+OBS_CONFIGS = {
+    "rpc_trace": {},
+    "health": dict(aa_reps=2),
+    "goodput": dict(part_sleep_s=0.1, n_pulls=2,
+                    slow_delay_s=0.25),
+    "skew": dict(steps=6, delay_s=0.15),
+    "profile": {},
+    "obs_history": dict(slow_delay_s=0.25),
+}
+
+
+@pytest.mark.parametrize("config", sorted(OBS_CONFIGS))
+def test_obs_configs_hold_their_gates_on_the_cpu(config):
+    rec = bench.CONFIGS[config](device="cpu", **OBS_CONFIGS[config])
+    jax_keys, omitted, added = bench.RECORD_KEYS[config]
+    assert set(rec) == (jax_keys - omitted) | added
+    assert rec["config"] == config
+    drift = [v for k, v in rec.items() if k.endswith("_drift")]
+    assert all(d["status"] == "no_prior_record" for d in drift)
+    if config == "rpc_trace":
+        assert rec["overhead_pct"] < 2.0 and rec["pull_trees"] == 10
+        assert rec["slow_shard"]["named"] == rec["slow_shard"]["pulls"] == 3
+        assert len(rec["reconcile"]) == 4
+    elif config == "health":
+        assert rec["detect"]["step"] == 6 and rec["replay"]["bitwise"]
+    elif config == "goodput":
+        assert rec["elastic"]["resizes"] == {"shrink": 1, "grow": 1}
+        assert rec["wire"]["exposed_comm_shift_s"] >= 0.8 * rec["wire"][
+            "injected_s"]
+    elif config == "skew":
+        assert rec["decomposition"]["laggard"]["rank"] == "1"
+    elif config == "profile":
+        assert rec["hot"]["top_frame"].startswith("_profile_hot_planted")
+    else:
+        assert rec["alert"]["chaos_episodes"] == 1
+        assert rec["postmortem"]["victim_spans"] >= 1
+
+
+@pytest.mark.parametrize("config,path", [
+    ("health", "bench_r15_health.jsonl"), ("goodput", "bench_r11_goodput.jsonl"),
+    ("skew", "bench_r16_skew.jsonl"), ("profile", "bench_r14_profile.jsonl"),
+    ("obs_history", "bench_r09_obs.jsonl")])
+def test_obs_record_keys_are_the_jax_records(config, path):
+    # The JAX bench's newest retained record of each config carries
+    # exactly these keys (plus the ``ts`` its CLI adds).
+    import json
+    from pathlib import Path
+
+    lines = (Path(__file__).resolve().parent.parent / "benchmarks" / path
+             ).read_text().splitlines()
+    recs = [json.loads(ln) for ln in lines if ln.strip()]
+    newest = [r for r in recs if r.get("config") == config][-1]
+    jax_keys, omitted, added = bench.RECORD_KEYS[config]
+    assert set(newest) - {"ts"} == jax_keys
     assert omitted == added == set()

@@ -113,20 +113,49 @@ def test_collectors_agree_over_each_packages_exporters(exporters,
         == 2.0
 
 
+def _rpc_spans():
+    """A sharded pull's spans, as a rank's ring carries them: shard 1's
+    hop bounds the request."""
+    def span(sid, parent, name, ts, dur, shard=None, kind="client"):
+        return {"trace_id": "a" * 32, "span_id": sid, "parent_id": parent,
+                "name": name, "kind": kind, "ts": ts, "dur_s": dur,
+                "status": "ok", "error": None, "forced": False,
+                "ann": {} if shard is None else {"shard": shard}}
+
+    return [span("r", None, "pull", 100.0, 0.2),
+            span("a", "r", "shard_pull", 100.01, 0.02, "0"),
+            span("b", "r", "shard_pull", 100.01, 0.18, "1"),
+            span("c", "b", "serve", 100.02, 0.16, "1", "server")]
+
+
 def test_rpc_spans_are_skipped_and_rpc_traces_raise(exporters):
-    tele = obs.Telemetry(run_id="rpc")
-    tele.set_section("rpc_spans", {"spans": [{"trace_id": "t"}]})
-    exp = gang.GangMetricsExporter(telemetry=tele).start()
-    c = obs.FleetCollector({0: exp.url}, poll_interval_s=0)
-    try:
-        c.poll()
-        assert c.telemetry.counter_value(
-            "collector.rpc_spans_skipped_total", {"rank": "0"}) == 1
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            c.rpc_traces()
-    finally:
-        exp.stop()
-        c.stop()
+    # Once skipped (the tracer was not ported): now each package's
+    # collector stitches a rank's rpc_spans ring, over each package's
+    # exporter, to the same trees and the same /gang view.
+    got = {}
+    for name, o, g in (("port", obs, gang), ("jax", jax_obs, jax_gang)):
+        for exp_name, eo, eg in (("port", obs, gang),
+                                 ("jax", jax_obs, jax_gang)):
+            tele = eo.Telemetry(run_id="rpc")
+            tele.set_section("rpc_spans", {"n": 4, "dropped": 0,
+                                           "spans": _rpc_spans()})
+            exp = eg.GangMetricsExporter(telemetry=tele).start()
+            c = o.FleetCollector({0: exp.url}, poll_interval_s=0)
+            try:
+                c.poll()
+                traces = c.rpc_traces()
+                got[name, exp_name] = (traces, _strip(c.gang_view()["rpc"]),
+                                       c.telemetry.get_section("rpc_traces"))
+            finally:
+                exp.stop()
+                c.stop()
+    want = got["jax", "jax"]
+    assert all(v == want for v in got.values())
+    traces = want[0]
+    assert len(traces) == 1 and traces[0]["n_spans"] == 4
+    assert traces[0]["critical"]["name"] == "serve"
+    assert traces[0]["critical"]["shard"] == "1"
+    assert want[1]["n_traces"] == 1
 
 
 class _Handle:

@@ -489,16 +489,44 @@ def test_a_hung_up_client_leaves_no_traceback(capsys):
     assert "ValueError: bug" in err
 
 
-def test_unported_fleet_paths_raise_and_name_their_item():
-    _, obj, *_ = _pair("sgd", {"lr": 0.1})
-    fl = fleet.ParamServerFleet(obj, n_shards=2, device="cpu")
+def _traced_scatter_spans(pkg_fleet, obj, tele, grads, rpctrace):
+    """The spans one traced scatter push leaves on the fleet's bus:
+    ``(name, kind, parent is the push's context, shard)`` sorted."""
+    tracer = rpctrace.tracer_for(tele)
+    tracer.sample_rate = 1.0
+    kw = {} if pkg_fleet is jax_fleet else {"device": "cpu"}
+    fl = pkg_fleet.ParamServerFleet(obj, n_shards=2, telemetry=tele, **kw)
     try:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fl.scatter_push({}, trace_ctx=object())
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fl._shards["0"].push_gradients({}, trace_ctx=object())
+        with tracer.root_span("push") as root:
+            fl.scatter_push(grads, trace_ctx=root.ctx)
+        fl.drain()
     finally:
         fl.stop()
+    spans = tracer.spans
+    root_id = next(s["span_id"] for s in spans if s["name"] == "push")
+    return sorted((s["name"], s["kind"], s["parent_id"] == root_id,
+                   s["ann"].get("shard")) for s in spans)
+
+
+def test_unported_fleet_paths_raise_and_name_their_item():
+    # A push's trace context once raised here: now a traced scatter push
+    # leaves each shard's queue_wait and apply under the push, as in the
+    # JAX fleet.
+    from sparktorch_tpu.obs import rpctrace as jax_rpctrace
+    from sparktorch_tpu_torch.obs import rpctrace
+
+    jax_obj, obj, variables, module, names = _pair("sgd", {"lr": 0.1})
+    g = _grads(variables, np.random.default_rng(0))
+    want = _traced_scatter_spans(jax_fleet, jax_obj, JaxTelemetry(), g,
+                                 jax_rpctrace)
+    got = _traced_scatter_spans(fleet, obj, Telemetry(),
+                                _port_grads(g, names, module), rpctrace)
+    assert got == want
+    assert {(n, shard) for n, _, _, shard in got} == {
+        (n, sid) for n in ("push", "queue_wait", "apply")
+        for sid in ("0", "1")} - {("push", "0"), ("push", "1")} | {
+        ("push", None)}
+    _, obj, *_ = _pair("sgd", {"lr": 0.1})
     with pytest.raises(ValueError, match="transport='http'"):
         train_async(obj, np.zeros((4, 10), np.float32),
                     labels=np.zeros(4, np.float32), shards=2,

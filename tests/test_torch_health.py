@@ -294,3 +294,30 @@ def test_poisoned_fit_flags_the_same_step_in_both_packages():
         assert doc["steps_ingested"] == 10
     assert docs["port"] == docs["jax"]
     assert docs["port"][0] == ("nonfinite", 5, 2)
+
+
+def test_postmortem_health_from_a_trainer_bus(tmp_path):
+    # A trainer's bus holds only its ledger's per-rank ``health``
+    # section: both packages' postmortems merge it to the run document.
+    from sparktorch_tpu.obs import blackbox as jax_blackbox
+    from sparktorch_tpu_torch.obs import blackbox
+
+    got = {}
+    for which, bb in (("port", blackbox), ("jax", jax_blackbox)):
+        h, t = PKGS[which][:2]
+        tele = t.Telemetry(run_id="pm")
+        led = h.TrainHealthLedger(
+            rank="0", telemetry=tele,
+            config=h.HealthConfig(publish_interval_s=0.0),
+            leaf_keys=["a.weight", "a.bias", "b.weight", "b.bias"])
+        for host, dev in _schedule()[:24]:
+            led.note_step(device=dev, host=host)
+        led.flush()
+        assert tele.get_section(h.SECTION) is not None
+        assert tele.get_section(h.RUN_SECTION) is None
+        path = bb.collect_postmortem(str(tmp_path / which), "drill",
+                                     telemetry=tele)
+        got[which] = _strip(bb.read_postmortem(path)["health"])
+    assert got["port"] == got["jax"]
+    assert got["port"]["kind"] == "health_run"
+    assert got["port"]["worst"]["akind"] == "nonfinite"

@@ -8,6 +8,8 @@ generators in the two packages, so minibatched runs are checked for
 their semantics only.
 """
 
+import time
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -406,11 +408,12 @@ def test_unported_settings_name_the_roadmap(setting, match):
 # ---------------------------------------------------------------------------
 
 # Names the port's runs do not publish: the JAX trainer arms the stack
-# profiler (``profile.*``, which the port's hogwild driver leaves off),
-# and the JAX wire client's request tracer (``rpctrace.*``, not ported
-# yet) samples 1% of its requests by default. The workers' health
-# ledgers' ``health.*`` names are compared.
-UNPORTED = ("profile.", "xprof.", "rpctrace.")
+# profiler (``profile.*``, which the port's hogwild driver leaves off).
+# The workers' health ledgers' ``health.*`` names and the wire's request
+# tracer's ``rpctrace.*`` names are compared, with every request
+# sampled in both packages (the default 1% would make the name sets a
+# matter of chance).
+UNPORTED = ("profile.", "xprof.")
 # The frame tables name the leaves (Flax paths against state_dict
 # names), so the bytes on the wire differ between the packages.
 WIRE_BYTES = "param_server.wire_bytes_total"
@@ -424,6 +427,24 @@ def _named(snap):
                             "info")}
 
 
+def settled_snapshot(tele, timeout=5.0):
+    """``tele``'s snapshot once its request tracer has stopped counting
+    spans: a server handler closes its serve span just after the reply
+    the worker is already holding."""
+    def spans():
+        return sum(v for k, v in tele.snapshot()["counters"].items()
+                   if k.startswith("rpctrace.spans_total"))
+
+    last, deadline = spans(), time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        time.sleep(0.05)
+        now = spans()
+        if now == last:
+            break
+        last = now
+    return tele.snapshot()
+
+
 def _http_run(pkg_train, obj, tele, **kw):
     x, y = _data((48,), n=48)
     return pkg_train(obj, x, labels=y, iters=8, partitions=2, push_every=2,
@@ -431,7 +452,8 @@ def _http_run(pkg_train, obj, tele, **kw):
                      telemetry=tele, **kw)
 
 
-def test_http_run_telemetry_matches_jax():
+def test_http_run_telemetry_matches_jax(monkeypatch):
+    monkeypatch.setenv("SPARKTORCH_TPU_RPC_SAMPLE", "1.0")
     from sparktorch_tpu import obs as jax_obs
     from sparktorch_tpu_torch import obs
 
@@ -439,7 +461,8 @@ def test_http_run_telemetry_matches_jax():
     jax_tele, tele = jax_obs.Telemetry(run_id="h"), obs.Telemetry(run_id="h")
     want = _http_run(jax_train_async, jax_obj, jax_tele)
     got = _http_run(train_async, obj, tele, device="cpu")
-    a, b = _named(tele.snapshot()), _named(jax_tele.snapshot())
+    a, b = (_named(settled_snapshot(tele)),
+            _named(settled_snapshot(jax_tele)))
     for section in ("counters", "gauges", "histograms", "spans", "info"):
         assert a[section].keys() == b[section].keys(), section
     assert ({k: v for k, v in a["counters"].items()

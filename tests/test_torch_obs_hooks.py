@@ -20,6 +20,7 @@ import multiprocessing as mp
 import os
 import re
 import socket
+import time
 import traceback
 import types
 import urllib.request
@@ -150,12 +151,33 @@ def _dropped_connection(transport, ports):
     assert transport.pull(v) is None
 
 
+def settled_snapshot(tele, timeout=5.0):
+    """``tele``'s snapshot once its request tracer has stopped counting
+    spans: a server handler closes its serve span just after the reply
+    the client is already holding."""
+    def spans():
+        return sum(v for k, v in tele.snapshot()["counters"].items()
+                   if k.startswith("rpctrace.spans_total"))
+
+    last, deadline = spans(), time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        time.sleep(0.05)
+        now = spans()
+        if now == last:
+            break
+        last = now
+    return tele.snapshot()
+
+
 @pytest.mark.parametrize("config,drive,site", [
     (dict(truncate_pull_frames=1), _truncated_pull, "param_server.pull"),
     (dict(server_error_pushes=1), _forced_500, "param_server.update"),
     (dict(drop_connections=1), _dropped_connection, "transport.request"),
 ], ids=["param_server.pull", "param_server.update", "transport.request"])
-def test_wire_chaos_sites_match_jax(config, drive, site):
+def test_wire_chaos_sites_match_jax(config, drive, site, monkeypatch):
+    # Every request traced in both packages: the request tracer's
+    # counters are compared with the rest.
+    monkeypatch.setenv("SPARKTORCH_TPU_RPC_SAMPLE", "1.0")
     from sparktorch_tpu.ft import ChaosConfig as JaxChaosConfig
     from sparktorch_tpu.ft import inject as jax_inject
     from sparktorch_tpu.net import wire as jax_wire
@@ -178,13 +200,12 @@ def test_wire_chaos_sites_match_jax(config, drive, site):
             finally:
                 transport.close()
             events[name] = inj.events
-            # Each server has its own port: the label names it. The JAX
-            # request tracer (unported) samples 1% of requests.
+            # Each server has its own port: the label names it.
             counters[name] = {re.sub(r"port=\d+", "port=*", k): v
-                              for k, v in tele.snapshot()["counters"].items()
+                              for k, v in settled_snapshot(tele)[
+                                  "counters"].items()
                               if not k.startswith(
-                                  ("param_server.wire_bytes_total",
-                                   "rpctrace."))}
+                                  "param_server.wire_bytes_total")}
         assert events["port"] == events["jax"]
         assert [e["site"] for e in events["port"]] == [site]
         assert counters["port"] == counters["jax"]

@@ -8,7 +8,8 @@ pulls, load-aware routing, eviction and re-admission, the heartbeat
 deadline, the chaos straggler and kill. Left out, with what they need:
 ``test_weight_puller_uses_gateway_deltas`` (the fleet),
 ``test_router_reads_collector_scraped_latency`` (the collector) and
-``test_traced_request_waterfall_crosses_router_and_replica`` (rpctrace).
+``test_traced_request_waterfall_crosses_router_and_replica`` (in
+``tests/test_torch_rpctrace.py`` beside the other traced paths).
 
 Then both packages side by side: the deterministic coalescing case with
 equal ``serve.*`` counters, ``batch_fill`` and rows within 1e-5; a tier
@@ -632,13 +633,58 @@ def test_run_replica_server_pulls_until_cancelled(tmp_path):
     assert gang_report(str(tmp_path))["ranks"][2]["alive"] is False
 
 
+@pytest.mark.parametrize("gate", ["1", "0"])
+def test_router_start_arms_the_stack_profiler_as_jax(gate, monkeypatch):
+    # The JAX Router.start arms the process's stack sampler
+    # (profile.ensure on the router's bus); the port's does the same.
+    from sparktorch_tpu.obs import profile as jax_profile
+    from sparktorch_tpu.serve.router import Router as JaxRouter
+    from sparktorch_tpu_torch.obs import profile
+
+    monkeypatch.setenv("SPARKTORCH_TPU_PROFILE", gate)
+    armed = {}
+    for name, prof, router_cls, tele in (
+            ("port", profile, Router, Telemetry()),
+            ("jax", jax_profile, JaxRouter, JaxTelemetry())):
+        prev = prof.install(None)
+        router = router_cls(telemetry=tele)
+        try:
+            router.start()
+            active = prof.active()
+            armed[name] = (active is not None,
+                           active is not None and active.telemetry is tele)
+        finally:
+            router.stop()
+            started = prof.install(prev)
+            if started is not None and started is not prev:
+                started.stop()
+    assert armed["port"] == armed["jax"] == ((True, True) if gate == "1"
+                                             else (False, False))
+
+
 def test_unported_paths_raise_and_name_their_item(trained):
     x = trained[2]
     tele = Telemetry()
     rep = _replica(trained, tele, replica_id="0")
     try:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            rep.submit(x[:1], trace_ctx=object())
+        # A trace context once raised here: now the batch loop records
+        # the request's queue_wait and execute under it, as the JAX
+        # replica does.
+        from sparktorch_tpu_torch.obs import rpctrace
+
+        tracer = rpctrace.tracer_for(tele)
+        tracer.sample_rate = 1.0
+        with tracer.root_span("replica") as hop:
+            rep.submit(x[:1], trace_ctx=hop.ctx).result(10)
+        assert _wait(lambda: len(tracer.spans) == 3)
+        spans = {s["name"]: s for s in tracer.spans}
+        assert set(spans) == {"replica", "queue_wait", "execute"}
+        for name in ("queue_wait", "execute"):
+            assert spans[name]["parent_id"] == spans["replica"]["span_id"]
+            assert spans[name]["kind"] == "server"
+            assert spans[name]["ann"]["replica"] == "0"
+        assert spans["execute"]["ann"]["bucket"] == 1
+        assert spans["execute"]["ann"]["batch_rows"] == 1
         # Delta pulls are ported: a transport with pull_delta is taken,
         # and a 304 from it installs nothing.
         puller = WeightPuller(rep, types.SimpleNamespace(

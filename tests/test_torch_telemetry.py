@@ -211,8 +211,9 @@ def test_heartbeat_freeze_under_chaos_matches_jax(tmp_path):
 
 
 def test_obs_exports_the_core_only():
-    # The core, the ported modules the supervisor and ctl/ import, and
-    # the health lane, replay, trace analyzer and fleet collector.
+    # The core, the ported modules the supervisor and ctl/ import, the
+    # health lane, replay, trace analyzer, fleet collector and the
+    # request tracer: everything the JAX package's obs exports.
     assert set(obs.__all__) == {
         "Span", "Telemetry", "format_key", "get_telemetry", "set_telemetry",
         "wall_ts", "JsonlSink", "read_jsonl", "write_jsonl",
@@ -226,7 +227,9 @@ def test_obs_exports_the_core_only():
         "TrainHealthLedger", "health_alert_rules", "tree_checksum",
         "load_bundle", "replay_bundle", "GangAnalysis", "TraceAnalysis",
         "TraceParseError", "analyze_and_publish", "analyze_trace",
-        "merge_analyses", "FleetCollector"}
-    assert set(obs.__all__) < set(jax_obs.__all__)
+        "merge_analyses", "FleetCollector", "RpcTracer", "SpanContext",
+        "critical_path", "critical_summary", "stitch_spans", "tracer_for",
+        "write_chrome_trace"}
+    assert set(obs.__all__) == set(jax_obs.__all__)
     assert obs.HEARTBEAT_DIR_ENV == jax_obs.HEARTBEAT_DIR_ENV
     assert json.loads(json.dumps(obs.Telemetry().snapshot()))["counters"] == {}

@@ -430,12 +430,12 @@ def test_streaming_positional_call_and_metrics_hook_run_alike():
 
 
 # Names the port's fits do not publish: the JAX trainers arm the stack
-# profiler (``profile.*``, which the port's trainers leave off), a JAX
-# capture's analysis (``xprof.*``) follows from its compile-laden
-# trace, and the JAX request tracer (``rpctrace.*``, not ported yet)
-# samples 1% of wire requests by default. The health lane's
-# ``health.*`` names are compared.
-UNPORTED = ("profile.", "xprof.", "rpctrace.")
+# profiler (``profile.*``, which the port's trainers leave off), and a
+# JAX capture's analysis (``xprof.*``) follows from its compile-laden
+# trace. The health lane's ``health.*`` names and the request tracer's
+# ``rpctrace.*`` names are compared, every request sampled in both
+# packages.
+UNPORTED = ("profile.", "xprof.")
 
 
 def _named(snap):
@@ -448,7 +448,8 @@ def _named(snap):
 
 @pytest.mark.parametrize("streaming", [False, True],
                          ids=["resident", "streaming"])
-def test_fit_telemetry_matches_jax(streaming):
+def test_fit_telemetry_matches_jax(streaming, monkeypatch):
+    monkeypatch.setenv("SPARKTORCH_TPU_RPC_SAMPLE", "1.0")
     from sparktorch_tpu import obs as jax_obs
     from sparktorch_tpu.train.sync import (
         train_distributed_streaming as jax_streaming,
