@@ -9,7 +9,7 @@ PYTHON ?= python
 	bench-ps-fleet bench-tune bench-pp-tune bench-rpc-trace \
 	bench-serve bench-elastic bench-obs-history bench-moe \
 	bench-goodput bench-profile bench-health bench-skew bench-lint \
-	cluster-up clean lint lint-obs
+	cluster-up clean lint lint-obs lint-torch bench-wire-torch
 
 install:
 	$(PYTHON) -m pip install -e .
@@ -38,6 +38,15 @@ lint-obs: lint
 bench-lint:
 	@$(PYTHON) -m sparktorch_tpu.lint sparktorch_tpu/ --gate-wall 5 \
 		--log benchmarks/bench_r13_lint.jsonl
+
+# The PyTorch/CUDA port's sparklint (sparktorch_tpu_torch/lint/): the
+# same engine and suppression syntax, scoped to the port, with SPK108,
+# SPK401 and SPK402 re-aimed at torch; and the port's wire benchmark.
+lint-torch:
+	@$(PYTHON) -m sparktorch_tpu_torch.lint sparktorch_tpu_torch/
+
+bench-wire-torch:
+	$(PYTHON) -m sparktorch_tpu_torch.net.bench_wire
 
 test: lint
 	$(PYTHON) -m pytest tests/ -q

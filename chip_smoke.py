@@ -203,9 +203,16 @@ the CPU path):
    to the killed child's pushes plus the rerun's, exit codes -9 and 0,
    with the kill → relaunch latency, each child's start and the rerun's
    push times; (c) is phase 15 (a): the barrier fit under
-   ``supervise=True``.
+   ``supervise=True``;
+19. lint and wire: the port's sparklint CLI (``python -m
+   sparktorch_tpu_torch.lint sparktorch_tpu_torch/ --json``, its
+   ``main`` in this process) clean (exit 0, no finding, more than 80
+   files) on the card machine's Python; then ``bench_wire``'s CLI
+   (``python -m sparktorch_tpu_torch.net.bench_wire``) at its defaults
+   (4 layers, d_model 768, vocab 8,192), exit 0 (the binary wire beats
+   dill on bytes and on encode+decode wall time), its row printed.
 
-No kernel of KERNELS lies on phases 8, 11–14, on 15 (c), (d), on 16
+No kernel of KERNELS lies on phases 8, 11–14, 19, on 15 (c), (d), on 16
 (a), on 17 (a), on 17's rpc (b) and (c), on the bench's chaos configs, in this process during
 18 (b) and on the moe phase's (d): each expects 0 launches. Phase 15 runs after every kernel is built, so its
 executor processes load the built kernels.
@@ -356,7 +363,9 @@ BENCH_DEPTH = {"resnet18_hogwild": dict(iters=64, **_SYNC_DEPTH),
                "hogwild_ps_fleet": dict(pairs=2)}
 # The bench's obs configs: rpc_trace runs in the fleet phase's rpc leg;
 # the other five (no kernel on their paths, ~1 minute together) run in
-# the CPU tests only.
+# the CPU tests only. health's A/A gate does not hold on the card: the
+# lane's mean host cost is 22-26% of its 0.19 ms step (F9, open;
+# health_costs.py times it there).
 OBS_CONFIGS = ("rpc_trace", "health", "goodput", "skew", "profile",
                "obs_history")
 # The serving tier's phase: BERT-base (flash, bf16 compute) behind an
@@ -1422,7 +1431,8 @@ def health_phase(torch, payload):
         f"{HEALTH_ROWS}x{HEALTH_SEQ} ids, batch poisoned at step "
         f"{HEALTH_POISON}: losses {[round(v, 4) for v in losses]}; first "
         f"anomaly {first['akind']} at step {first['step']}, detect lag "
-        f"{first['detect_lag']} (fetch lag {cfg.fetch_lag}); anomalies "
+        f"{first['detect_lag']} (fetch lag {cfg.fetch_lag}), ingested "
+        f"{first['ingest_lag']} steps after it; anomalies "
         f"{doc['counts']}; alert firings {fired}; top grad leaves {top}; "
         f"bundle {os.path.basename(want)} "
         f"({os.path.getsize(want[:-5] + '.npz') / 1e6:.1f} MB npz); launches "
@@ -1629,11 +1639,13 @@ def add_up(total, counts):
 def upload_trace(torch, fn):
     """Run ``fn`` under torch.profiler and return, from its trace, the
     host→device copies on streams other than the flash kernels' and
-    how many of them overlap a flash-stream kernel."""
+    how many of them overlap a flash-stream kernel. Only the card's
+    activity is traced: host-side op events would slow the launches
+    toward the card's pace, and a chunk's upload hides only while the
+    host runs ahead."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     path = os.path.join(SCRATCH, "stream_trace.json")
@@ -2549,6 +2561,50 @@ def bench_phase(torch):
                              f"{records['resnet50_inference']['stream_n_rows']}"
                              " rows")
     return counts, records
+
+
+def lint_wire_phase(torch):
+    """19. The port's sparklint over the package and ``bench_wire`` at
+    its defaults, each through its CLI's ``main`` in this process (a
+    child's interpreter start and ``import torch`` cost ~10 s on the
+    card's host); no kernel runs."""
+    import contextlib
+    import io
+
+    from sparktorch_tpu_torch.lint import cli as lint_cli
+    from sparktorch_tpu_torch.net import bench_wire
+
+    package = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "sparktorch_tpu_torch")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lint_cli.main([package, "--json"])
+    lint_wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"lint exited {rc}:\n{out.getvalue()[-4000:]}")
+    doc = json.loads(out.getvalue())
+    if doc["findings"] or doc["counts"] or doc["files_scanned"] <= 80:
+        raise AssertionError(f"lint: {doc['files_scanned']} files, "
+                             f"counts {doc['counts']}")
+    log(f"lint: {doc['files_scanned']} files, {len(doc['rules'])} rules, "
+        f"clean; analysis {doc['wall_s']} s, {lint_wall:.1f} s in all")
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_wire.main([])
+    wire_wall = time.perf_counter() - t0
+    row = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"bench_wire: {json.dumps(row)}")
+    if rc != 0 or not row["ok"]:
+        raise AssertionError(f"bench_wire exited {rc}: {row}")
+    got = read_counts()
+    expect_counts("lint and wire", got, NO_KERNELS)
+    return {"lint_wire": got}, {
+        "lint": {"files": doc["files_scanned"], "rules": len(doc["rules"]),
+                 "analysis_s": doc["wall_s"], "wall_s": round(lint_wall, 2)},
+        "bench_wire": row, "bench_wire_wall_s": round(wire_wall, 2)}
 
 
 def moe_card_parity(torch):
@@ -4670,6 +4726,8 @@ def run_phases(torch) -> int:
     done("fleet")
     supervise_counts, supervise = supervise_phase(torch)
     done("supervise")
+    lint_wire_counts, lint_wire = lint_wire_phase(torch)
+    done("lint and wire")
 
     # Each kernel's numbers at its main path's shape: the serving chunk
     # for the forward, the LM training step for the other four.
@@ -4697,6 +4755,8 @@ def run_phases(torch) -> int:
                    **{path: c[name]
                       for path, c in supervise_counts.items()},
                    **{path: c[name]
+                      for path, c in lint_wire_counts.items()},
+                   **{path: c[name]
                       for path, c in bench_counts_by_path.items()}}
         cases = main_cases[name]
         kernels.append({
@@ -4721,7 +4781,7 @@ def run_phases(torch) -> int:
                     "serve_resnet50_stream": resnet50_stream,
                     "bench": bench, "dp": dp, "spark": spark, "moe": moe,
                     "serve_online": serve_online, "fleet": fleet,
-                    "supervise": supervise}))
+                    "supervise": supervise, "lint_wire": lint_wire}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -97,6 +97,7 @@ every config raises; the functions take ``device="cpu"`` for tests.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import subprocess
@@ -240,7 +241,7 @@ RECORD_KEYS = {
     "profile": (
         {"config", "unit", "value", "sample_tick_us", "overhead_pct_of_step",
          "step_wall_off_ms", "step_wall_on_ms", "hz", "hot", "run_report",
-         "profile_drift", "wall_s"}, set(), set()),
+         "profile_drift", "wall_s"}, set(), {"aa_floor_pct"}),
     "obs_history": (
         {"config", "unit", "value", "sweep_on_ms", "sweep_off_ms",
          "sweep_on_min_ms", "sweep_off_min_ms", "sweep_overhead_pct",
@@ -262,11 +263,12 @@ class _Phase:
 
     def __init__(self, dev: torch.device, name: str):
         self.dev = dev
+        self.name = name
         self.duration_s = 0.0
-        self._span = get_telemetry().span(f"bench/{name}")
+        self._stack = contextlib.ExitStack()
 
     def __enter__(self):
-        self._span.__enter__()
+        self._stack.enter_context(get_telemetry().span(f"bench/{self.name}"))
         self._t0 = time.perf_counter()
         return self
 
@@ -276,7 +278,7 @@ class _Phase:
                 torch.cuda.synchronize(self.dev)
             self.duration_s = time.perf_counter() - self._t0
         finally:
-            self._span.__exit__(*exc)
+            self._stack.__exit__(*exc)
 
 
 def _phase_s(**phases: _Phase) -> dict:
@@ -2130,7 +2132,7 @@ def bench_gang_obs(n_ranks: int = 3) -> dict:
             with tempfile.TemporaryDirectory() as td:
                 path = os.path.join(td, "host0.pt.trace.json")
                 with open(path, "w") as f:
-                    json.dump(_synthetic_rank_trace(0, steps=2), f)
+                    json.dump(_synthetic_rank_trace(0, steps=2), f)  # lint-obs: ok (a synthetic profiler capture written as the analyzer's input, not telemetry)
                 # Seeded truncation: 4 steps annotated on the bus, 2
                 # ranges in the capture.
                 analyze_and_publish(td, telemetry=trunc_tele,
@@ -2278,8 +2280,8 @@ def bench_elastic_ctl(n_parts: int = 36, part_sleep_s: float = 0.4,
         collector.stop()
         exporter.stop()
         coord.stop()
-    coord_generation = coord.generation
-    coord_world_size = coord.world_size
+    coord_generation = coord.generation  # lint-obs: ok (snapshot property, frozen by stop())
+    coord_world_size = coord.world_size  # lint-obs: ok (snapshot property, frozen by stop())
 
     missing = [p for p in work if not completed(p)]
     if missing or summary["work_pending"]:
@@ -2663,8 +2665,118 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def health_aa(device=None, steps: int = 3, reps: int = 24,
+              block_s: float = 0.05) -> dict:
+    """The health lane's A/A leg on a 768 x 768 matmul step, the step
+    synchronised and then noted, as a trainer that reads its loss each
+    step would: ``reps`` interleaved triples of blocks (off, on and a
+    second off arm, in rotating order) of ``block_s`` seconds and at
+    least ``steps`` steps each. The on arm's one ledger notes every step
+    and is settled after each block (untimed), so no read of one block
+    lands in the next; the steps alternate between two operands (ones,
+    and ones x 1.001) of one shape, so its losses are not a plateau the
+    way one constant would be (the JAX leg's 20-step ledgers never reach
+    the 32-step plateau window). Raises unless the on arm's goodput ``data_wait``
+    is > 0 and the off arms' exactly 0.0, the clean run raises no
+    anomaly, and the **mean** host cost of a note (every ``note_step``
+    timed, their sum over the on arm's steps) is < 1% of the off arm's
+    mean step wall. Beside it: the notes' median and min, the A/A wall
+    delta (the mean over triples of the on block's mean step minus the
+    same triple's off block's, over the off arm's mean) and the off/off
+    delta measured the same way, the measurement's own floor."""
+    import statistics
+
+    from sparktorch_tpu_torch.obs import Telemetry
+    from sparktorch_tpu_torch.obs import goodput as _goodput
+    from sparktorch_tpu_torch.obs import health as _health
+
+    dev = _resolve_device(device)
+    m = 768
+    aa_step = _aa_matmul_step(m)
+    xms = [torch.ones((m, m), dtype=torch.float32, device=dev) * scale
+           for scale in (1.0, 1.001)]
+    aa_step(xms[0])
+    _sync(dev)
+    arms = ("off", "on", "off2")
+    teles = {a: Telemetry(run_id=f"bench_health_aa_{a}") for a in arms}
+    goodputs = {a: _goodput.GoodputLedger(telemetry=teles[a], rank="aa")
+                for a in arms}
+    hl = _health.TrainHealthLedger(rank="aa", telemetry=teles["on"])
+    means: Dict[str, List[float]] = {a: [] for a in arms}
+    notes: List[float] = []
+
+    def block(arm: str) -> None:
+        walls = []
+        with goodputs[arm].activate():
+            t_end = time.perf_counter() + block_s
+            while True:
+                t0 = time.perf_counter()
+                _o, mean = aa_step(xms[len(walls) % 2])
+                _sync(dev)
+                if arm == "on":
+                    t1 = time.perf_counter()
+                    hl.note_step(device={"loss": mean})
+                    notes.append(time.perf_counter() - t1)
+                t2 = time.perf_counter()
+                walls.append(t2 - t0)
+                if len(walls) >= steps and t2 >= t_end:
+                    break
+            if arm == "on":
+                hl.snapshot()
+        means[arm].append(sum(walls) / len(walls))
+
+    gc.collect()
+    for r in range(reps):
+        for arm in arms[r % 3:] + arms[:r % 3]:
+            block(arm)
+    with goodputs["on"].activate():
+        hl.flush()
+    dw = {a: float(teles[a].get_section(_goodput.SECTION)["buckets"]
+                   ["data_wait"]) for a in arms}
+    if dw["off"] != 0.0 or dw["off2"] != 0.0:
+        raise AssertionError(
+            f"health-OFF arms show data_wait {dw}: the A/A delta is "
+            "meaningless")
+    if dw["on"] <= 0.0:
+        raise AssertionError(
+            f"health-ON arm left data_wait empty ({dw}): the delayed fetch "
+            "is not attributed")
+    n_anom = len(hl.snapshot()["anomalies"])
+    if n_anom:
+        raise AssertionError(
+            f"clean health-ON arm raised {n_anom} anomalies: false positives")
+    w_off = statistics.fmean(means["off"])
+
+    def delta(arm: str) -> float:
+        return statistics.fmean(
+            b - a for a, b in zip(means["off"], means[arm])) / max(w_off, 1e-9)
+
+    note_mean = sum(notes) / len(notes)
+    note_frac = note_mean / max(w_off, 1e-9)
+    if note_frac >= 0.01:
+        raise AssertionError(
+            f"health lane's host cost is {100 * note_frac:.2f}% of the "
+            f"{w_off * 1e3:.3f}ms step wall (bound: 1%): note_step's mean "
+            f"{note_mean * 1e6:.2f}us over {len(notes)} steps (median "
+            f"{statistics.median(notes) * 1e6:.2f}us); A/A wall delta "
+            f"{100 * delta('on'):.2f}%, off/off {100 * delta('off2'):.2f}%")
+    return {
+        "note_frac": note_frac, "aa_frac": delta("on"),
+        "floor_frac": delta("off2"),
+        "note_min_frac": min(notes) / max(w_off, 1e-9),
+        "step_wall_off_s": w_off,
+        "step_wall_on_s": statistics.fmean(means["on"]),
+        "note_mean_us": note_mean * 1e6,
+        "note_median_us": statistics.median(notes) * 1e6,
+        "note_min_us": min(notes) * 1e6, "notes": len(notes),
+        "blocks": reps, "block_s": block_s,
+        "data_wait_on_s": dw["on"], "data_wait_off_s": dw["off"],
+        "clean_anomalies": n_anom, "telemetry": teles["on"]}
+
+
 def bench_health(device=None, poison_step: int = 6, iters: int = 12,
-                 aa_steps: int = 20, aa_reps: int = 3) -> dict:
+                 aa_steps: int = 3, aa_reps: int = 24,
+                 aa_block_s: float = 0.05) -> dict:
     """The JAX bench's model-health gate; raises unless the health
     lane's four claims hold end to end:
 
@@ -2679,9 +2791,10 @@ def bench_health(device=None, poison_step: int = 6, iters: int = 12,
       (``python -m sparktorch_tpu_torch.obs.replay`` exits 0);
     - **the lane is attributed and nearly free**: in interleaved A/A
       runs the health-on arm's goodput ``data_wait`` is > 0 (the delayed
-      fetch) and the off arm's exactly 0.0; the lane costs < 1% of the
-      step wall by the A/A wall delta or the note_step floor; a clean
-      run raises no anomaly and no alert;
+      fetch) and the off arm's exactly 0.0; the lane's mean host cost a
+      step (every ``note_step`` timed) is < 1% of the mean step wall,
+      the A/A wall delta and its off/off floor recorded beside it
+      (:func:`health_aa`); a clean run raises no anomaly and no alert;
     - **the fleet path works**: the rank's section merges into
       ``GET /health`` rank-tagged, renders through ``timeline --health``
       from the collector's sink and from the saved document, shows in
@@ -2720,77 +2833,10 @@ def bench_health(device=None, poison_step: int = 6, iters: int = 12,
     replay_dir = os.path.join(workdir, "replay")
 
     # -- A/A overhead and attribution, on a clean step ------------------
-    # First, in a quiet process: the ledger's per-step cost is fixed (a
-    # queue and one delayed scalar read), quoted against a
-    # training-sized step.
-    m = 768
-    aa_step = _aa_matmul_step(m)
-    xm = torch.ones((m, m), dtype=torch.float32, device=dev)
-    aa_step(xm)
-    _sync(dev)
-
-    def aa_arm(health_on: bool):
-        tele_a = Telemetry(
-            run_id=f"bench_health_aa_{'on' if health_on else 'off'}")
-        led = _goodput.GoodputLedger(telemetry=tele_a, rank="aa")
-        hl_a = (_health.TrainHealthLedger(rank="aa", telemetry=tele_a)
-                if health_on else None)
-        walls, notes = [], []
-        with led.activate():
-            for _ in range(aa_steps):
-                t0 = time.perf_counter()
-                _o, mean = aa_step(xm)
-                _sync(dev)
-                if hl_a is not None:
-                    t1 = time.perf_counter()
-                    hl_a.note_step(device={"loss": mean})
-                    notes.append(time.perf_counter() - t1)
-                walls.append(time.perf_counter() - t0)
-            if hl_a is not None:
-                hl_a.flush()
-        dw = float(tele_a.get_section(_goodput.SECTION)["buckets"]
-                   ["data_wait"])
-        n_anom = (len(hl_a.snapshot()["anomalies"])
-                  if hl_a is not None else 0)
-        return min(walls), dw, n_anom, notes, tele_a
-
-    gc.collect()
-    offs, ons, dw_on, note_walls = [], [], [], []
-    tele_clean = None
-    for _ in range(aa_reps):
-        w, dw, _n, _notes, _t = aa_arm(False)
-        offs.append(w)
-        if dw != 0.0:
-            raise AssertionError(
-                f"health-OFF arm shows data_wait {dw}s: the A/A delta is "
-                "meaningless")
-        w, dw, n_anom, notes, tele_clean = aa_arm(True)
-        ons.append(w)
-        dw_on.append(dw)
-        note_walls += notes
-        if n_anom:
-            raise AssertionError(
-                f"clean health-ON arm raised {n_anom} anomalies: false "
-                "positives")
-    if min(dw_on) <= 0.0:
-        raise AssertionError(
-            f"health-ON arms left data_wait empty ({dw_on}): the delayed "
-            "fetch is not attributed")
-    # Two witnesses of the 1% bound, either passes: the A/A wall delta
-    # (min of reps per arm), and the note_step floor against the step
-    # floor (the ledger's whole synchronous footprint).
-    w_off, w_on = min(offs), min(ons)
-    aa_frac = max(w_on - w_off, 0.0) / max(w_off, 1e-9)
-    note_frac = min(note_walls) / max(w_off, 1e-9)
-    overhead_frac = min(aa_frac, note_frac)
-    if overhead_frac >= 0.01:
-        raise AssertionError(
-            f"health lane overhead is over 1% of the {w_off * 1e3:.3f}ms "
-            f"step wall by both witnesses: A/A wall delta "
-            f"{100 * aa_frac:.2f}% (on {w_on * 1e3:.3f}ms vs off "
-            f"{w_off * 1e3:.3f}ms, min of {aa_reps} interleaved runs) and "
-            f"note_step floor {100 * note_frac:.2f}% "
-            f"({min(note_walls) * 1e6:.1f}us)")
+    # First, in a quiet process: the ledger's per-step cost, quoted
+    # against a training-sized step.
+    aa = health_aa(dev, steps=aa_steps, reps=aa_reps, block_s=aa_block_s)
+    tele_clean = aa.pop("telemetry")
     clean_hist = MetricsHistory(retention=4)
     clean_mgr = AlertManager(clean_hist, rules=_health.health_alert_rules(),
                              telemetry=tele_clean)
@@ -2973,14 +3019,15 @@ def bench_health(device=None, poison_step: int = 6, iters: int = 12,
         "config": "health", "unit": "us (note_step cost)",
         "value": round(note_step_us, 3),
         "note_step_us": round(note_step_us, 3),
-        "overhead_pct_of_step": round(100 * overhead_frac, 4),
-        "overhead_pct_aa_wall": round(100 * aa_frac, 4),
-        "overhead_pct_note_floor": round(100 * note_frac, 4),
-        "step_wall_off_ms": round(w_off * 1e3, 3),
-        "step_wall_on_ms": round(w_on * 1e3, 3),
+        "overhead_pct_of_step": round(100 * aa["note_frac"], 4),
+        "overhead_pct_aa_wall": round(100 * aa["aa_frac"], 4),
+        "overhead_pct_note_floor": round(100 * aa["note_min_frac"], 4),
+        "step_wall_off_ms": round(aa["step_wall_off_s"] * 1e3, 3),
+        "step_wall_on_ms": round(aa["step_wall_on_s"] * 1e3, 3),
         "detect": {
             "step": poison_step, "akind": first["akind"],
             "detect_lag": first["detect_lag"],
+            "ingest_lag": first["ingest_lag"],
             "fetch_lag": cfg.fetch_lag,
             "anomalies_total": sum(doc["counts"].values()),
         },
@@ -2990,14 +3037,24 @@ def bench_health(device=None, poison_step: int = 6, iters: int = 12,
             "bitwise": True,
         },
         "aa": {
-            "data_wait_on_s": round(min(dw_on), 6),
-            "data_wait_off_s": 0.0,
-            "clean_anomalies": 0,
+            "data_wait_on_s": round(aa["data_wait_on_s"], 6),
+            "data_wait_off_s": aa["data_wait_off_s"],
+            "clean_anomalies": aa["clean_anomalies"],
+            "note_mean_us": round(aa["note_mean_us"], 3),
+            "note_median_us": round(aa["note_median_us"], 3),
+            "note_min_us": round(aa["note_min_us"], 3),
+            "off_off_pct": round(100 * aa["floor_frac"], 4),
+            "notes": aa["notes"], "blocks": aa["blocks"],
         },
         "alerts": {"episodes": 1, "clean_episodes": 0},
         "health_drift": _no_prior_drift(0.5),
         "wall_s": round(time.perf_counter() - t_start, 2),
     }
+
+
+# The skew fence's wire: seconds both ranks spend in each step's
+# exposed_comm after they meet, as both spend a collective's transfer.
+SKEW_WIRE_S = 0.02
 
 
 def bench_skew(device=None, steps: int = 8, delay_s: float = 0.3,
@@ -3015,7 +3072,12 @@ def bench_skew(device=None, steps: int = 8, delay_s: float = 0.3,
       latches one episode over 4 collector sweeps and arrives at an
       ``ElasticController`` as a scale signal;
     - **the A/A leg stays quiet**: the same fence with no chaos shows
-      ~0 straggler wait and no alert;
+      ~0 straggler wait and no alert. Each step's fence carries
+      SKEW_WIRE_S of transfer after the ranks meet (both spend it, as
+      both spend a collective's wire time), so the A/A straggler
+      fraction is host jitter over a fence with a wire, not jitter over
+      a bare barrier's microseconds (which any load pushed over the
+      alert's 0.5);
     - **stamping is nearly free**: the per-step stamp costs < 1% of a
       training-sized step (two 768 x 768 matmul pairs on ``device``);
     - **the render path works**: ``timeline --skew`` from the sink and
@@ -3065,6 +3127,7 @@ def bench_skew(device=None, steps: int = 8, delay_s: float = 0.3,
                     with led.step_span(step=i):
                         with led.span("exposed_comm"):
                             barrier.wait()
+                            time.sleep(SKEW_WIRE_S)
                 led.close()
             except Exception as e:  # noqa: BLE001 - surfaced below
                 errs.append(e)
@@ -3222,7 +3285,9 @@ def bench_skew(device=None, steps: int = 8, delay_s: float = 0.3,
                         "cause": lag.get("cause")},
         },
         "aa": {"straggler_wait_s": round(aa_wait, 6), "episodes": 0,
-               "scale_signals": 0},
+               "scale_signals": 0,
+               "straggler_fraction": aa_run.get("straggler_fraction"),
+               "wire_s": SKEW_WIRE_S},
         "alerts": {"episodes": 1, "scale_signals": len(chaos_signals)},
         "skew_drift": _no_prior_drift(0.5),
         "wall_s": round(time.perf_counter() - t_start, 2),
@@ -3240,13 +3305,20 @@ def _profile_hot_planted(stop_t: float) -> float:
     return acc
 
 
-def bench_profile(device=None, n_steps: int = 30, reps: int = 3,
+def bench_profile(device=None, block_s: float = 0.01, reps: int = 96,
                   hot_s: float = 1.2) -> dict:
     """The JAX bench's stack-profiler gate; raises unless
 
     - **it is nearly free**: with the sampler at its default rate, a
       768 x 768 matmul step on ``device`` grows by < 1% against an A/A
-      profiler-off arm (min of interleaved runs);
+      profiler-off arm. The arms run as ``reps`` interleaved triples of
+      blocks of ``block_s`` seconds (at least 3 steps) — off, on, and a
+      second off arm, in rotating order; the sampler starts and stops
+      around each on block. A block's floor is its fastest step, and an
+      arm's cost is the median over the triples of its floor minus the
+      same triple's off floor, over the off arm's median floor. The
+      off/off cost, measured the same way, is the measurement's own
+      floor and is recorded beside the result;
     - **attribution is real**: a busy loop planted inside a ``compute``
       span is the compute bucket's top self-time frame with >= 80% of
       its samples;
@@ -3261,6 +3333,7 @@ def bench_profile(device=None, n_steps: int = 30, reps: int = 3,
     import io
     import os
     import shutil
+    import statistics
     import tempfile
     import threading
 
@@ -3275,46 +3348,58 @@ def bench_profile(device=None, n_steps: int = 30, reps: int = 3,
     t_start = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="bench_profile_")
 
-    # -- A/A overhead, profiler off and on, interleaved ------------------
+    # -- A/A overhead: off, on and off again, interleaved ----------------
     m = 768
     xm = torch.ones((m, m), dtype=torch.float32, device=dev)
     xm @ xm
     _sync(dev)
-    tick_costs_us: List[float] = []
+    aa_prof = StackProfiler()
 
-    def arm(profiler_on: bool) -> float:
-        prof = StackProfiler() if profiler_on else None
-        if prof is not None:
-            prof.start()
-        walls = []
+    def block(profiler_on: bool) -> float:
+        if profiler_on:
+            aa_prof.start()
+        walls: List[float] = []
         try:
-            for _ in range(n_steps):
+            t_end = time.perf_counter() + block_s
+            while True:
                 t0 = time.perf_counter()
                 xm @ xm
                 _sync(dev)
-                walls.append(time.perf_counter() - t0)
+                t1 = time.perf_counter()
+                walls.append(t1 - t0)
+                if len(walls) >= 3 and t1 >= t_end:
+                    break
         finally:
-            if prof is not None:
-                doc = prof.stop()
-                if doc["ticks"] <= 0:
-                    raise AssertionError(
-                        "profiler-on arm took no sample ticks")
-                tick_costs_us.append(float(doc["sample_tick_us"]))
+            if profiler_on:
+                aa_prof.stop()
         return min(walls)
 
-    offs, ons = [], []
-    for _ in range(reps):
-        offs.append(arm(False))
-        ons.append(arm(True))
-    w_off, w_on = min(offs), min(ons)
-    overhead_frac = max(w_on - w_off, 0.0) / max(w_off, 1e-9)
+    arms = ("off", "on", "off2")
+    floors: Dict[str, List[float]] = {a: [] for a in arms}
+    for r in range(reps):
+        for a in arms[r % 3:] + arms[:r % 3]:
+            floors[a].append(block(a == "on"))
+    aa_doc = aa_prof.stop()
+    if aa_doc["ticks"] <= 0:
+        raise AssertionError("profiler-on arm took no sample ticks")
+    sample_tick_us = float(aa_doc["sample_tick_us"])
+    w_off = statistics.median(floors["off"])
+    w_on = statistics.median(floors["on"])
+
+    def cost(arm_name: str) -> float:
+        return statistics.median(
+            b - a for a, b in zip(floors["off"], floors[arm_name])
+        ) / max(w_off, 1e-9)
+
+    overhead_frac = max(cost("on"), 0.0)
+    aa_floor_frac = cost("off2")
     if overhead_frac >= 0.01:
         raise AssertionError(
             f"sampler overhead is {100 * overhead_frac:.2f}% of the "
             f"{w_off * 1e3:.3f}ms step wall (bound: 1%; on "
-            f"{w_on * 1e3:.3f}ms vs off {w_off * 1e3:.3f}ms, min of {reps} "
-            "interleaved runs)")
-    sample_tick_us = min(tick_costs_us)
+            f"{w_on * 1e3:.3f}ms vs off {w_off * 1e3:.3f}ms, median of "
+            f"{reps} interleaved {1e3 * block_s:g}ms block floors; the "
+            f"off/off floor read {100 * aa_floor_frac:.2f}%)")
 
     # -- a planted hot function owns its bucket --------------------------
     tele0 = Telemetry(run_id="bench_profile_r0")
@@ -3405,6 +3490,7 @@ def bench_profile(device=None, n_steps: int = 30, reps: int = 3,
         "value": round(sample_tick_us, 3),
         "sample_tick_us": round(sample_tick_us, 3),
         "overhead_pct_of_step": round(100 * overhead_frac, 4),
+        "aa_floor_pct": round(100 * aa_floor_frac, 4),
         "step_wall_off_ms": round(w_off * 1e3, 3),
         "step_wall_on_ms": round(w_on * 1e3, 3),
         "hz": float(doc0["hz"]),

@@ -33,25 +33,30 @@ def _library_path(src: Path) -> Path:
 
 def load_library(name: str) -> ctypes.CDLL:
     """``native/<name>.cpp`` as a loaded library, compiled first when no
-    build of this source exists."""
+    build of this source exists. The compiler runs outside the lock, so
+    a load of a library already built never waits for another one's
+    build; each build writes a file of its own and renames it into
+    place, so concurrent builds of one source leave one whole file."""
     with _LOCK:
         if name in _CACHE:
             return _CACHE[name]
-        src = NATIVE_DIR / f"{name}.cpp"
-        if not src.exists():
-            raise FileNotFoundError(f"no native source {src}")
-        out = _library_path(src)
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
-            cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
-                   str(src)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"{' '.join(cmd)}\n(exit {proc.returncode})"
-                                   f"\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        _CACHE[name] = lib
-        return lib
+    src = NATIVE_DIR / f"{name}.cpp"
+    if not src.exists():
+        raise FileNotFoundError(f"no native source {src}")
+    out = _library_path(src)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.parent / (f"{out.name}.{os.getpid()}."
+                            f"{threading.get_ident()}.tmp")
+        cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
+               str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{' '.join(cmd)}\n(exit {proc.returncode})"
+                               f"\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    with _LOCK:
+        if name not in _CACHE:
+            _CACHE[name] = ctypes.CDLL(str(out))
+        return _CACHE[name]

@@ -499,3 +499,16 @@ def decode_delta(data: Union[bytes, bytearray, memoryview]
     version, tree, vers = _decode_impl(data, WIRE_VERSION_DELTA)
     return version, dict(flatten_tree(tree)), vers
 
+
+
+def tree_nbytes(tree: Any) -> int:
+    """Payload bytes a plain (unquantized) encode of ``tree`` ships: a
+    tensor leaf counts ``numel * element_size`` (no host copy), any
+    other leaf its numpy ``nbytes``."""
+    total = 0
+    for _, a in flatten_tree(tree):
+        if isinstance(a, torch.Tensor):
+            total += a.numel() * a.element_size()
+        else:
+            total += np.asarray(a).nbytes
+    return total

@@ -483,7 +483,7 @@ class GoodputLedger:
             tele.gauge("goodput.mfu", doc["mfu"], labels=labels)
         if event:
             thief = biggest_thief(doc)
-            tele.event("goodput.ledger", rank=self.rank,
+            tele.event("goodput.ledger", rank=self.rank,  # lint-obs: ok (rank IS this record's identity: per-rank ledger event on the local bus, no collector tag to collide with)
                        wall_s=doc["wall_s"], goodput=doc["goodput"],
                        comm_source=doc["comm_source"],
                        thief=(thief[0] if thief else None),

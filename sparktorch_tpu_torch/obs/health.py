@@ -41,7 +41,13 @@ order, where JAX flattens its pytree in sorted-key order); bfloat16
 leaves travel as int16 bit patterns; :func:`health_leaf_keys` names the
 module's trainable parameters in the order of the step's gradient
 list; the bundle also records the process's deterministic settings
-(:func:`determinism_settings`), which the replay applies.
+(:func:`determinism_settings`), which the replay applies. A note lands
+in an inbox that the ledger settles every READ_BATCH notes (and before
+anything reads it), reading the entries that fell due meanwhile in one
+copy: an anomaly keeps the JAX ledger's ``detect_lag`` (counted from
+the note its entry fell due at) and adds ``ingest_lag``, counted from
+the last note made when it was really ingested (up to READ_BATCH - 1
+notes more; a publish, every ``publish_interval_s``, settles).
 
 Per-rank docs publish under the ``health`` telemetry section (a
 composite ``{"ranks": {rank: doc}}`` so hogwild's many workers share
@@ -54,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import threading
 import weakref
@@ -332,30 +339,55 @@ def apply_determinism_settings(settings: Mapping[str, Any]) -> None:
 
 def _read_device(device: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """Host copies of a step's device values: the card's tensors come
-    back in one read (concatenated as float32 on the card), anything
-    else through numpy. A value that cannot be read becomes NaN."""
+    back in one read (stacked by shape and dtype, concatenated as
+    float32 on the card), anything else through numpy. A value that
+    cannot be read becomes NaN."""
     out: Dict[str, np.ndarray] = {}
-    cuda = {k: v for k, v in device.items()
-            if _is_tensor(v) and v.device.type == "cuda"}
-    if cuda:
+    groups: Dict[Tuple[Tuple[int, ...], Any], List[Any]] = {}
+    for k, v in device.items():
+        if _is_tensor(v) and v.device.type == "cuda":
+            groups.setdefault((tuple(v.shape), v.dtype), []).append(k)
+    if groups:
         import torch
 
-        flat = torch.cat([v.detach().reshape(-1).float()
-                          for v in cuda.values()]).cpu().numpy()
+        flat = [torch.stack([device[k] for k in keys]).detach().reshape(-1)
+                .float() for keys in groups.values()]
+        flat = (flat[0] if len(flat) == 1 else torch.cat(flat)).cpu().numpy()
         off = 0
-        for k, v in cuda.items():
-            n = v.numel()
-            out[k] = flat[off:off + n].reshape(tuple(v.shape))
-            off += n
+        for (shape, _dtype), keys in groups.items():
+            n = int(np.prod(shape, dtype=np.int64))
+            for k in keys:
+                out[k] = flat[off:off + n].reshape(shape)
+                off += n
     for k, v in device.items():
         if k in out:
             continue
         try:
-            out[k] = _leaf_to_host(v).astype(np.float32, copy=False) \
+            # By value (bfloat16 too), and a copy: a host tensor's numpy
+            # view shares the live tensor's memory.
+            out[k] = v.detach().float().cpu().numpy().copy() \
                 if _is_tensor(v) else np.asarray(v)
         except Exception:  # noqa: BLE001 — a poisoned value
             out[k] = np.asarray(np.nan)
     return out
+
+
+def _read_many(devices: Sequence[Mapping[str, Any]]
+               ) -> List[Dict[str, np.ndarray]]:
+    """:func:`_read_device` over several entries' device values at once:
+    the card's tensors of all of them come back in one copy."""
+    merged = {(j, k): v for j, device in enumerate(devices)
+              for k, v in device.items()}
+    out: List[Dict[str, np.ndarray]] = [{} for _ in devices]
+    for (j, k), v in _read_device(merged).items():
+        out[j][k] = v
+    return out
+
+
+#: Notes a ledger's inbox collects before it is settled: the entries
+#: that fell due meanwhile are read back in one copy (one wait for the
+#: card, one goodput span) and ingested in note order.
+READ_BATCH = 8
 
 
 class TrainHealthLedger:
@@ -398,7 +430,16 @@ class TrainHealthLedger:
         self._anchors: deque = deque(maxlen=4)
         self._bundles: List[str] = []
         self._last_publish = 0.0
+        # note_step's throttle: the wall time of the next due publish.
+        self._publish_at = 0.0 if self.telemetry is not None else math.inf
         self._started_ts = wall_ts()
+        # Notes land in _inbox and are settled every READ_BATCH notes
+        # and before anything reads the ledger. _noted is the note an
+        # entry fell due at, which is what an anomaly's detect_lag is
+        # measured from (its ingest_lag, from the notes made when it is
+        # really ingested: _noted_now).
+        self._noted = -1
+        self._inbox: deque = deque()
         with _REG_LOCK:
             _REGISTRY[(id(self.telemetry), str(rank))] = self
 
@@ -413,16 +454,22 @@ class TrainHealthLedger:
         ``host`` values are already-synced floats/rows the
         trainer fetched anyway (loss it logs, etc.). Never forces a
         sync for the steps being noted; ingest of queued entries only
-        happens once they are ``fetch_lag`` notes old."""
-        count = max(1, int(count))
-        with self._lock:
-            start = self._next_step if step is None else int(step)
-            self._next_step = start + count
-            self._last_note_step = self._next_step - 1
-            self._queue.append((start, count, dict(device or {}),
-                                dict(host or {})))
-            self._drain_locked(final=False)
-        self.publish()
+        happens once they are ``fetch_lag`` notes old.
+
+        The note itself only lands in an inbox; the ledger settles the
+        inbox (numbers the steps, queues and ingests what fell due, as
+        if each note had done it) every READ_BATCH notes and before
+        anything reads it (``snapshot``, ``publish``, ``flush``,
+        ``reset``, a replay anchor)."""
+        inbox = self._inbox
+        inbox.append((step, count, dict(device) if device else {},
+                      dict(host) if host else {}))
+        if len(inbox) >= READ_BATCH:
+            with self._lock:
+                self._settle_locked()
+        # The publish throttle, inline: most notes end here.
+        if wall_ts() >= self._publish_at:
+            self.publish()
 
     def note_replay_anchor(self, state: Any, batch: Any,
                            rng: Any = None) -> None:
@@ -438,6 +485,9 @@ class TrainHealthLedger:
         cfg = self.config
         if not cfg.replay_dir:
             return
+        # Every earlier note ingests before the anchor list changes, as
+        # when each note drained inline.
+        self._settle()
         with self._lock:
             step = self._next_step
             last = self._anchors[-1] if self._anchors else None
@@ -463,7 +513,10 @@ class TrainHealthLedger:
         coming, so the lag contract no longer applies) and force a
         publish so the section carries the final step."""
         with self._lock:
-            self._drain_locked(final=True)
+            self._settle_locked()
+            due: List[tuple] = []
+            self._drain_locked(final=True, into=due)
+            self._ingest_due(due)
         self.publish(force=True)
 
     def reset(self) -> None:
@@ -471,6 +524,7 @@ class TrainHealthLedger:
         elastic resize re-bases the EWMAs and the plateau ring so the
         first post-restart losses are not judged against a stale
         baseline (the classic restart false-spike)."""
+        self._settle()
         with self._lock:
             self._ewma_loss = None
             self._ewma_gnorm = None
@@ -480,23 +534,61 @@ class TrainHealthLedger:
 
     # -- delayed fetch -------------------------------------------------
 
-    def _drain_locked(self, final: bool) -> None:
+    def _settle_locked(self) -> None:
+        """Take the inbox's notes in order, each as ``note_step`` once
+        handled it (number its steps, queue it, take what fell due),
+        then read what fell due in one copy and ingest it in order."""
+        inbox = self._inbox
+        due: List[tuple] = []
+        while inbox:
+            step, count, device, host = inbox.popleft()
+            count = max(1, int(count))
+            start = self._next_step if step is None else int(step)
+            self._next_step = start + count
+            self._last_note_step = self._next_step - 1
+            self._queue.append((start, count, device, host))
+            self._drain_locked(final=False, into=due)
+        self._ingest_due(due)
+
+    def _settle(self) -> None:
+        """Settle the inbox: afterwards the ledger holds every note as
+        if each had drained inline."""
+        with self._lock:
+            self._settle_locked()
+
+    def _drain_locked(self, final: bool, into: List[tuple]) -> None:
         lag = max(0, self.config.fetch_lag)
         while self._queue:
             start, count, device, host = self._queue[0]
             if not final and self._last_note_step - (start + count - 1) < lag:
                 break
             self._queue.popleft()
-            fetched: Dict[str, np.ndarray] = {}
-            if device:
-                # The one device sync this lane ever does — always K
-                # steps behind dispatch, always attributed.
-                with _goodput.span("data_wait", {"site": GOODPUT_SITE}):
-                    fetched.update(_read_device(device))
+            into.append((start, count, device, host, self._last_note_step))
+
+    def _ingest_due(self, due: Sequence[tuple]) -> None:
+        if not due:
+            return
+        devices = [entry[2] for entry in due]
+        fetched: List[Dict[str, np.ndarray]] = [{} for _ in due]
+        if any(devices):
+            # The one device sync this lane ever does: the entries are
+            # fetch_lag notes old, read back together and attributed.
+            with _goodput.span("data_wait", {"site": GOODPUT_SITE}):
+                fetched = _read_many(devices)
+        for (start, count, _device, host, noted), got in zip(due, fetched):
             for name, val in host.items():
-                fetched.setdefault(name, np.asarray(val))
+                got.setdefault(name, np.asarray(val))
+            self._noted = noted
             for j in range(count):
-                self._ingest_row(start + j, count, j, fetched)
+                self._ingest_row(start + j, count, j, got)
+
+    def _noted_now(self) -> int:
+        """The last step the trainer has noted, the inbox's included."""
+        last = self._last_note_step
+        for step, count, _device, _host in list(self._inbox):
+            count = max(1, int(count))
+            last = last + count if step is None else int(step) + count - 1
+        return last
 
     @staticmethod
     def _row(arr: np.ndarray, count: int, j: int) -> np.ndarray:
@@ -577,11 +669,12 @@ class TrainHealthLedger:
     def _anomaly(self, akind: str, step: int, value: Optional[float],
                  threshold: Optional[float],
                  vals: Mapping[str, Optional[float]]) -> None:
-        lag = max(0, self._last_note_step - step)
+        lag = max(0, self._noted - step)
+        ingest_lag = max(lag, self._noted_now() - step)
         rec = {
             "akind": akind, "step": step, "rank": str(self.rank),
             "value": value, "threshold": threshold, "detect_lag": lag,
-            "ts": wall_ts(),
+            "ingest_lag": ingest_lag, "ts": wall_ts(),
         }
         self._anomalies.append(rec)
         self._counts[akind] = self._counts.get(akind, 0) + 1
@@ -591,7 +684,8 @@ class TrainHealthLedger:
             tele.counter("health.anomalies_total", 1,
                          labels={"akind": akind, "rank": str(self.rank)})
             tele.event("health.anomaly", akind=akind, step=step,
-                       value=value, lag=lag, ledger_rank=str(self.rank))
+                       value=value, lag=lag, ingest_lag=ingest_lag,
+                       ledger_rank=str(self.rank))
         _LOG.warning("health anomaly %s at step %s (rank %s): value=%s",
                      akind, step, self.rank, value)
         if akind in ("nonfinite", "loss_spike"):
@@ -666,6 +760,7 @@ class TrainHealthLedger:
     def snapshot(self) -> Dict[str, Any]:
         """This rank's health doc (the unit :func:`merge_sections`
         merges). Cheap; safe from any thread."""
+        self._settle()
         with self._lock:
             steps = [s for s, _, _ in self._series]
             cfg = self.config
@@ -729,6 +824,7 @@ class TrainHealthLedger:
                               < self.config.publish_interval_s):
                 return
             self._last_publish = now
+            self._publish_at = now + self.config.publish_interval_s
         doc = self.snapshot()
         labels = {"rank": str(self.rank)}
         last = doc["last"]

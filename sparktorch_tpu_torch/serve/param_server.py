@@ -187,7 +187,7 @@ class ParameterServer:
             raise RuntimeError("parameter server failed") from self._failed
         done = threading.Event() if wait else None
         self._queue.put((grads, done, trace_ctx, wall_ts(),
-                         time.perf_counter()))
+                         time.perf_counter()))  # lint-obs: ok (request-latency histogram clock pair, not a ledger region)
         self.telemetry.counter("param_server.pushes")
         self.telemetry.gauge("param_server.queue_depth", self._queue.qsize())
         if done is not None and not done.wait(timeout):
@@ -211,7 +211,7 @@ class ParameterServer:
             except queue.Empty:
                 continue
             try:
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # lint-obs: ok (request-latency histogram clock pair, not a ledger region)
                 # The wait began on a handler thread and ends here: an
                 # after-the-fact record.
                 tracer.record("queue_wait", tctx, enq_ts, t0 - enq_t0,
@@ -219,7 +219,7 @@ class ParameterServer:
                 with tracer.child_span("apply", tctx, kind="server"), \
                         _goodput.span("compute", {"site": "ps_apply"}):
                     version = self._apply(grads)
-                dt = time.perf_counter() - t0
+                dt = time.perf_counter() - t0  # lint-obs: ok (request-latency histogram clock pair, not a ledger region)
                 self.apply_s += dt
                 self._applied += 1
                 self.telemetry.counter("param_server.applies")
@@ -411,7 +411,7 @@ class ParamServerHttp:
             tele.counter("param_server.wire_bytes_total", nbytes,
                          labels=labels)
             tele.observe("param_server.wire_latency_s",
-                         time.perf_counter() - t0, labels=hist_labels)
+                         time.perf_counter() - t0, labels=hist_labels)  # lint-obs: ok (request-latency histogram clock pair, not a ledger region)
 
         def fire_shard_chaos(handler, route: str) -> bool:
             """The fleet's ``fleet.shard`` site: a straggler's delay, or
@@ -498,7 +498,7 @@ class ParamServerHttp:
                              labels={"route": route})
                 if route == "/delta.bin" and hasattr(ps, "render_delta"):
                     with self._serve_span(route, self._trace_ctx()) as ssp:
-                        t0 = time.perf_counter()
+                        t0 = time.perf_counter()  # lint-obs: ok (request-latency histogram clock pair, not a ledger region)
                         have = int(self.headers.get("X-Have-Version", "-1"))
                         quant = self.headers.get("X-Pull-Quant") or None
                         try:
@@ -544,7 +544,7 @@ class ParamServerHttp:
                     self._send(404)
 
             def _serve_parameters(self, route: str, ssp) -> None:
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # lint-obs: ok (request-latency histogram clock pair, not a ledger region)
                 have = int(self.headers.get("X-Have-Version", "-1"))
                 binary = route.endswith(".bin")
                 with tracer.child_span("render", ssp.ctx, kind="server"):
@@ -568,7 +568,7 @@ class ParamServerHttp:
 
             def _serve_update(self, route: str, raw: bytes, binary: bool,
                               ssp) -> None:
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # lint-obs: ok (request-latency histogram clock pair, not a ledger region)
                 try:
                     with tracer.child_span("decode", ssp.ctx, kind="server"):
                         grads = (binwire.decode(raw)[1] if binary

@@ -136,24 +136,24 @@ class LocalTransport:
         self.stats = new_phase_stats()
 
     def pull(self, have_version: int):
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint-obs: ok (phase stats pair)
         snap = self.server.get_parameters(have_version)
         st = self.stats
-        st["pull_s"] += time.perf_counter() - t0
+        st["pull_s"] += time.perf_counter() - t0  # lint-obs: ok (phase stats pair)
         st["pulls"] += 1
         st["pull_fresh"] += snap is not None
         return snap
 
     def push(self, grads) -> None:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint-obs: ok (phase stats pair)
         self.server.push_gradients(grads)
-        self.stats["push_wire_s"] += time.perf_counter() - t0
+        self.stats["push_wire_s"] += time.perf_counter() - t0  # lint-obs: ok (phase stats pair)
         self.stats["pushes"] += 1
 
     def post_loss(self, loss: float) -> bool:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint-obs: ok (phase stats pair)
         out = self.server.post_loss(loss)
-        self.stats["poll_s"] += time.perf_counter() - t0
+        self.stats["poll_s"] += time.perf_counter() - t0  # lint-obs: ok (phase stats pair)
         return out
 
     def alive(self) -> bool:
@@ -178,20 +178,20 @@ class HttpTransport:
         if retry_on_timeout:
             retriable = retriable + (TimeoutError,)
         try:
-            return urllib.request.urlopen(req, timeout=timeout)
+            return urllib.request.urlopen(req, timeout=timeout)  # lint-obs: ok (dill data wire)
         except retriable:
-            return urllib.request.urlopen(req, timeout=timeout)
+            return urllib.request.urlopen(req, timeout=timeout)  # lint-obs: ok (dill data wire)
 
     def pull(self, have_version: int):
         st = self.stats
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint-obs: ok (phase stats pair)
         req = urllib.request.Request(
             self.url + "/parameters",
             headers={"X-Have-Version": str(have_version)})
         with self._request(req, timeout=_HTTP_PULL_TIMEOUT,
                            retry_on_timeout=True) as resp:
             body = resp.read() if resp.status != 204 else None
-        st["pull_s"] += time.perf_counter() - t0
+        st["pull_s"] += time.perf_counter() - t0  # lint-obs: ok (phase stats pair)
         st["pulls"] += 1
         if body is None:
             return None
@@ -201,30 +201,30 @@ class HttpTransport:
 
     def push(self, grads) -> None:
         st = self.stats
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint-obs: ok (phase stats pair)
         if self.compress:
             grads = {k: (v.to(torch.bfloat16) if v.is_floating_point()
                          else v) for k, v in grads.items()}
         payload = dill.dumps(tree_to_host(grads))
-        t1 = time.perf_counter()
+        t1 = time.perf_counter()  # lint-obs: ok (phase stats pair)
         st["push_materialize_s"] += t1 - t0
         req = urllib.request.Request(self.url + "/update", data=payload,
                                      method="POST")
         with self._request(req) as resp:
             if resp.status != 200:
                 raise RuntimeError(f"/update failed: {resp.status}")
-        st["push_wire_s"] += time.perf_counter() - t1
+        st["push_wire_s"] += time.perf_counter() - t1  # lint-obs: ok (phase stats pair)
         st["push_bytes"] += len(payload)
         st["pushes"] += 1
 
     def post_loss(self, loss: float) -> bool:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint-obs: ok (phase stats pair)
         req = urllib.request.Request(self.url + "/losses",
                                      data=dill.dumps(float(loss)),
                                      method="POST")
         with self._request(req) as resp:
             out = bool(dill.loads(resp.read())["stop"])
-        self.stats["poll_s"] += time.perf_counter() - t0
+        self.stats["poll_s"] += time.perf_counter() - t0  # lint-obs: ok (phase stats pair)
         return out
 
     def alive(self) -> bool:
@@ -353,7 +353,7 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
         window_k = push_every if push_every and push_every > 1 else 1
         it = 0
         t_place = t_dispatch = 0.0
-        t_loop0 = time.perf_counter()
+        t_loop0 = time.perf_counter()  # lint-obs: ok (loop-wall clock for the phase budget)
         while it < iters:
             if cancel is not None and cancel.is_set():
                 from sparktorch_tpu_torch.ft.supervisor import WorkerPreempted
@@ -407,7 +407,7 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
             tele.counter("hogwild.iters", k, labels=labels)
             tele.counter("hogwild.pushes", labels=labels)
             tele.gauge("hogwild.pulled_version", have_version, labels=labels)
-            pending.append((it, k, have_version, losses, time.perf_counter()))
+            pending.append((it, k, have_version, losses, time.perf_counter()))  # lint-obs: ok (throughput timestamp)
             if hl is not None:
                 hl.note_step(step=it, count=k, device={"loss": losses})
             it += k
@@ -421,27 +421,27 @@ def _worker_loop(worker_id: int, transport, module: torch.nn.Module,
                           else losses[-1])
                 if transport.post_loss(float(signal)):
                     break
-        t_drain0 = time.perf_counter()
+        t_drain0 = time.perf_counter()  # lint-obs: ok (phase stats pair, ledger-fed below)
         done = []
         for start, k, version, losses, ts in pending:
-            for j, value in enumerate(losses.cpu().tolist()):
+            for j, value in enumerate(losses.cpu().tolist()):  # lint-obs: ok (the end-of-loop drain: its seconds feed the ledger as compute below)
                 done.append({"worker": worker_id, "iter": start + j,
                              "loss": value, "version": version, "t": ts})
         if done:
             # When the last loss reached the host: the end of the
             # worker's compute, for throughput.
-            done[-1]["t_done"] = time.perf_counter()
+            done[-1]["t_done"] = time.perf_counter()  # lint-obs: ok (throughput timestamp)
         records.extend(done)
         # The drain is where the windows' device compute lands.
-        _goodput.add("compute", time.perf_counter() - t_drain0)
+        _goodput.add("compute", time.perf_counter() - t_drain0)  # lint-obs: ok (phase stats pair, feeds the ledger)
         if hl is not None:
             hl.flush()
         if phase_out is not None:
             st = dict(transport.stats)
             st.update(worker=worker_id, pull_place_s=t_place,
                       dispatch_s=t_dispatch,
-                      drain_s=time.perf_counter() - t_drain0,
-                      loop_s=time.perf_counter() - t_loop0, iters=it)
+                      drain_s=time.perf_counter() - t_drain0,  # lint-obs: ok (phase stats pair)
+                      loop_s=time.perf_counter() - t_loop0, iters=it)  # lint-obs: ok (phase stats pair)
             phase_out.append(st)
             if phase_histograms:
                 # The round's phase budget on the bus, beside the
@@ -508,7 +508,7 @@ def final_result(server: ParameterServer, spec: ModelSpec,
     order, and the spec with an eager module made weight-free."""
     params, model_state = server.final_state()
     state = {**params, **model_state}
-    state = {k: state[k].detach().cpu() for k in template.state_dict()}
+    state = {k: state[k].detach().cpu() for k in template.state_dict()}  # lint-obs: ok (end-of-run)
     if spec.module is not None:
         spec = dataclasses.replace(spec, module=meta_copy(template))
     return spec, state
@@ -691,7 +691,7 @@ def train_async(
         ambient = _goodput.active()
         if ambient is not None:
             ambient.lanes = max(ambient.lanes, n_workers)
-        x, y, w = (a.numpy() for a in train_batch)
+        x, y, w = (a.numpy() for a in train_batch)  # lint-obs: ok (host tensors from handle_features, no device involved)
         shuffle_rng = np.random.default_rng(seed + 1)
         # Exited in the outer finally, so a failed round still writes
         # its trace.
@@ -706,7 +706,7 @@ def train_async(
             parts = zip(np.array_split(x, n_workers),
                         np.array_split(y, n_workers),
                         np.array_split(w, n_workers))
-            t_round0 = time.perf_counter()
+            t_round0 = time.perf_counter()  # lint-obs: ok (round-wall clock)
             worker_args = []
             for i, (xs, ys, ws) in enumerate(parts):
                 shard = DataBatch(torch.from_numpy(xs), torch.from_numpy(ys),
@@ -731,7 +731,7 @@ def train_async(
                     t.start()
                 for t in threads:
                     t.join()
-            tele.observe("hogwild.round_s", time.perf_counter() - t_round0)
+            tele.observe("hogwild.round_s", time.perf_counter() - t_round0)  # lint-obs: ok (round-wall pair)
             tele.counter("hogwild.rounds")
             if errors:
                 raise RuntimeError("hogwild worker failed") from errors[0]

@@ -234,7 +234,7 @@ def _build_trainer(torch_obj, spec: ModelSpec, dev: torch.device):
 
 def _result(module: torch.nn.Module, spec: ModelSpec,
             recorder: MetricsRecorder) -> TrainResult:
-    params = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    params = {k: v.detach().cpu() for k, v in module.state_dict().items()}  # lint-obs: ok (end-of-run)
     if spec.module is not None:
         spec = dataclasses.replace(spec, module=meta_copy(module))
     return TrainResult(params=params, metrics=recorder.records, spec=spec,
@@ -601,7 +601,7 @@ def _gather_shape_vectors(vec: np.ndarray, mesh: Mesh) -> np.ndarray:
     mine = torch.from_numpy(vec).to(on)
     out = [torch.empty_like(mine) for _ in range(mesh.dp)]
     dist.all_gather(out, mine, group=mesh.group)
-    return torch.stack(out).cpu().numpy()
+    return torch.stack(out).cpu().numpy()  # lint-obs: ok (one set-up gather of the batch shapes, before any step)
 
 
 def train_distributed_multihost(
@@ -695,9 +695,9 @@ class _ChunkFeeder:
             return DataBatch(*(torch.from_numpy(b) for b in bufs)), None
         b, self.turn = self.turn, self.turn ^ 1
         if self.copied[b] is not None:
-            self.copied[b].synchronize()
+            self.copied[b].synchronize()  # lint-obs: ok (staging-buffer reuse guard; every put runs under a data_wait span)
         host = self.staging[b]
-        self._fill([t.numpy() for t in host], idx)
+        self._fill([t.numpy() for t in host], idx)  # lint-obs: ok (pinned host staging buffers, no device involved)
         with torch.cuda.stream(self.stream):
             batch = DataBatch(*(t.to(self.device, non_blocking=True)
                                 for t in host))
@@ -765,7 +765,7 @@ def train_distributed_streaming(
     if isinstance(data, tuple) and len(data) == 2 and labels is None:
         data, labels = data
     train_all, _ = handle_features(data, labels, 0.0, seed)
-    arrays = [t.numpy() for t in train_all]
+    arrays = [t.numpy() for t in train_all]  # lint-obs: ok (host tensors from handle_features, no device involved)
     n = arrays[0].shape[0]
     if spec.input_shape is None:
         spec.input_shape = tuple(arrays[0].shape[1:])

@@ -329,4 +329,6 @@ def test_obs_record_keys_are_the_jax_records(config, path):
     newest = [r for r in recs if r.get("config") == config][-1]
     jax_keys, omitted, added = bench.RECORD_KEYS[config]
     assert set(newest) - {"ts"} == jax_keys
-    assert omitted == added == set()
+    # The port's one addition: profile's A/A records its off/off floor.
+    assert omitted == set()
+    assert added == ({"aa_floor_pct"} if config == "profile" else set())

@@ -149,3 +149,42 @@ def test_int8_quantization_on_the_card_is_the_hosts_byte_for_byte(card):
             assert residual.is_cuda
             assert residual.cpu().numpy().tobytes() == host_res[i].tobytes()
             card_res[i] = residual
+
+
+@pytest.mark.cuda
+def test_card_values_read_in_batches_equal_host_values(card):
+    """A ledger fed 0-d card tensors (read back READ_BATCH notes at a
+    time, in one copy) ends with the same doc as one fed the same
+    values on the host, the NaN step and its lags included."""
+    from sparktorch_tpu_torch.obs import health
+    from sparktorch_tpu_torch.obs.telemetry import Telemetry
+
+    def strip(doc):
+        if isinstance(doc, dict):
+            return {k: strip(v) for k, v in doc.items()
+                    if k not in ("ts", "started_ts")}
+        if isinstance(doc, list):
+            return [strip(v) for v in doc]
+        if isinstance(doc, float) and doc != doc:
+            return "nan"
+        return doc
+
+    losses = [2.0 - 0.01 * i for i in range(40)]
+    losses[12] = float("nan")
+    losses[20] = 50.0
+    docs = []
+    for on_card in (False, True):
+        led = health.TrainHealthLedger(
+            rank="r", telemetry=Telemetry(run_id="batches"),
+            config=health.HealthConfig(publish_interval_s=1e9))
+        for loss in losses:
+            v = torch.tensor(loss, device=card if on_card else "cpu")
+            leaf = torch.arange(3.0, device=v.device) + v
+            led.note_step(device={"loss": v, "grad_norm": v * 0 + 1.0,
+                                  "finite": torch.isfinite(v).float(),
+                                  "leaf_norms": leaf.bfloat16()})
+        led.flush()
+        docs.append(strip(led.snapshot()))
+    assert docs[0] == docs[1]
+    assert [a["akind"] for a in docs[1]["anomalies"]][:2] == [
+        "nonfinite", "loss_spike"]

@@ -28,12 +28,17 @@ PKGS = {"port": (health, telemetry, history, alerts),
         "jax": (jax_health, jax_telemetry, jax_history, jax_alerts)}
 
 _CLOCK_KEYS = {"ts", "started_ts"}
+# The port's anomaly also says when the ledger really ingested it
+# (``ingest_lag``): checked on its own, beside the shared fields.
+_PORT_ONLY_KEYS = {"ingest_lag"}
 
 
 def _strip(doc):
-    """``doc`` without its wall-clock fields, at any depth."""
+    """``doc`` without its wall-clock and port-only fields, at any
+    depth."""
     if isinstance(doc, dict):
-        return {k: _strip(v) for k, v in doc.items() if k not in _CLOCK_KEYS}
+        return {k: _strip(v) for k, v in doc.items()
+                if k not in _CLOCK_KEYS | _PORT_ONLY_KEYS}
     if isinstance(doc, list):
         return [_strip(v) for v in doc]
     if isinstance(doc, float) and math.isnan(doc):
@@ -65,7 +70,7 @@ def _schedule():
     return steps
 
 
-def _run_ledger(which, chunk):
+def _run_ledger(which, chunk, publish_interval_s=0.0):
     h, t, hist_mod, al = PKGS[which]
     tele = t.Telemetry(run_id="health")
     events = []
@@ -74,7 +79,7 @@ def _run_ledger(which, chunk):
     manager = al.AlertManager(hist, h.health_alert_rules(), telemetry=tele)
     led = h.TrainHealthLedger(
         rank="w0", telemetry=tele,
-        config=h.HealthConfig(publish_interval_s=0.0),
+        config=h.HealthConfig(publish_interval_s=publish_interval_s),
         leaf_keys=["a.weight", "a.bias", "b.weight", "b.bias"])
     steps = _schedule()
     firings = []
@@ -93,6 +98,11 @@ def _run_ledger(which, chunk):
         if start == 30:
             led.reset()
     led.flush()
+    if which == "port" and publish_interval_s == 0.0:
+        # A publish each note settles the ledger each note: every
+        # anomaly is ingested at the note its entry fell due at.
+        for a in led.snapshot()["anomalies"]:
+            assert a["ingest_lag"] == a["detect_lag"], a
     snap = tele.snapshot()
     gauges = {k: v for k, v in snap["gauges"].items()
               if k.startswith("health.")}
@@ -111,6 +121,87 @@ def test_ledgers_agree_on_the_same_steps(chunk):
     assert {a["akind"] for a in doc["anomalies"]} == {
         "loss_spike", "grad_explosion", "nonfinite", "plateau"}
     assert ("health_nonfinite", "fired") in port[2]
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_batched_settles_read_as_inline(chunk):
+    """With publishes throttled, the inbox settles every READ_BATCH
+    notes and reads what fell due in one copy; the ledger still equals
+    the JAX one, which drains each note: the same anomalies at the same
+    detect lags, gauges, alert firings and section."""
+    port = _run_ledger("port", chunk, publish_interval_s=1e9)
+    assert port == _run_ledger("jax", chunk, publish_interval_s=1e9)
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_ingest_lag_counts_the_inbox(chunk):
+    """An anomaly's ``ingest_lag`` (record and event) says when the
+    ledger really ingested it: at or after its JAX ``detect_lag``, at
+    most READ_BATCH - 1 notes later, and later for some."""
+    tele = telemetry.Telemetry(run_id="lag")
+    events = []
+    tele.add_sink(events.append)
+    led = health.TrainHealthLedger(
+        rank="w0", telemetry=tele,
+        config=health.HealthConfig(publish_interval_s=1e9))
+    steps = _schedule()
+    for start in range(0, len(steps), chunk):
+        part = steps[start:start + chunk]
+        host = {k: np.asarray([p[0][k] for p in part], np.float64)
+                for k in ("loss", "grad_norm")}
+        led.note_step(count=len(part), host=host)
+    led.flush()
+    lags = [(a["detect_lag"], a["ingest_lag"])
+            for a in led.snapshot()["anomalies"]]
+    most = (health.READ_BATCH - 1) * chunk
+    assert lags and all(d <= i <= d + most for d, i in lags), lags
+    assert any(i > d for d, i in lags), lags
+    assert [e["ingest_lag"] for e in events
+            if e.get("kind") == "health.anomaly"] == [i for _, i in lags]
+
+
+def test_an_ingest_error_raises_into_the_trainer(monkeypatch):
+    """An ingest that raises reaches the trainer through the note whose
+    settle ran it (within READ_BATCH notes of falling due), and the
+    ledger goes on afterwards."""
+    ingest = health.TrainHealthLedger._ingest_row
+
+    def planted(self, step, *args):
+        if step == 3:
+            raise ValueError("planted ingest error")
+        return ingest(self, step, *args)
+
+    monkeypatch.setattr(health.TrainHealthLedger, "_ingest_row", planted)
+    led = health.TrainHealthLedger(
+        rank="err", telemetry=telemetry.Telemetry(run_id="err"),
+        config=health.HealthConfig(publish_interval_s=1e9))
+    raised = []
+    for i in range(4 * health.READ_BATCH):
+        try:
+            led.note_step(device={"loss": np.float32(1.0 + i)})
+        except ValueError as exc:
+            raised.append((i, str(exc)))
+    due = 3 + led.config.fetch_lag
+    assert len(raised) == 1 and raised[0][1] == "planted ingest error"
+    assert due <= raised[0][0] < due + health.READ_BATCH, raised
+    led.flush()
+    assert led.snapshot()["last_step"] == 4 * health.READ_BATCH - 1
+
+
+def test_host_tensors_are_read_as_values():
+    """A tensor left on the host is read by value, whatever its dtype: a
+    bfloat16 row of leaf norms gives the leaves their norms (it was read
+    as its int16 bit patterns: 16487.0 for 3.609375)."""
+    led = health.TrainHealthLedger(
+        rank="h", telemetry=telemetry.Telemetry(run_id="host"),
+        leaf_keys=["a", "b", "c"])
+    for _ in range(4):
+        led.note_step(device={
+            "loss": torch.tensor(1.0),
+            "leaf_norms": torch.tensor([1.0, 3.609375, 0.5]).bfloat16()})
+    led.flush()
+    assert led.snapshot()["top_grad_leaves"] == [
+        ["b", 3.609375], ["a", 1.0], ["c", 0.5]]
 
 
 def test_merge_and_sections_agree():

@@ -8,11 +8,13 @@ generators in the two packages, so minibatched runs are checked for
 their semantics only.
 """
 
+import threading
 import time
 
 import jax
 import jax.numpy as jnp
 import ml_dtypes
+
 import numpy as np
 import pytest
 import torch
@@ -549,19 +551,66 @@ def test_worker_chaos_sites_match_jax(config, site):
                                    atol=1e-5, rtol=1e-5)
 
 
-def test_worker_health_ledgers_and_goodput_match_jax():
+def _order_last_pull_before_poisoned_push(monkeypatch, chaos_mod,
+                                          hogwild_mod, last_step):
+    """Worker 0's last pull happens before worker 1's push of
+    ``last_step`` (the poisoned one), whatever the thread timing: the
+    ``worker.step`` chaos site names each worker thread's step, worker
+    0's pull of that step sets an event, and worker 1's push of it
+    waits for the event. Else worker 0 may pull the NaN parameters and
+    flag its own step."""
+    fire = chaos_mod.fire
+    where = threading.local()
+    pulled = threading.Event()
+
+    def fire_and_note(site, **ctx):
+        if site == "worker.step":
+            where.worker, where.step = ctx.get("worker"), ctx.get("step")
+        return fire(site, **ctx)
+
+    transport = hogwild_mod.LocalTransport
+    pull, push = transport.pull, transport.push
+
+    def pull_and_mark(self, have_version):
+        snap = pull(self, have_version)
+        if (getattr(where, "worker", None), getattr(where, "step", None)) \
+                == (0, last_step):
+            pulled.set()
+        return snap
+
+    def push_after_mark(self, grads):
+        if (getattr(where, "worker", None), getattr(where, "step", None)) \
+                == (1, last_step):
+            assert pulled.wait(timeout=60.0), "worker 0 never pulled"
+        return push(self, grads)
+
+    monkeypatch.setattr(chaos_mod, "fire", fire_and_note)
+    monkeypatch.setattr(transport, "pull", pull_and_mark)
+    monkeypatch.setattr(transport, "push", push_after_mark)
+
+
+def test_worker_health_ledgers_and_goodput_match_jax(monkeypatch):
     """One health ledger a worker (rank ``w<id>``) on the shared bus: a
     batch poisoned on worker 1 surfaces as w1's anomaly in both
     packages, w0 clean; under each package's goodput ledger the pulls
     are exposed comm, the loads data waits, the windows steps (one
-    stamp each) and the drains compute."""
+    stamp each) and the drains compute. Worker 0's last pull is
+    ordered before worker 1's poisoned push in both runs."""
     from sparktorch_tpu import ft as jax_ft
     from sparktorch_tpu import obs as jax_obs
+    from sparktorch_tpu.ft import chaos as jax_chaos
     from sparktorch_tpu.obs import goodput as jax_goodput
     from sparktorch_tpu.obs import health as jax_health
+    from sparktorch_tpu.train import hogwild as jax_hogwild
     from sparktorch_tpu_torch import ft, obs
+    from sparktorch_tpu_torch.ft import chaos
     from sparktorch_tpu_torch.obs import goodput, health
+    from sparktorch_tpu_torch.train import hogwild
 
+    for chaos_mod, hogwild_mod in ((jax_chaos, jax_hogwild),
+                                   (chaos, hogwild)):
+        _order_last_pull_before_poisoned_push(monkeypatch, chaos_mod,
+                                              hogwild_mod, last_step=5)
     jax_obj, obj, _ = _pair("mlp")
     x, y = _data((48,), n=48)
     out = {}

@@ -71,14 +71,16 @@ def test_import_pulls_in_no_jax():
     "sparktorch_tpu_torch.obs.health", "sparktorch_tpu_torch.obs.replay",
     "sparktorch_tpu_torch.obs.xprof", "sparktorch_tpu_torch.obs",
     "sparktorch_tpu_torch.obs.rpctrace", "sparktorch_tpu_torch.obs.timeline",
+    "sparktorch_tpu_torch.lint,sparktorch_tpu_torch.lint.cli",
+    "sparktorch_tpu_torch.net.bench_wire",
 ])
 def test_obs_and_tracing_modules_import_no_jax(module):
     # The copies of the JAX package's obs/log.py and obs/prom.py, the
     # torch.profiler port of utils/tracing.py, the sharded fleet's two
     # halves, the control plane, the supervisor and the obs modules they
     # import, each group on its own; the health lane, its replay, the
-    # trace analyzer, the package as a whole, the request tracer and the
-    # renderer.
+    # trace analyzer, the package as a whole, the request tracer, the
+    # renderer, the port's sparklint and the wire benchmark.
     code = ("import sys, importlib\n"
             f"for name in {module.split(',')!r}:\n"
             "    importlib.import_module(name)\n"
