@@ -51,10 +51,11 @@ the CPU path):
    gradient cosine above 0.99 for every parameter;
 7. bench: the configs of ``sparktorch_tpu_torch.bench.CONFIGS`` but
    ``serve_online``, ``hogwild_ps_fleet``, ``rpc_trace`` and the other
-   obs configs (OBS_CONFIGS: CPU tests only) (the port's benchmark entry: BASELINE configs 1–5,
+   obs configs but ``skew`` (OBS_CONFIGS: CPU tests only) (the port's
+   benchmark entry: BASELINE configs 1–5,
    the MNIST-CNN headline, ``hogwild_wire``, the long-context LM, the
-   MoE LM, ``hogwild_chaos`` and ``hogwild_chaos_soak``, whose JAX gates
-   raise inside them; those of BENCH_DEPTH at a cut depth; ``hogwild_wire`` at the
+   MoE LM, ``hogwild_chaos``, ``hogwild_chaos_soak`` and ``skew``, whose
+   JAX gates raise inside them; those of BENCH_DEPTH at a cut depth; ``hogwild_wire`` at the
    JAX depth through the CLI's ``main`` with ``--telemetry-dump``, whose
    dump must hold the ``bench/*`` spans), each record printed on its own
    line and held to the JAX config's record keys less the documented
@@ -121,6 +122,14 @@ the CPU path):
    of a traced fit; (ii) two processes on the card under gloo with CUDA
    tensors, each rank's SGD parameters within 1e-5 × max|param| of the
    world of one's (a correctness check: gloo stages through the host);
+   then the sharded trainer (``train/sharded.py``): the LM of phase 5 at
+   full width, 6 steps of ``create_sharded_state`` ->
+   ``make_sharded_train_step`` on an NCCL world of one with
+   ``MeshConfig(fsdp=1)`` (the token embedding an FSDP2 DTensor shard,
+   every other leaf replicated), its losses within 1e-3 relative of
+   phase 5's ``train_distributed`` losses, phase 5's launches per step,
+   and one profiled step whose ``train_step`` range holds one step's
+   launches; its step time printed beside phase 5's;
 15. spark: BASELINE config 4's topology through the port's localspark
    runtime (``sparktorch_tpu_torch.spark``, executors as processes): (a)
    BERT-base fitted by ``SparkTorch(deployMode="barrier", partitions=1,
@@ -342,7 +351,7 @@ MOE_OPTIMIZERS = [("adafactor", {}), ("lamb", {"lr": 1e-3}),
                   ("lion", {"lr": 1e-4}),
                   ("rmsprop", {"lr": 1e-3, "centered": True})]
 # Keyword arguments of bench configs run at a cut depth (the JAX bench's
-# in parentheses): resnet18_hogwild 2 runs of 64 iterations and 2 slope
+# in parentheses): resnet18_hogwild 2 runs of 32 iterations and 2 slope
 # samples of its sync twin (5 of 1,024, 5; the hogwild phase's legs
 # (a)-(d) hold that path at their own depths); mnist_mlp_sync,
 # mnist_cnn_sync, lazy_cnn_sync, bert_dp, long_context_lm and moe_lm 2
@@ -352,7 +361,7 @@ MOE_OPTIMIZERS = [("adafactor", {}), ("lamb", {"lr": 1e-3}),
 # single/fleet pairs (3), run by the fleet phase.
 BENCH_SPAN_S = 0.8
 _SYNC_DEPTH = dict(repeats=2)
-BENCH_DEPTH = {"resnet18_hogwild": dict(iters=64, **_SYNC_DEPTH),
+BENCH_DEPTH = {"resnet18_hogwild": dict(iters=32, **_SYNC_DEPTH),
                "mnist_mlp_sync": _SYNC_DEPTH,
                "mnist_cnn_sync": _SYNC_DEPTH,
                "lazy_cnn_sync": _SYNC_DEPTH,
@@ -361,13 +370,13 @@ BENCH_DEPTH = {"resnet18_hogwild": dict(iters=64, **_SYNC_DEPTH),
                "moe_lm": _SYNC_DEPTH,
                "hogwild_chaos_soak": dict(rounds=2, freeze_rounds=1),
                "hogwild_ps_fleet": dict(pairs=2)}
-# The bench's obs configs: rpc_trace runs in the fleet phase's rpc leg;
-# the other five (no kernel on their paths, ~1 minute together) run in
-# the CPU tests only. health's A/A gate does not hold on the card: the
-# lane's mean host cost is 22-26% of its 0.19 ms step (F9, open;
-# health_costs.py times it there).
-OBS_CONFIGS = ("rpc_trace", "health", "goodput", "skew", "profile",
-               "obs_history")
+# The bench's obs configs left out of the bench phase: rpc_trace runs in
+# the fleet phase's rpc leg; goodput, profile and obs_history (no kernel
+# on their paths, ~1 minute together) run in the CPU tests only. health's
+# A/A gate does not hold on the card: the lane's mean host cost is a
+# large share of its 0.19 ms step (F9, open; health_costs.py times it
+# there). skew runs in the bench phase.
+OBS_CONFIGS = ("rpc_trace", "health", "goodput", "profile", "obs_history")
 # The serving tier's phase: BERT-base (flash, bf16 compute) behind an
 # InferenceTier of SERVE_REPLICAS replicas with buckets SERVE_BUCKETS,
 # SERVE_REQUESTS open-loop single-row requests of SERVE_SEQ ids at twice
@@ -2495,7 +2504,7 @@ def bench_phase(torch):
     """The configs of ``bench.CONFIGS`` (the port's benchmark entry; those
     of BENCH_DEPTH at a cut depth, the sync legs' span at BENCH_SPAN_S)
     but ``serve_online``, ``hogwild_ps_fleet`` and ``rpc_trace``, which
-    their own phases run, and OBS_CONFIGS' other five (CPU tests only),
+    their own phases run, and OBS_CONFIGS' other four (CPU tests only),
     each record printed on a line of its own and held to the JAX
     config's keys less the documented omissions, with the launches it
     made; ``hogwild_wire`` runs once through the CLI with
@@ -2508,7 +2517,7 @@ def bench_phase(torch):
     counts["bench_hogwild_wire"], records["hogwild_wire"] = (
         bench_hogwild_wire_dump(torch, bench))
     span_s, bench.SYNC_SPAN_S = bench.SYNC_SPAN_S, BENCH_SPAN_S
-    chaos = ("hogwild_chaos", "hogwild_chaos_soak", "gang_obs")
+    chaos = ("hogwild_chaos", "hogwild_chaos_soak", "gang_obs", "skew")
     configs = {k: v for k, v in bench.CONFIGS.items()
                if k not in ("serve_online", "hogwild_wire",
                             "hogwild_ps_fleet", "elastic_ctl", *chaos,
@@ -2535,7 +2544,8 @@ def bench_phase(torch):
         log(f"bench {name}: {wall:.1f} s")
     for name in chaos:
         # The JAX gates raise inside the config; no kernel runs (gang_obs
-        # and elastic_ctl do no device work at all).
+        # and elastic_ctl do no device work at all; skew's step is two
+        # 768 x 768 matmul pairs).
         reset_counts()
         t0 = time.perf_counter()
         rec = bench.CONFIGS[name](**BENCH_DEPTH.get(name, {}))
@@ -3018,7 +3028,7 @@ def dp_world_of_one(torch):
     dist.init_process_group("nccl", store=store, rank=0, world_size=1)
     try:
         mesh = build_mesh()
-        if mesh.dp != 1 or mesh.group is None:
+        if mesh.batch_shards != 1 or mesh.batch_group is None:
             raise AssertionError(f"dp: mesh {mesh}")
         dp_fit(torch, "adam", mesh)  # NCCL's communicator comes up here
         with profile(activities=[ProfilerActivity.CPU,
@@ -3137,6 +3147,119 @@ def dp_phase(torch):
     sgd, one = dp_world_of_one(torch)
     counts = add_counts({}, "dp world of one")
     return counts, dict(world_of_one=one, gloo_pair=dp_gloo_pair(torch, sgd))
+
+
+# The sharded phase: the long-context LM (phase 5's payload and ids)
+# through create_sharded_state -> make_sharded_train_step on an NCCL world
+# of one, MeshConfig(fsdp=1): the token embedding is an FSDP2 DTensor
+# shard (of a one-rank fsdp axis), every other leaf replicated, as the
+# sharding rules lay out the JAX mesh. Its losses are held to phase 5's
+# train_distributed losses within SHARDED_LOSS_RTOL (the same bf16 steps:
+# the objective is scaled by 1/Σw before the backward, not after it).
+SHARDED_LOSS_RTOL = 1e-3
+
+
+def sharded_steps(torch, run, state, batch, n):
+    """``n`` sharded steps; the losses and the mean wall of all but the
+    first (which builds FSDP2's lazy state), synchronised."""
+    losses = []
+    for i in range(n):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = run(state, batch)
+        losses.append(m.loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    return [float(v) for v in losses], step_ms
+
+
+def sharded_phase(torch, lm):
+    """The sharded trainer on the card: LM_ITERS steps of the LM at full
+    width, its kernel launches counted and its losses held to phase 5's
+    (``lm``: train_lm_phase's numbers), then one step's device time by
+    kernel family and one profiled step whose ``train_step`` range must
+    hold one step's launches. Returns the launches of the LM_ITERS steps
+    and the results."""
+    import glob
+
+    import torch.distributed as dist
+
+    from sparktorch_tpu_torch import deserialize_model
+    from sparktorch_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from sparktorch_tpu_torch.train.sharded import (
+        create_sharded_state,
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from sparktorch_tpu_torch.utils.data import DataBatch
+
+    spec = deserialize_model(lm_payload(torch, 0))
+    x, y = lm_ids(LM_BATCH, 0)
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    trace_dir = os.path.join(SCRATCH, "sharded_trace")
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=1))
+        state, shardings = create_sharded_state(spec, mesh, device="cuda")
+        fsdp = sorted(k for k, v in shardings.items() if "fsdp" in v)
+        dtensors = sorted(k for k, p in state.module.named_parameters()
+                          if type(p).__name__ == "DTensor")
+        if fsdp != ["backbone.tok_embed.weight"] or dtensors != fsdp:
+            raise AssertionError(f"sharded: fsdp leaves {fsdp}, DTensor "
+                                 f"leaves {dtensors}")
+        batch = shard_batch(DataBatch(torch.from_numpy(x),
+                                      torch.from_numpy(y),
+                                      torch.ones(LM_BATCH)), mesh).to("cuda")
+        run = make_sharded_train_step(spec.loss_fn(), mesh, shardings)
+        reset_counts()
+        losses, step_ms = sharded_steps(torch, run, state, batch, LM_ITERS)
+        counts = read_counts()
+        expect_counts("sharded LM", counts, lm_step_counts(LM_ITERS))
+        want = lm["losses"]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        log(f"sharded LM: {LM_ITERS} steps of make_sharded_train_step on "
+            f"an NCCL world of one (fsdp leaves {fsdp}), losses "
+            f"{[round(v, 4) for v in losses]} against train_distributed's "
+            f"{[round(v, 4) for v in want]}: worst relative difference "
+            f"{worst:.3e} (limit {SHARDED_LOSS_RTOL})")
+        if not (np.isfinite(losses).all() and worst <= SHARDED_LOSS_RTOL
+                and losses[-1] < losses[0]):
+            raise AssertionError("sharded LM: losses disagree with "
+                                 "train_distributed's or did not fall")
+        busy = profile_pass(torch, "one sharded LM step",
+                            lambda: run(state, batch))
+        profiled = make_sharded_train_step(spec.loss_fn(), mesh, shardings,
+                                           profile_dir=trace_dir)
+        profiled(state, batch)
+        torch.cuda.synchronize()
+        analysis = profiled.finish()
+        path, = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+        ranges, inside, outside = step_kernel_launches(path)
+        if ranges != 1 or inside != lm_step_counts(1) or any(
+                outside.values()):
+            raise AssertionError(f"sharded LM profiled step: {ranges} "
+                                 f"train_step ranges, launches inside "
+                                 f"{inside}, outside {outside}")
+        del state, run, profiled, batch
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    log(f"sharded LM on {smi}: step {step_ms:.2f} ms (mean of steps 2-"
+        f"{LM_ITERS}, synchronised; the health lane on) beside the resident "
+        f"train_distributed step's {lm['step_ms']:.2f} ms (phase 5, the "
+        f"chunk's mean); a profiled step's train_step range holds "
+        f"{inside} (a record, not a claim)")
+    return counts, dict(losses=losses, resident_losses=want,
+                        max_rel_loss_diff=worst, step_ms=step_ms,
+                        resident_step_ms=lm["step_ms"],
+                        profiled_step_launches=inside,
+                        comm_fraction=None if analysis is None
+                        else analysis.comm_fraction, profile=busy, card=smi)
 
 
 # The spark phase (BASELINE config 4's topology, the localspark runtime):
@@ -4718,6 +4841,8 @@ def run_phases(torch) -> int:
     done("resnet50 serve and stream")
     dp_counts, dp = dp_phase(torch)
     done("dp")
+    sharded_counts, sharded = sharded_phase(torch, lm)
+    done("sharded")
     spark_counts, spark = spark_phase(torch)
     done("spark")
     serve_online_counts, serve_online = serve_online_phase(torch)
@@ -4746,7 +4871,7 @@ def run_phases(torch) -> int:
                    **{path: c[name] for path, c in hogwild_counts.items()},
                    "serve_resnet50": r50_counts[name],
                    "serve_resnet50_stream": r50_stream_counts[name],
-                   "dp": dp_counts[name],
+                   "dp": dp_counts[name], "sharded": sharded_counts[name],
                    **{path: c[name] for path, c in spark_counts.items()},
                    **{path: c[name] for path, c in moe_counts.items()},
                    **{path: c[name]
@@ -4779,7 +4904,8 @@ def run_phases(torch) -> int:
                     "train_lm_resume": lm_resume, "quickstart": quick,
                     "hogwild": hogwild, "serve_resnet50": resnet50_serve,
                     "serve_resnet50_stream": resnet50_stream,
-                    "bench": bench, "dp": dp, "spark": spark, "moe": moe,
+                    "bench": bench, "dp": dp, "sharded": sharded,
+                    "spark": spark, "moe": moe,
                     "serve_online": serve_online, "fleet": fleet,
                     "supervise": supervise, "lint_wire": lint_wire}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time ``TrainHealthLedger.note_step`` and its pieces on one CUDA device.
+"""Time ``TrainHealthLedger.note_step`` and its pieces, and the skew stamp, on one CUDA device.
 
     python3 health_costs.py [--root DIR] [--calls N] [--batches B]
                             [--reps R] [--block-s S] [--profile]
+                            [--stamp-batches B] [--stamp-per-batch N]
 
 Imports the port from ``--root`` (default: this checkout; give an
 unpacked older tree to compare, and run older, newer, newer, older in
@@ -28,6 +29,12 @@ pauses inside the notes; and, as the floor of any call there, a method
 that does nothing called the same way. ``--profile`` also runs the on
 arm's notes under ``cProfile`` and reports the functions that take the
 most of their time (its own cost inflates every number of that run).
+
+``skew_stamp_after_step``: the goodput ledger's skew stamp
+(``StepSkewRing.record``) as a trainer pays it, ``--stamp-batches``
+batches of ``--stamp-per-batch`` stamps, each batch right after one of
+those steps, synchronised: the mean of all of them, the least and the
+most batch mean, and the mean over the off arm's mean step.
 Prints one JSON line with the card's name and power limit.
 """
 
@@ -62,6 +69,8 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=24)
     parser.add_argument("--block-s", type=float, default=0.05)
     parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--stamp-batches", type=int, default=64)
+    parser.add_argument("--stamp-per-batch", type=int, default=8)
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -233,6 +242,26 @@ def main() -> int:
         "note_mean_pct_of_step": 100 * note_mean / w_off,
         "aa_wall_delta_pct": delta_pct("on"),
         "off_off_delta_pct": delta_pct("off2"),
+    }
+    # The skew stamp as a trainer pays it: --stamp-batches batches of
+    # --stamp-per-batch GoodputLedger skew stamps, each batch right after
+    # a synchronised step; the mean of all and the batch means' spread.
+    led_g = _goodput.GoodputLedger(
+        telemetry=Telemetry(run_id="skew_costs"), rank="sc")
+    per, batch_us = args.stamp_per_batch, []
+    for bi in range(args.stamp_batches):
+        aa_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(per):
+            led_g.skew.record(bi * per + i, 1, 0.0, 1.0)
+        batch_us.append((time.perf_counter() - t0) / per * 1e6)
+    stamp_mean = statistics.fmean(batch_us)
+    out["skew_stamp_after_step"] = {
+        "mean_us": stamp_mean, "min_batch_us": min(batch_us),
+        "max_batch_us": max(batch_us), "batches": len(batch_us),
+        "per_batch": per,
+        "mean_pct_of_step": 100 * stamp_mean * 1e-6 / w_off,
     }
     if prof is not None:
         import pstats

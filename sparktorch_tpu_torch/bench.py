@@ -237,7 +237,7 @@ RECORD_KEYS = {
     "skew": (
         {"config", "unit", "value", "stamp_us", "stamp_pct_of_step",
          "step_wall_ms", "decomposition", "aa", "alerts", "skew_drift",
-         "wall_s"}, set(), set()),
+         "wall_s"}, set(), {"stamp_spread_us"}),
     "profile": (
         {"config", "unit", "value", "sample_tick_us", "overhead_pct_of_step",
          "step_wall_off_ms", "step_wall_on_ms", "hz", "hot", "run_report",
@@ -412,7 +412,7 @@ def _sync_epoch_bench(spec, x, y, batch_size: int, iters: int = 30,
 
     dev = _resolve_device(device)
     mesh = build_mesh()
-    world, group = mesh.dp, mesh.group
+    world, group = mesh.batch_shards, mesh.batch_group
     with _Phase(dev, "data") as p_data:
         batch, _ = handle_features(x, y)
         shards = _Shards(batch, mesh, dev, seed=0)
@@ -676,7 +676,7 @@ def bench_resnet18_hogwild(device=None, iters: int = 1024,
         }
 
     # The sync twin at the same per-chip batch: mb rows on every rank.
-    n_sync = mb * build_mesh().dp
+    n_sync = mb * build_mesh().batch_shards
     reps = -(-n_sync // n)
     xs = np.tile(x, (reps, 1, 1, 1))[:n_sync]
     ys = np.tile(y, reps)[:n_sync]
@@ -3058,7 +3058,8 @@ SKEW_WIRE_S = 0.02
 
 
 def bench_skew(device=None, steps: int = 8, delay_s: float = 0.3,
-               from_step: int = 2, stamp_iters: int = 4000) -> dict:
+               from_step: int = 2, stamp_batches: int = 64,
+               stamp_per_batch: int = 8) -> dict:
     """The JAX bench's cross-rank step-skew gate; raises unless
 
     - **the decomposition lands on the right rank**: a seeded
@@ -3079,7 +3080,11 @@ def bench_skew(device=None, steps: int = 8, delay_s: float = 0.3,
       a bare barrier's microseconds (which any load pushed over the
       alert's 0.5);
     - **stamping is nearly free**: the per-step stamp costs < 1% of a
-      training-sized step (two 768 x 768 matmul pairs on ``device``);
+      training-sized step (two 768 x 768 matmul pairs on ``device``),
+      the stamp timed as a trainer pays it: ``stamp_batches`` batches of
+      ``stamp_per_batch`` stamps, each batch right after a synchronised
+      step, judged by the mean of all of them (``stamp_spread_us``: the
+      least and the most batch mean);
     - **the render path works**: ``timeline --skew`` from the sink and
       from the saved document, and ``--follow``'s ``skew.run`` line.
 
@@ -3243,10 +3248,6 @@ def bench_skew(device=None, steps: int = 8, delay_s: float = 0.3,
     # -- the stamp's cost against a training-sized step ------------------
     led_ub = _goodput.GoodputLedger(
         telemetry=Telemetry(run_id="bench_skew_ub"), rank="ub")
-    t0 = time.perf_counter()
-    for i in range(stamp_iters):
-        led_ub.skew.record(i, 1, 0.0, 1.0)
-    stamp_us = (time.perf_counter() - t0) / stamp_iters * 1e6
     m = 768
     xm = torch.ones((m, m), dtype=torch.float32, device=dev)
 
@@ -3262,6 +3263,15 @@ def bench_skew(device=None, steps: int = 8, delay_s: float = 0.3,
         _sync(dev)
         rep_walls.append(time.perf_counter() - t0)
     step_wall = min(rep_walls)
+    batch_us = []
+    for b in range(stamp_batches):
+        rep(xm)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in range(stamp_per_batch):
+            led_ub.skew.record(b * stamp_per_batch + i, 1, 0.0, 1.0)
+        batch_us.append((time.perf_counter() - t0) / stamp_per_batch * 1e6)
+    stamp_us = sum(batch_us) / len(batch_us)
     stamp_frac = (stamp_us * 1e-6) / max(step_wall, 1e-9)
     if stamp_frac >= 0.01:
         raise AssertionError(
@@ -3273,6 +3283,7 @@ def bench_skew(device=None, steps: int = 8, delay_s: float = 0.3,
         "value": round(stamp_us, 3),
         "stamp_us": round(stamp_us, 3),
         "stamp_pct_of_step": round(100 * stamp_frac, 4),
+        "stamp_spread_us": [round(min(batch_us), 3), round(max(batch_us), 3)],
         "step_wall_ms": round(step_wall * 1e3, 3),
         "decomposition": {
             "injected_s": round(injected_total, 3),

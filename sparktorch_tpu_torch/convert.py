@@ -112,3 +112,31 @@ def state_dict_from_flax(variables: Mapping, target: Union[
     if missing:
         raise KeyError(f"flax variables lack {missing}")
     return out
+
+
+def load_full_state_dict(module: nn.Module,
+                         state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Load a full ``state_dict`` (every rank holds all of it, as
+    :func:`state_dict_from_flax` gives it) into ``module``, laid out by
+    ``fully_shard`` or not: each DTensor entry takes its own shard of
+    the full tensor, with no communication."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    with torch.no_grad():
+        for key, t in module.state_dict().items():
+            src = state_dict[key]
+            if isinstance(t, DTensor):
+                src = distribute_tensor(src.to(t.device, t.dtype),
+                                        t.device_mesh, t.placements,
+                                        src_data_rank=None).to_local()
+                t = t.to_local()
+            t.copy_(src)
+
+
+def full_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The full ``state_dict`` of ``module`` on the CPU, DTensor entries
+    gathered (a collective: every rank of the mesh calls it)."""
+    from torch.distributed.tensor import DTensor
+
+    return {k: (v.full_tensor() if isinstance(v, DTensor) else v)
+            .detach().cpu() for k, v in module.state_dict().items()}

@@ -58,7 +58,7 @@ class BatchPredictor:
     Every forward sees one input shape: rows go in ``chunk``-row
     pieces, and when there is more than one chunk the last is
     zero-padded to ``chunk`` rows (the padding is cut from the output).
-    With a ``mesh`` of dp size n > 1, every rank of its group calls
+    With a ``mesh`` of n > 1 batch shards (dp × fsdp), every rank calls
     ``predict`` with the same rows: the chunk is rounded up to a
     multiple of n (a lone short chunk pads to one), each rank runs the
     forward on its contiguous n-th of every chunk, and one
@@ -93,7 +93,7 @@ class BatchPredictor:
             module.load_state_dict(params)
         self.module = module.to(self.device).eval()
         self.mesh = mesh
-        self._shards = mesh.dp if mesh is not None else 1
+        self._shards = mesh.batch_shards if mesh is not None else 1
         c = max(1, int(chunk), self._shards)
         self.chunk = -(-c // self._shards) * self._shards
         self.preprocess = preprocess
@@ -113,7 +113,7 @@ class BatchPredictor:
 
     def _chunks(self, x, n: int):
         """Yield (padded_part, real_rows) chunks of one shape (a lone
-        short chunk pads only to a multiple of the mesh's dp size)."""
+        short chunk pads only to a multiple of the mesh's batch shards)."""
         for start in range(0, n, self.chunk):
             part = x[start : start + self.chunk]
             real = part.shape[0]
@@ -163,7 +163,7 @@ class BatchPredictor:
             if self._shards > 1:
                 out = out.contiguous()
                 parts = [torch.empty_like(out) for _ in range(self._shards)]
-                dist.all_gather(parts, out, group=self.mesh.group)
+                dist.all_gather(parts, out, group=self.mesh.batch_group)
                 out = torch.cat(parts)
             return out
 

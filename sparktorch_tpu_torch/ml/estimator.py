@@ -118,7 +118,7 @@ class SparkTorchModel(Model):
 
     def setMesh(self, mesh):
         """Mesh-parallel inference (``sparktorch_tpu/ml/estimator.py:90-96``):
-        each chunk is split over the dp ranks of ``mesh`` (a
+        each chunk is split over the batch shards (dp × fsdp) of ``mesh`` (a
         :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` mesh or a
         ``MeshConfig``), every rank runs its share on its device, and
         one all-gather gives every rank all the rows. Every rank must
@@ -299,8 +299,10 @@ class SparkTorch(Estimator):
     def setMesh(self, mesh):
         """Train data-parallel over ``mesh`` (a
         :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh` mesh or a
-        ``MeshConfig``): every rank of the process group fits with the
-        same frame and trains its shard of it."""
+        ``MeshConfig``, e.g. ``MeshConfig(fsdp=2)``): every rank of the
+        process group fits with the same frame and trains its shard of
+        it, the batch split over dp × fsdp with the parameters
+        replicated, as the JAX package's ``train_distributed`` does."""
         self._mesh = mesh
         return self
 
@@ -311,8 +313,8 @@ class SparkTorch(Estimator):
             return self._mesh
         if isinstance(self._mesh, MeshConfig):
             return build_mesh(self._mesh)
-        raise _not_ported(f"mesh {self._mesh!r} (the port takes the dp mesh "
-                          "of parallel.mesh.build_mesh)",
+        raise _not_ported(f"mesh {self._mesh!r} (the port takes the dp x "
+                          "fsdp mesh of parallel.mesh.build_mesh)",
                           "the rest of multi-GPU training, items 7 and 8")
 
     def getTorchObj(self):

@@ -81,20 +81,22 @@ class StepSkewRing:
 
     def record(self, step: int, count: int,
                enter_ts: float, exit_ts: float) -> None:
+        # Once a step: the values go in as given; the snapshot converts.
         with self._lock:
-            if len(self._ring) == self.capacity:
+            ring = self._ring
+            if len(ring) == self.capacity:
                 self._dropped += 1
-            self._ring.append((int(step), max(1, int(count)),
-                               float(enter_ts), float(exit_ts)))
+            ring.append((step, count, enter_ts, exit_ts))
 
     def snapshot(self) -> Dict[str, Any]:
         """The publishable ``skew`` section body: newest-last stamp
         list plus ring accounting. Stamps serialize as 4-lists so the
         section survives a JSON round-trip unchanged."""
         with self._lock:
-            stamps = [[s, c, round(t0, 6), round(t1, 6)]
-                      for (s, c, t0, t1) in self._ring]
+            ring = list(self._ring)
             dropped = self._dropped
+        stamps = [[int(s), max(1, int(c)), round(float(t0), 6),
+                   round(float(t1), 6)] for (s, c, t0, t1) in ring]
         return {"n_stamps": len(stamps), "capacity": self.capacity,
                 "dropped": dropped, "stamps": stamps}
 

@@ -1,15 +1,18 @@
-"""Mesh construction and multi-host launch — the port of ``sparktorch_tpu/parallel``.
+"""Mesh construction, sharding rules and multi-host launch — the port of ``sparktorch_tpu/parallel``.
 
-Data parallelism only: :class:`~.mesh.MeshConfig` keeps the JAX
-package's six axes, and any axis but ``dp`` above 1 raises
-(ROADMAP, Queue 1, items 7 and 8).
+:class:`~.mesh.MeshConfig` keeps the JAX package's six axes; ``dp`` and
+``fsdp`` are ported, and ``tp``, ``sp``, ``ep`` or ``pp`` above 1 raise
+(ROADMAP, Queue 1, step 6's later parts and step 7).
 """
 
 from sparktorch_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
     Mesh,
     MeshConfig,
     build_mesh,
     initialize_distributed,
+    local_mesh,
 )
 
-__all__ = ["Mesh", "MeshConfig", "build_mesh", "initialize_distributed"]
+__all__ = ["BATCH_AXES", "Mesh", "MeshConfig", "build_mesh",
+           "initialize_distributed", "local_mesh"]

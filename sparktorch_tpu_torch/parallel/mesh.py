@@ -1,11 +1,21 @@
-"""The data-parallel mesh over a ``torch.distributed`` world — the port of ``sparktorch_tpu/parallel/mesh.py:46-156``.
+"""The dp × fsdp mesh over a ``torch.distributed`` world — the port of ``sparktorch_tpu/parallel/mesh.py:46-156``.
 
 The JAX package carves its devices into six named axes. The port runs
-one process per GPU and data parallelism only: ``dp`` is the world of
-the default process group (or a world of one when none is initialized),
-and :class:`MeshConfig` refuses every other axis above 1. The batch is
-split over ``dp`` in contiguous shards, as the JAX mesh's dp sharding
-lays it out (:func:`sparktorch_tpu_torch.utils.data.shard_batch`).
+one process per GPU and two of them: ``dp`` (data parallel, parameters
+replicated) and ``fsdp`` (data parallel with parameters sharded, FSDP2
+over the ``fsdp`` sub-mesh). :class:`MeshConfig` refuses ``tp``, ``sp``,
+``ep`` and ``pp`` above 1. The batch is split over both axes
+(``BATCH_AXES``), dp outermost: the rank's batch shard is its global
+rank, its rows the contiguous block the JAX mesh's
+``P(("dp", "fsdp"))`` gives that device
+(:func:`sparktorch_tpu_torch.utils.data.shard_batch`). So every trainer
+reads :attr:`Mesh.batch_shards` and :attr:`Mesh.batch_group`, never the
+dp axis alone.
+
+Shardings are placement descriptors: a tuple with one entry per
+dimension of the leaf, each ``None`` (not split), an axis name or a
+tuple of axis names — ``jax.sharding.PartitionSpec``'s entries, with the
+trailing ``None`` s dropped (``()`` is replicated).
 
 Multi-host bring-up goes through :func:`initialize_distributed`
 (``torch.distributed.init_process_group``: NCCL on CUDA, gloo on the
@@ -16,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -28,13 +38,22 @@ AXIS_SP = "sp"
 AXIS_EP = "ep"
 AXIS_PP = "pp"
 ALL_AXES = (AXIS_DP, AXIS_FSDP, AXIS_TP, AXIS_SP, AXIS_EP, AXIS_PP)
+# Axes over which the batch dimension is split (and grads are summed).
+BATCH_AXES = (AXIS_DP, AXIS_FSDP)
 COORDINATOR_ENV = "SPARKTORCH_TPU_COORDINATOR"
+
+# Where each refused axis is queued (ROADMAP, Queue 1).
+_LATER = {AXIS_TP: "step 6 part 2", AXIS_SP: "step 6 part 3 (ring attention)",
+          AXIS_EP: "step 6 part 4 (expert all-to-all)",
+          AXIS_PP: "step 7 (train/pipeline.py)"}
+
+Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's axes. ``dp=None`` takes the whole world; every
-    other axis must stay 1 (not ported yet)."""
+    """The JAX package's axes. ``dp=None`` takes what ``fsdp`` leaves
+    of the world; ``tp``, ``sp``, ``ep`` and ``pp`` must stay 1."""
 
     dp: Optional[int] = None
     fsdp: int = 1
@@ -44,43 +63,62 @@ class MeshConfig:
     pp: int = 1
 
     def __post_init__(self):
-        wide = {a: getattr(self, a) for a in ALL_AXES[1:]
-                if getattr(self, a) != 1}
+        wide = {a: getattr(self, a) for a in _LATER if getattr(self, a) != 1}
         if wide:
             raise NotImplementedError(
-                f"mesh axes {wide} are not ported yet (ROADMAP, Queue 1: the "
-                "rest of multi-GPU training, items 7 and 8: sharding, "
-                "sequence and expert parallelism, train/pipeline.py); the "
-                "port's mesh is data-parallel only")
+                f"mesh axes {wide} are not ported yet (ROADMAP, Queue 1, "
+                f"{'; '.join(_LATER[a] for a in wide)}; items 7 and 8); the "
+                "port's mesh is dp x fsdp")
 
     def resolve(self, world_size: int) -> dict:
-        dp = self.dp if self.dp is not None else world_size
-        if dp != world_size:
-            raise ValueError(f"mesh dp={dp} != world size {world_size}: the "
-                             "port runs one process per device")
-        return {AXIS_DP: dp, **{a: 1 for a in ALL_AXES[1:]}}
+        if self.fsdp < 1 or world_size % self.fsdp:
+            raise ValueError(f"world size {world_size} not divisible by "
+                             f"fsdp={self.fsdp}")
+        dp = self.dp if self.dp is not None else world_size // self.fsdp
+        if dp * self.fsdp != world_size:
+            raise ValueError(f"mesh dp={dp} x fsdp={self.fsdp} != world size "
+                             f"{world_size}: the port runs one process per "
+                             "device")
+        return {AXIS_DP: dp, AXIS_FSDP: self.fsdp,
+                **{a: 1 for a in ALL_AXES[2:]}}
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The dp world this process belongs to. ``group`` is None when no
-    process group is initialized (a world of one that makes no
-    collective call); ``device_mesh`` is the torch ``DeviceMesh`` over
-    the group, when there is one."""
+    """The dp × fsdp world this process belongs to. ``batch_group`` is
+    the group the batch is split over and the gradients are summed
+    over (the whole world), None when no process group is initialized
+    (a world of one that makes no collective call); ``device_mesh`` is
+    the torch ``DeviceMesh`` of shape (dp, fsdp), when there is one."""
 
     shape: dict
     rank: int = 0
-    group: Optional[object] = None
+    batch_group: Optional[object] = None
     device_mesh: Optional[object] = None
 
     @property
     def dp(self) -> int:
         return self.shape[AXIS_DP]
 
+    @property
+    def fsdp(self) -> int:
+        return self.shape[AXIS_FSDP]
+
+    @property
+    def batch_shards(self) -> int:
+        """How many shards the batch is split into: dp × fsdp."""
+        return self.dp * self.fsdp
+
+    @property
+    def fsdp_group(self):
+        """The ranks that share one replica's parameter shards."""
+        return (None if self.device_mesh is None
+                else self.device_mesh.get_group(AXIS_FSDP))
+
 
 def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     """The mesh over the default process group, or a world of one when
-    none is initialized."""
+    none is initialized. Ranks fill the (dp, fsdp) grid row-major."""
     config = config or MeshConfig()
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(config.resolve(1))
@@ -88,11 +126,49 @@ def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     from torch.distributed.device_mesh import init_device_mesh
 
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    device_mesh = init_device_mesh(device_type, (shape[AXIS_DP],),
-                                   mesh_dim_names=(AXIS_DP,))
-    return Mesh(shape, rank=dist.get_rank(),
-                group=device_mesh.get_group(AXIS_DP),
+    device_mesh = init_device_mesh(device_type, (shape[AXIS_DP],
+                                                 shape[AXIS_FSDP]),
+                                   mesh_dim_names=BATCH_AXES)
+    return Mesh(shape, rank=dist.get_rank(), batch_group=dist.group.WORLD,
                 device_mesh=device_mesh)
+
+
+def local_mesh(n: Optional[int] = None, **axes) -> Mesh:
+    """:func:`build_mesh` of ``MeshConfig(**axes)``; ``n``, when given,
+    must be the world size (a process is one device)."""
+    mesh = build_mesh(MeshConfig(**axes))
+    if n is not None and n != mesh.batch_shards:
+        raise ValueError(f"local_mesh({n}) in a world of {mesh.batch_shards}")
+    return mesh
+
+
+def batch_sharding(mesh: Mesh) -> Spec:
+    """Sharding for (batch, ...) arrays: batch split over dp+fsdp."""
+    return (BATCH_AXES,)
+
+
+def replicated(mesh: Mesh) -> Spec:
+    return ()
+
+
+def fsdp_param_sharding(mesh: Mesh, leaf: Union[torch.Tensor,
+                                                Sequence[int]]) -> Spec:
+    """Shard a parameter leaf (or a shape) over the fsdp axis along its
+    largest divisible dimension (the first of equal ones); replicate if
+    nothing divides."""
+    shape = tuple(leaf.shape if isinstance(leaf, torch.Tensor) else leaf)
+    n = mesh.shape[AXIS_FSDP]
+    if n <= 1 or not shape:
+        return replicated(mesh)
+    for d in sorted(range(len(shape)), key=lambda d: -shape[d]):
+        if shape[d] % n == 0 and shape[d] >= n:
+            return (None,) * d + (AXIS_FSDP,)
+    return replicated(mesh)
+
+
+def param_shardings(mesh: Mesh, params: Mapping[str, torch.Tensor]) -> dict:
+    """Name → :func:`fsdp_param_sharding` of each leaf of ``params``."""
+    return {k: fsdp_param_sharding(mesh, v) for k, v in params.items()}
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,

@@ -178,9 +178,10 @@ class InferenceReplica:
         from sparktorch_tpu_torch.inference import BatchPredictor
         from sparktorch_tpu_torch.obs import get_telemetry
 
-        if mesh is not None and mesh.dp > 1:
+        if mesh is not None and mesh.batch_shards > 1:
             raise NotImplementedError(
-                "an InferenceReplica over a mesh of dp > 1 is not ported: "
+                "an InferenceReplica over a mesh of more than one batch shard "
+                "(dp x fsdp > 1) is not ported: "
                 "its ranks are processes, each would have to run every "
                 "batch (ROADMAP, Queue 1, item 9)")
         self.replica_id = str(replica_id)

@@ -10,8 +10,10 @@ Each step is :func:`~sparktorch_tpu_torch.train.step.train_step`.
 Data parallelism: with a process group initialized (or a ``mesh`` from
 :func:`~sparktorch_tpu_torch.parallel.mesh.build_mesh`), every rank
 calls :func:`train_distributed` with the same data and trains its
-contiguous shard of it, padded to a multiple of the world with weight-0
-rows; the step makes one all-reduce of the weighted sums. The validation
+contiguous shard of it, padded to a multiple of the batch shards (dp ×
+fsdp: the parameters stay replicated here, as in the JAX trainer; the
+sharded trainer is :mod:`~sparktorch_tpu_torch.train.sharded`) with
+weight-0 rows; the step makes one all-reduce of the weighted sums. The validation
 split and the round shuffles (a host permutation of the whole batch,
 from ``seed + 1``) are drawn alike on every rank, so the shards agree;
 minibatch offsets come from ``seed + rank``. The reported losses are
@@ -24,7 +26,8 @@ instead.
 :func:`train_distributed_streaming` keeps the data in host memory and
 walks it in fixed-size chunks, one chunk ahead on the card: chunk i+1
 is copied from a pinned staging buffer on a side stream while chunk
-i's steps run, so device memory holds about two chunks.
+i's steps run, so device memory holds about two chunks. In a
+data-parallel world each rank feeds its shard of every chunk.
 
 Read-backs: the step losses come back to the host once per chunk of
 ``steps_per_call`` steps (default: up to 32), so the card is never
@@ -79,7 +82,7 @@ card and the ledger reads it back ``fetch_lag`` chunks later; with a
 ``replay_dir`` in its config it anchors the trainer's state before
 dispatch (after the ``data.batch`` chaos swapped in a poisoned batch)
 for replay bundles. Not ported yet (ROADMAP, Queue 1): meshes with
-axes other than ``dp`` and pipeline parallelism (item 8).
+axes other than ``dp`` and ``fsdp`` and pipeline parallelism (item 8).
 """
 
 from __future__ import annotations
@@ -201,8 +204,8 @@ def _save_if_due(ckpt, module, optimizer, step: int, last_ckpt_step: int,
 
 
 def _barrier(mesh: Optional[Mesh]) -> None:
-    if mesh is not None and mesh.group is not None:
-        dist.barrier(group=mesh.group)
+    if mesh is not None and mesh.batch_group is not None:
+        dist.barrier(group=mesh.batch_group)
 
 
 def _finalize_checkpoint(ckpt, module, optimizer, step: int,
@@ -255,12 +258,12 @@ class _Shards:
     def __init__(self, batch: DataBatch, mesh: Mesh, dev, seed: int,
                  local: bool = False):
         self.dev = dev
-        if mesh.group is None:
+        if mesh.batch_group is None:
             self.host = None
             self.batch = batch.to(dev)
             self.gen = torch.Generator(device=dev).manual_seed(seed + 1)
             return
-        self.rank, self.world = (0, 1) if local else (mesh.rank, mesh.dp)
+        self.rank, self.world = (0, 1) if local else (mesh.rank, mesh.batch_shards)
         self.host = pad_to_multiple(batch, self.world)
         self.gen = torch.Generator().manual_seed(seed + 1)
         self.batch = shard_batch(self.host, self.rank, self.world).to(dev)
@@ -277,12 +280,12 @@ class _Shards:
 def _broadcast_module(module: torch.nn.Module, mesh: Mesh) -> None:
     """Rank 0's weights and buffers on every rank (a lazily packaged
     model initialises on each rank from its own generator)."""
-    if mesh.group is None:
+    if mesh.batch_group is None:
         return
-    src = dist.get_global_rank(mesh.group, 0)
+    src = dist.get_global_rank(mesh.batch_group, 0)
     with torch.no_grad():
         for t in module.state_dict().values():
-            dist.broadcast(t, src=src, group=mesh.group)
+            dist.broadcast(t, src=src, group=mesh.batch_group)
 
 
 def _dp_trainer(torch_obj, spec: ModelSpec, mesh: Mesh, dev: torch.device,
@@ -305,7 +308,7 @@ def _dp_steps(n: int, module, loss_fn, optimizer, shards: "_Shards",
     """``n`` train steps on this rank's shard, queued back to back with
     no read-back; each makes its all-reduce over the mesh's group."""
     return [train_step(module, loss_fn, optimizer, shards.batch, mini_batch,
-                       generator, mesh.group, health_buf)
+                       generator, mesh.batch_group, health_buf)
             for _ in range(n)]
 
 
@@ -424,7 +427,7 @@ def train_distributed(
     _check_pipeline_args(n_micro, pipeline_schedule, virtual_stages)
     dev = _resolve_device(device)
     mesh = mesh or build_mesh()
-    group = mesh.group
+    group = mesh.batch_group
     tele = telemetry or get_telemetry()
     spec = deserialize_model(torch_obj)
     if pre_sharded:
@@ -442,7 +445,8 @@ def train_distributed(
             shards = _Shards(train_batch, mesh, dev, seed)
             if val_batch is not None:
                 val_batch = (val_batch if group is None else
-                             shard_batch(val_batch, mesh.rank, mesh.dp)
+                             shard_batch(val_batch, mesh.rank,
+                                         mesh.batch_shards)
                              ).to(dev)
 
     with tele.span("train/init"), _goodput.span("compile",
@@ -463,7 +467,7 @@ def train_distributed(
     mini_batch = mini_batch if mini_batch is not None and mini_batch > 0 else None
     sample_gen = torch.Generator().manual_seed(seed + mesh.rank)
 
-    recorder = MetricsRecorder(n_chips=mesh.dp, telemetry=tele)
+    recorder = MetricsRecorder(n_chips=mesh.batch_shards, telemetry=tele)
     # Exited in the finally: a failed run still writes its trace.
     profiler = profile_run(profile_dir, telemetry=tele)
     profiler.__enter__()
@@ -595,12 +599,12 @@ def _shape_vector(x: np.ndarray, y: Optional[np.ndarray]) -> np.ndarray:
 
 def _gather_shape_vectors(vec: np.ndarray, mesh: Mesh) -> np.ndarray:
     """Every rank's shape vector, rank-ordered (one all-gather)."""
-    if mesh.group is None:
+    if mesh.batch_group is None:
         return vec[None]
-    on = "cuda" if dist.get_backend(mesh.group) == "nccl" else "cpu"
+    on = "cuda" if dist.get_backend(mesh.batch_group) == "nccl" else "cpu"
     mine = torch.from_numpy(vec).to(on)
-    out = [torch.empty_like(mine) for _ in range(mesh.dp)]
-    dist.all_gather(out, mine, group=mesh.group)
+    out = [torch.empty_like(mine) for _ in range(mesh.batch_shards)]
+    dist.all_gather(out, mine, group=mesh.batch_group)
     return torch.stack(out).cpu().numpy()  # lint-obs: ok (one set-up gather of the batch shapes, before any step)
 
 
@@ -748,17 +752,14 @@ def train_distributed_streaming(
     into (default: the process-global one). Checkpoints are saved at
     chunk boundaries; ``resume`` continues from the newest one. Records
     have the reference's keys; ``grad_norm`` and ``val_loss`` are None.
-    One rank only: ``mesh`` may be None or a world of one; in a
-    data-parallel world of more than one it raises, since each rank
-    would train its own copy on all the data and write to one
-    ``checkpoint_dir``."""
-    world = (mesh.dp if mesh is not None else
-             dist.get_world_size() if dist.is_initialized() else 1)
-    if world > 1:
-        raise NotImplementedError(
-            "train_distributed_streaming over a data-parallel world is not "
-            "ported yet (ROADMAP, Queue 1: several GPUs, item 4); run it in "
-            "one process, or train_distributed(mesh=...) on resident data")
+    In a data-parallel world (``mesh``, default :func:`build_mesh`) every
+    rank walks the same permutation: each chunk is padded up to a
+    multiple of the batch shards (dp × fsdp) with weight-0 rows, each
+    rank feeds its contiguous shard of it, the steps make their
+    all-reduce over the batch group, and only rank 0 writes
+    ``checkpoint_dir`` (every rank restores from it)."""
+    mesh = mesh or build_mesh()
+    world, rank = mesh.batch_shards, mesh.rank
     dev = _resolve_device(device)
     tele = telemetry or get_telemetry()
     spec = deserialize_model(torch_obj)
@@ -770,23 +771,29 @@ def train_distributed_streaming(
     if spec.input_shape is None:
         spec.input_shape = tuple(arrays[0].shape[1:])
     chunk_rows = max(1, min(int(chunk_rows), n))
+    chunk_rows = -(-chunk_rows // world) * world  # pad up to the shards
+    per_shard = chunk_rows // world
     mini_batch = mini_batch if mini_batch is not None and mini_batch > 0 else None
-    steps = steps_per_chunk or (-(-chunk_rows // mini_batch)
+    steps = steps_per_chunk or (-(-per_shard // mini_batch)
                                 if mini_batch is not None else 1)
 
     # Set-up, the JAX trainer's compile-dominated init.
     with _goodput.span("compile", {"site": "train_init"}):
-        module, optimizer, loss_fn = _build_trainer(torch_obj, spec, dev)
-    ckpt, global_step = _open_checkpoint(checkpoint_dir, resume, module,
-                                         optimizer)
+        module, optimizer, loss_fn, ckpt, global_step = _dp_trainer(
+            torch_obj, spec, mesh, dev, checkpoint_dir, resume)
     last_ckpt_step = global_step
-    hl, health_buf = _health_lane(tele, 0, module)
+    hl, health_buf = _health_lane(tele, rank, module)
     anchor = _anchor(hl, module, optimizer)
     # Fold the restored step into the shuffle seed: a resumed run draws
     # fresh permutations instead of replaying the epochs already run.
     shuffle_rng = np.random.default_rng(seed + 1 + global_step)
-    sample_gen = torch.Generator().manual_seed(seed)
-    feeder = _ChunkFeeder(arrays, chunk_rows, dev)
+    sample_gen = torch.Generator().manual_seed(seed + rank)
+    feeder = _ChunkFeeder(arrays, per_shard, dev)
+
+    def shard(lo: int, order: np.ndarray) -> np.ndarray:
+        """The rows of this rank's shard of the chunk at ``lo``."""
+        chunk = order[lo:lo + chunk_rows]
+        return chunk[rank * per_shard:(rank + 1) * per_shard]
 
     recorder = MetricsRecorder(n_chips=world, telemetry=tele,
                                prefix="train_streaming")
@@ -799,27 +806,26 @@ def train_distributed_streaming(
             starts = range(0, n, chunk_rows)
             # The epoch's first chunk has nothing to hide under.
             with _goodput.span("data_wait", {"site": "streaming_chunk"}):
-                pending = feeder.put(order[:chunk_rows])
+                pending = feeder.put(shard(0, order))
             for ci, lo in enumerate(starts):
                 check_gang()
                 notify_gang_step(it)
-                batch = _fire_chaos(0, it, feeder.take(pending), kill=False,
-                                    anchor=anchor)
+                batch = _fire_chaos(rank, it, feeder.take(pending),
+                                    kill=False, anchor=anchor)
                 loads0 = (_kernels.loads() if _goodput.active() is not None
                           else None)
                 with _goodput.step_span(step=it) as led, \
                         tele.span("train_streaming/chunk"):
                     metrics = [train_step(module, loss_fn, optimizer, batch,
                                           mini_batch, sample_gen,
-                                          health_buf=health_buf)
+                                          mesh.batch_group, health_buf)
                                for _ in range(steps)]
                     # The next chunk's upload rides under these steps; its
                     # host-side wait is a nested data_wait.
                     if ci + 1 < len(starts):
-                        nxt = starts[ci + 1]
                         with _goodput.span("data_wait",
                                            {"site": "streaming_chunk"}):
-                            pending = feeder.put(order[nxt:nxt + chunk_rows])
+                            pending = feeder.put(shard(starts[ci + 1], order))
                     host = torch.stack([torch.stack((m.loss, m.examples,
                                                      m.grad_norm))
                                         for m in metrics]).tolist()
@@ -842,7 +848,7 @@ def train_distributed_streaming(
                 global_step += steps
                 last_ckpt_step = _save_if_due(ckpt, module, optimizer,
                                               global_step, last_ckpt_step,
-                                              checkpoint_every)
+                                              checkpoint_every, mesh)
                 if verbose:
                     log.info(f"[sparktorch_tpu_torch] epoch {epoch} chunk "
                              f"{ci} loss {host[-1][0]:.6f}")
@@ -850,5 +856,6 @@ def train_distributed_streaming(
     finally:
         if hl is not None:
             hl.flush()
-        _finalize_checkpoint(ckpt, module, optimizer, global_step, completed)
+        _finalize_checkpoint(ckpt, module, optimizer, global_step,
+                             completed, mesh)
     return _result(module, spec, recorder)

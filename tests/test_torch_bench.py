@@ -329,6 +329,8 @@ def test_obs_record_keys_are_the_jax_records(config, path):
     newest = [r for r in recs if r.get("config") == config][-1]
     jax_keys, omitted, added = bench.RECORD_KEYS[config]
     assert set(newest) - {"ts"} == jax_keys
-    # The port's one addition: profile's A/A records its off/off floor.
+    # The port's additions: profile's A/A records its off/off floor,
+    # skew the spread of its stamp's batch means.
     assert omitted == set()
-    assert added == ({"aa_floor_pct"} if config == "profile" else set())
+    assert added == {"profile": {"aa_floor_pct"},
+                     "skew": {"stamp_spread_us"}}.get(config, set())

@@ -60,10 +60,9 @@ def _rank_main(rank, world, port_no, queue, fn, args):
         dist.destroy_process_group()
 
 
-def run_world(world, fn, *args):
-    """``fn(rank, *args)`` on every rank of a spawned gloo world; the
-    ranks' results in rank order. Fails (and ends the world) when a rank
-    raises or a rank gives no result within ``JOIN_S`` seconds."""
+def start_world(world, fn, *args):
+    """Spawn :func:`run_world`'s world and return, without waiting, the
+    function that waits for it and gives :func:`run_world`'s result."""
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port_no = _free_port()
@@ -72,6 +71,17 @@ def run_world(world, fn, *args):
              for r in range(world)]
     for p in procs:
         p.start()
+    return functools.partial(_join_world, world, procs, queue)
+
+
+def run_world(world, fn, *args):
+    """``fn(rank, *args)`` on every rank of a spawned gloo world; the
+    ranks' results in rank order. Fails (and ends the world) when a rank
+    raises or a rank gives no result within ``JOIN_S`` seconds."""
+    return start_world(world, fn, *args)()
+
+
+def _join_world(world, procs, queue):
     results, failed = {}, None
     try:
         for _ in range(world):
@@ -204,12 +214,9 @@ def _fit_jobs(rank, world, jobs):
                          {k: v.numpy() for k, v in resumed.params.items()})
             continue
         elif name == "streaming":
-            try:
-                train_distributed_streaming(obj, (x, y), device="cpu")
-                out[name] = None
-            except NotImplementedError as e:
-                out[name] = str(e)
-            continue
+            result = train_distributed_streaming(obj, (x, y), chunk_rows=24,
+                                                 epochs=2, device="cpu")
+            metrics, params = result.metrics, result.params
         elif name == "bench":
             # Rank 1's clock runs 3x fast: left to itself it would stop
             # growing the harness's long span before rank 0 does.
@@ -399,7 +406,7 @@ def test_estimator_mesh_settings():
     kw = dict(inputCol="features", labelCol="label", torchObj=obj, iters=3,
               device="cpu")
     mesh = build_mesh()
-    assert isinstance(mesh, Mesh) and mesh.dp == 1 and mesh.group is None
+    assert isinstance(mesh, Mesh) and mesh.dp == 1 and mesh.batch_group is None
     plain = port.SparkTorch(**kw)
     plain.fit(frame)
     meshed = port.SparkTorch(mesh=mesh, **kw)
@@ -410,8 +417,9 @@ def test_estimator_mesh_settings():
     configured.fit(frame)
     assert ([m["loss"] for m in configured._last_metrics]
             == [m["loss"] for m in plain._last_metrics])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*items 7 and 8"):
-        port.SparkTorch(mesh=MeshConfig(fsdp=2), **kw)
+    # fsdp is ported: a world of one has no room for two shards.
+    with pytest.raises(ValueError, match="world size"):
+        port.SparkTorch(mesh=MeshConfig(fsdp=2), **kw).fit(frame)
     with pytest.raises(NotImplementedError, match="ROADMAP.*items 7 and 8"):
         port.SparkTorch(**kw).setMesh(MeshConfig(tp=2))
     with pytest.raises(ValueError, match="world size"):
@@ -419,10 +427,25 @@ def test_estimator_mesh_settings():
 
 
 def test_streaming_trainer_refuses_a_dp_world():
-    # Each rank would train its own copy on all the rows and write to
-    # one checkpoint directory: the trainer raises instead.
+    # The streaming trainer now runs over a DP world (the name is the
+    # test's from when it raised there): each rank feeds its shard of
+    # every chunk (64 rows in chunks of 24: 24, 24 and a ragged 16, two
+    # epochs), and the full-chunk steps equal one process's on all rows.
+    from sparktorch_tpu_torch.train.sync import train_distributed_streaming
+
+    x, y = _data("streaming")
+    obj = _packages("mlp", x, "sgd", 0.1)[1]
+    want = train_distributed_streaming(obj, (x, y), chunk_rows=24, epochs=2,
+                                       device="cpu")
     for rank in _world(2):
-        assert "ROADMAP, Queue 1: several GPUs, item 4" in rank["streaming"]
+        metrics, params = rank["streaming"]
+        assert [m["examples"] for m in metrics] == [24.0, 24.0, 16.0] * 2
+        np.testing.assert_allclose([m["loss"] for m in metrics],
+                                   [m["loss"] for m in want.metrics],
+                                   rtol=1e-5, atol=1e-6)
+        for key, value in want.params.items():
+            np.testing.assert_allclose(params[key], value.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=key)
 
 
 def test_bench_harness_over_a_dp_world():

@@ -73,6 +73,9 @@ def test_import_pulls_in_no_jax():
     "sparktorch_tpu_torch.obs.rpctrace", "sparktorch_tpu_torch.obs.timeline",
     "sparktorch_tpu_torch.lint,sparktorch_tpu_torch.lint.cli",
     "sparktorch_tpu_torch.net.bench_wire",
+    "sparktorch_tpu_torch.parallel.mesh,"
+    "sparktorch_tpu_torch.parallel.sharding_rules,"
+    "sparktorch_tpu_torch.train.sharded",
 ])
 def test_obs_and_tracing_modules_import_no_jax(module):
     # The copies of the JAX package's obs/log.py and obs/prom.py, the
@@ -80,7 +83,8 @@ def test_obs_and_tracing_modules_import_no_jax(module):
     # halves, the control plane, the supervisor and the obs modules they
     # import, each group on its own; the health lane, its replay, the
     # trace analyzer, the package as a whole, the request tracer, the
-    # renderer, the port's sparklint and the wire benchmark.
+    # renderer, the port's sparklint and the wire benchmark; the dp × fsdp
+    # mesh, its sharding rules and the sharded trainer.
     code = ("import sys, importlib\n"
             f"for name in {module.split(',')!r}:\n"
             "    importlib.import_module(name)\n"

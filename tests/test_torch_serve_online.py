@@ -733,8 +733,11 @@ def test_unported_paths_raise_and_name_their_item(trained):
     assert (armed is not None) == profile.enabled()
     if armed is not None:
         assert armed.telemetry is ctx.telemetry
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _replica(trained, tele, mesh=types.SimpleNamespace(dp=2))
+    from sparktorch_tpu_torch.parallel.mesh import Mesh, MeshConfig
+
+    for config in (MeshConfig(dp=2), MeshConfig(fsdp=2)):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            _replica(trained, tele, mesh=Mesh(config.resolve(2)))
 
 
 def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(trained):
