@@ -54,8 +54,9 @@ the CPU path):
    obs configs but ``skew`` (OBS_CONFIGS: CPU tests only) (the port's
    benchmark entry: BASELINE configs 1–5,
    the MNIST-CNN headline, ``hogwild_wire``, the long-context LM, the
-   MoE LM, ``hogwild_chaos``, ``hogwild_chaos_soak`` and ``skew``, whose
-   JAX gates raise inside them; those of BENCH_DEPTH at a cut depth; ``hogwild_wire`` at the
+   MoE LM, ``hogwild_chaos``, ``hogwild_chaos_soak``, ``skew`` and
+   ``sharded_trace`` (in a world of one), whose JAX gates raise inside
+   them; those of BENCH_DEPTH at a cut depth; ``hogwild_wire`` at the
    JAX depth through the CLI's ``main`` with ``--telemetry-dump``, whose
    dump must hold the ``bench/*`` spans), each record printed on its own
    line and held to the JAX config's record keys less the documented
@@ -122,14 +123,22 @@ the CPU path):
    of a traced fit; (ii) two processes on the card under gloo with CUDA
    tensors, each rank's SGD parameters within 1e-5 × max|param| of the
    world of one's (a correctness check: gloo stages through the host);
-   then the sharded trainer (``train/sharded.py``): the LM of phase 5 at
-   full width, 6 steps of ``create_sharded_state`` ->
-   ``make_sharded_train_step`` on an NCCL world of one with
-   ``MeshConfig(fsdp=1)`` (the token embedding an FSDP2 DTensor shard,
-   every other leaf replicated), its losses within 1e-3 relative of
-   phase 5's ``train_distributed`` losses, phase 5's launches per step,
-   and one profiled step whose ``train_step`` range holds one step's
-   launches; its step time printed beside phase 5's;
+   then the sharded trainer (``train/sharded.py``) through its tp-aware
+   path: the LM of phase 5 at full width, 6 steps of
+   ``create_sharded_state`` -> ``make_sharded_train_step`` on an NCCL
+   world of one with ``MeshConfig(tp=1)`` (the 3-D (dp, fsdp, tp) mesh;
+   the token embedding an FSDP2 DTensor shard of a one-rank fsdp axis,
+   every other leaf replicated), its losses bitwise
+   equal to phase 5's ``train_distributed`` losses, phase 5's launches
+   per step, and one profiled step whose ``train_step`` range holds one
+   step's launches; its step time printed beside phase 5's; then the tp
+   = 2 pair: two processes on the card under gloo with CUDA tensors
+   (NCCL refuses two ranks on one device; gloo stages through the host,
+   so a correctness check only), ``MeshConfig(tp=2)``, the same LM split
+   over tp (4 heads a rank), SHARDED_TP_STEPS SGD steps at
+   SHARDED_TP_SEQ, each peer's losses and gathered parameters against
+   the world of one's from the same weights (TP_LOSS_RTOL,
+   TP_UPDATE_RTOL), 8/4/4/1/1 launches a step on each peer;
 15. spark: BASELINE config 4's topology through the port's localspark
    runtime (``sparktorch_tpu_torch.spark``, executors as processes): (a)
    BERT-base fitted by ``SparkTorch(deployMode="barrier", partitions=1,
@@ -522,6 +531,9 @@ def kernel_phase(torch):
         ("serving chunk", CHUNK, SLICE_SEQ, 12, 64, False, bf16, False, True),
         ("LM training forward", LM_BATCH, LM_SEQ, 8, 64, True, bf16, True,
          True),
+        # A tp = 2 rank's share of the LM: 4 of its 8 heads.
+        ("LM tp=2 local forward", LM_BATCH, LM_SEQ, 4, 64, True, bf16,
+         True, True),
         ("slice b=8", 8, 128, 12, 64, False, bf16, False, False),
         # The serving tier's buckets: a batch of 1, 8 or 32 rows.
         ("bucket b=1", 1, SERVE_SEQ, 12, 64, False, bf16, False, True),
@@ -608,6 +620,7 @@ def bwd_kernel_phase(torch):
     # (label, b, s, h, d, causal, dtype, q/k/v as views of one qkv)
     cases = [
         ("LM path", LM_BATCH, LM_SEQ, 8, 64, True, bf16, True),
+        ("LM tp=2 local", LM_BATCH, LM_SEQ, 4, 64, True, bf16, True),
         ("BERT path", BERT_ROWS, BERT_SEQ, 12, 64, False, bf16, True),
         ("ragged causal", 4, 1000, 12, 64, True, bf16, False),
         ("head_dim 32 causal", 4, 256, 8, 32, True, bf16, False),
@@ -2517,7 +2530,8 @@ def bench_phase(torch):
     counts["bench_hogwild_wire"], records["hogwild_wire"] = (
         bench_hogwild_wire_dump(torch, bench))
     span_s, bench.SYNC_SPAN_S = bench.SYNC_SPAN_S, BENCH_SPAN_S
-    chaos = ("hogwild_chaos", "hogwild_chaos_soak", "gang_obs", "skew")
+    chaos = ("hogwild_chaos", "hogwild_chaos_soak", "gang_obs", "skew",
+             "sharded_trace")
     configs = {k: v for k, v in bench.CONFIGS.items()
                if k not in ("serve_online", "hogwild_wire",
                             "hogwild_ps_fleet", "elastic_ctl", *chaos,
@@ -2545,7 +2559,9 @@ def bench_phase(torch):
     for name in chaos:
         # The JAX gates raise inside the config; no kernel runs (gang_obs
         # and elastic_ctl do no device work at all; skew's step is two
-        # 768 x 768 matmul pairs).
+        # 768 x 768 matmul pairs; sharded_trace's tiny classifier runs
+        # dense attention and the dense CE, in an NCCL world of one,
+        # MeshConfig() as the JAX bench builds on an odd rig).
         reset_counts()
         t0 = time.perf_counter()
         rec = bench.CONFIGS[name](**BENCH_DEPTH.get(name, {}))
@@ -3151,12 +3167,27 @@ def dp_phase(torch):
 
 # The sharded phase: the long-context LM (phase 5's payload and ids)
 # through create_sharded_state -> make_sharded_train_step on an NCCL world
-# of one, MeshConfig(fsdp=1): the token embedding is an FSDP2 DTensor
-# shard (of a one-rank fsdp axis), every other leaf replicated, as the
-# sharding rules lay out the JAX mesh. Its losses are held to phase 5's
-# train_distributed losses within SHARDED_LOSS_RTOL (the same bf16 steps:
-# the objective is scaled by 1/Σw before the backward, not after it).
-SHARDED_LOSS_RTOL = 1e-3
+# of one, MeshConfig(tp=1): the 3-D (dp, fsdp, tp) mesh, one batch shard;
+# the token embedding is an FSDP2 DTensor shard of a one-rank fsdp axis,
+# every other leaf replicated, as the sharding rules lay out the JAX mesh.
+# Its losses must equal phase 5's train_distributed losses bit for bit
+# (the same bf16 steps: the objective is scaled by 1/Σw before the
+# backward in both).
+#
+# The tp pair: the LM at SHARDED_TP_SEQ for SHARDED_TP_STEPS steps of SGD
+# (lr SHARDED_TP_LR), the world of one against two gloo processes with
+# CUDA tensors on the card, MeshConfig(tp=2), from the same weights on the
+# same batch. tp sums each row-parallel product's bf16 partials in another
+# order, so the losses agree within TP_LOSS_RTOL (relative; 1.73e-5 was
+# read on the H100) and each leaf's update (final - initial) within
+# TP_UPDATE_RTOL of its L2 norm. A leaf whose update is under
+# TP_SMALL_UPDATE of the largest leaf's is held absolutely instead, to
+# TP_UPDATE_RTOL of that floor (TP_UPDATE_RTOL x TP_SMALL_UPDATE of the
+# largest update), and named in the log: its relative error is rounding
+# noise. A replicated leaf's gradient scaled by 1/tp, or a head in the
+# wrong shard, moves an update by half or more.
+SHARDED_TP_SEQ, SHARDED_TP_STEPS, SHARDED_TP_LR = 2048, 3, 0.1
+TP_LOSS_RTOL, TP_UPDATE_RTOL, TP_SMALL_UPDATE = 1e-4, 5e-2, 1e-3
 
 
 def sharded_steps(torch, run, state, batch, n):
@@ -3174,18 +3205,170 @@ def sharded_steps(torch, run, state, batch, n):
     return [float(v) for v in losses], step_ms
 
 
+def tp_pair_spec(torch):
+    """The LM (phase 5's config, its weights loaded later) under SGD."""
+    from sparktorch_tpu_torch.models import CausalLM
+    from sparktorch_tpu_torch.utils.serde import ModelSpec
+
+    torch.manual_seed(0)
+    return ModelSpec(module=CausalLM(lm_config(LM_SEQ, "flash")),
+                     loss="cross_entropy", optimizer="sgd",
+                     optimizer_params={"lr": SHARDED_TP_LR})
+
+
+def tp_pair_run(torch, mesh, ref):
+    """SHARDED_TP_STEPS sharded steps of :func:`tp_pair_spec` from
+    ``ref["init"]`` on ``ref``'s batch: the losses, the gathered final
+    parameters, the launches and the heads a rank's attention holds."""
+    from sparktorch_tpu_torch.convert import full_state_dict, load_full_state_dict
+    from sparktorch_tpu_torch.train.sharded import (
+        create_sharded_state,
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from sparktorch_tpu_torch.utils.data import DataBatch
+
+    spec = tp_pair_spec(torch)
+    state, shardings = create_sharded_state(spec, mesh, device="cuda")
+    load_full_state_dict(state.module, ref["init"])
+    heads = (state.module.backbone.layers[0].attn.qkv.weight.shape[0]
+             // (3 * (LM["d_model"] // LM["n_heads"])))
+    batch = shard_batch(DataBatch(ref["x"], ref["y"],
+                                  torch.ones(LM_BATCH)), mesh).to("cuda")
+    run = make_sharded_train_step(spec.loss_fn(), mesh, shardings)
+    reset_counts()
+    losses = [run(state, batch)[1].loss for _ in range(SHARDED_TP_STEPS)]
+    counts = read_counts()
+    return ([float(v) for v in losses], full_state_dict(state.module),
+            counts, heads)
+
+
+def tp_update_errors(init, final, want):
+    """Each leaf's L2 error of the update ``final - init`` against
+    ``want - init``, over the larger of that update's norm and
+    TP_SMALL_UPDATE of the largest leaf's; and the leaves under that
+    floor (name -> their update's norm over the largest)."""
+    deltas = {k: (want[k].float() - v.float()) for k, v in init.items()}
+    top = max(float(d.norm()) for d in deltas.values())
+    floor = TP_SMALL_UPDATE * top
+    errs = {k: float((final[k].float() - init[k].float() - d).norm())
+            / max(float(d.norm()), floor) for k, d in deltas.items()}
+    small = {k: float(d.norm()) / top for k, d in deltas.items()
+             if float(d.norm()) < floor}
+    return errs, small
+
+
+def sharded_tp_rank(rank, world, port, path, queue):
+    """One rank of :func:`sharded_tp_pair`: the tp = 2 run over gloo with
+    CUDA tensors, checked against the world of one's file at ``path``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from sparktorch_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        ref = torch.load(path)
+        mesh = build_mesh(MeshConfig(tp=2))
+        losses, final, counts, heads = tp_pair_run(torch, mesh, ref)
+        errs, small = tp_update_errors(ref["init"], final, ref["final"])
+        queue.put((rank, dict(losses=losses, counts=counts, heads=heads,
+                              update_errs=errs, small_updates=small,
+                              tp_rank=mesh.tp_rank)))
+    except Exception:
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_tp_pair(torch, path, ref_losses):
+    """The tp = 2 pair (above): two gloo processes on the card, each held
+    to the world of one's losses and updates. Returns rank 0's launches
+    and the results."""
+    import multiprocessing as mp
+    import queue as _queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=sharded_tp_rank,
+                         args=(r, 2, port, path, results)) for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in range(2):
+            rank, out = results.get(timeout=DP_JOIN_S)
+            if not isinstance(out, dict):
+                raise AssertionError(f"sharded tp pair: rank {rank} "
+                                     f"raised:\n{out}")
+            got[rank] = out
+    except _queue.Empty:
+        raise AssertionError(f"sharded tp pair: no result within "
+                             f"{DP_JOIN_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=DP_JOIN_S)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    worst_loss = max(abs(a - b) / abs(b) for out in got.values()
+                     for a, b in zip(out["losses"], ref_losses))
+    worst_update = max(max(out["update_errs"].values())
+                       for out in got.values())
+    worst_leaf = max(((k, v) for out in got.values()
+                      for k, v in out["update_errs"].items()),
+                     key=lambda kv: kv[1])[0]
+    small = {k: (f, max(out["update_errs"][k] for out in got.values()))
+             for k, f in got[0]["small_updates"].items()}
+    small_txt = ", ".join(f"{k} {f:.2e} / {e:.2e}"
+                          for k, (f, e) in small.items())
+    for rank, out in got.items():
+        expect_counts(f"sharded tp pair rank {rank}", out["counts"],
+                      lm_step_counts(SHARDED_TP_STEPS))
+    heads = [got[r]["heads"] for r in range(2)]
+    log(f"sharded tp pair (gloo, 2 ranks on one card, MeshConfig(tp=2), "
+        f"{heads} local heads, {SHARDED_TP_STEPS} SGD steps at s="
+        f"{SHARDED_TP_SEQ}): losses {[round(v, 5) for v in got[0]['losses']]}"
+        f" / {[round(v, 5) for v in got[1]['losses']]} against the world of "
+        f"one's {[round(v, 5) for v in ref_losses]}: worst relative "
+        f"difference {worst_loss:.3e} (limit {TP_LOSS_RTOL}); worst leaf "
+        f"update relative L2 error {worst_update:.3e} ({worst_leaf}; limit "
+        f"{TP_UPDATE_RTOL}); {len(small)} leaves under the "
+        f"{TP_SMALL_UPDATE} floor, held absolutely (update over the "
+        f"largest / error over the floor): [{small_txt}]; "
+        f"{wall:.1f} s with the processes' starts")
+    if heads != [LM["n_heads"] // 2] * 2:
+        raise AssertionError(f"sharded tp pair: local heads {heads}")
+    if not (worst_loss <= TP_LOSS_RTOL and worst_update <= TP_UPDATE_RTOL):
+        raise AssertionError("sharded tp pair: the tp ranks disagree with "
+                             "the world of one")
+    return got[0]["counts"], dict(
+        losses=[got[r]["losses"] for r in range(2)],
+        reference_losses=ref_losses, max_rel_loss_diff=worst_loss,
+        max_update_rel_err=worst_update, worst_leaf=worst_leaf,
+        small_updates=small, local_heads=heads, wall_s=wall)
+
+
 def sharded_phase(torch, lm):
     """The sharded trainer on the card: LM_ITERS steps of the LM at full
     width, its kernel launches counted and its losses held to phase 5's
     (``lm``: train_lm_phase's numbers), then one step's device time by
     kernel family and one profiled step whose ``train_step`` range must
-    hold one step's launches. Returns the launches of the LM_ITERS steps
-    and the results."""
+    hold one step's launches; then the tp pair's reference in the same
+    world, and the pair. Returns the launches of the LM_ITERS steps and
+    of the pair's rank 0, by path, and the results."""
     import glob
 
     import torch.distributed as dist
 
     from sparktorch_tpu_torch import deserialize_model
+    from sparktorch_tpu_torch.convert import full_state_dict
     from sparktorch_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from sparktorch_tpu_torch.train.sharded import (
         create_sharded_state,
@@ -3199,15 +3382,17 @@ def sharded_phase(torch, lm):
     store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
     dist.init_process_group("nccl", store=store, rank=0, world_size=1)
     trace_dir = os.path.join(SCRATCH, "sharded_trace")
+    pair_path = os.path.join(SCRATCH, "sharded_tp_reference.pt")
     try:
-        mesh = build_mesh(MeshConfig(fsdp=1))
+        mesh = build_mesh(MeshConfig(tp=1))
         state, shardings = create_sharded_state(spec, mesh, device="cuda")
         fsdp = sorted(k for k, v in shardings.items() if "fsdp" in v)
         dtensors = sorted(k for k, p in state.module.named_parameters()
                           if type(p).__name__ == "DTensor")
-        if fsdp != ["backbone.tok_embed.weight"] or dtensors != fsdp:
-            raise AssertionError(f"sharded: fsdp leaves {fsdp}, DTensor "
-                                 f"leaves {dtensors}")
+        if (mesh.device_mesh.mesh_dim_names != ("dp", "fsdp", "tp")
+                or fsdp != ["backbone.tok_embed.weight"] or dtensors != fsdp):
+            raise AssertionError(f"sharded: mesh {mesh.device_mesh}, fsdp "
+                                 f"leaves {fsdp}, DTensor leaves {dtensors}")
         batch = shard_batch(DataBatch(torch.from_numpy(x),
                                       torch.from_numpy(y),
                                       torch.ones(LM_BATCH)), mesh).to("cuda")
@@ -3219,13 +3404,14 @@ def sharded_phase(torch, lm):
         want = lm["losses"]
         worst = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
         log(f"sharded LM: {LM_ITERS} steps of make_sharded_train_step on "
-            f"an NCCL world of one (fsdp leaves {fsdp}), losses "
+            f"an NCCL world of one, MeshConfig(tp=1) on the 3-D mesh (FSDP2 "
+            f"DTensor leaves {dtensors}, a one-rank fsdp axis), losses "
             f"{[round(v, 4) for v in losses]} against train_distributed's "
-            f"{[round(v, 4) for v in want]}: worst relative difference "
-            f"{worst:.3e} (limit {SHARDED_LOSS_RTOL})")
-        if not (np.isfinite(losses).all() and worst <= SHARDED_LOSS_RTOL
+            f"{[round(v, 4) for v in want]}: bitwise equal "
+            f"{losses == want} (worst relative difference {worst:.3e})")
+        if not (np.isfinite(losses).all() and losses == want
                 and losses[-1] < losses[0]):
-            raise AssertionError("sharded LM: losses disagree with "
+            raise AssertionError("sharded LM: losses differ from "
                                  "train_distributed's or did not fall")
         busy = profile_pass(torch, "one sharded LM step",
                             lambda: run(state, batch))
@@ -3242,10 +3428,25 @@ def sharded_phase(torch, lm):
                                  f"train_step ranges, launches inside "
                                  f"{inside}, outside {outside}")
         del state, run, profiled, batch
+        torch.cuda.empty_cache()
+        # The tp pair's reference: the world of one from the LM's
+        # weights, SGD at SHARDED_TP_SEQ.
+        init = {k: v.detach().cpu().clone() for k, v in
+                spec.make_module().state_dict().items()}
+        ref = dict(init=init,
+                   x=torch.from_numpy(x[:, :SHARDED_TP_SEQ].copy()),
+                   y=torch.from_numpy(y[:, :SHARDED_TP_SEQ].copy()))
+        ref_losses, ref["final"], _, _ = tp_pair_run(torch, mesh, ref)
+        torch.save(ref, pair_path)
+        del ref, init
     finally:
         dist.destroy_process_group()
         shutil.rmtree(trace_dir, ignore_errors=True)
     torch.cuda.empty_cache()
+    try:
+        pair_counts, pair = sharded_tp_pair(torch, pair_path, ref_losses)
+    finally:
+        os.remove(pair_path)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -3253,13 +3454,16 @@ def sharded_phase(torch, lm):
         f"{LM_ITERS}, synchronised; the health lane on) beside the resident "
         f"train_distributed step's {lm['step_ms']:.2f} ms (phase 5, the "
         f"chunk's mean); a profiled step's train_step range holds "
-        f"{inside} (a record, not a claim)")
-    return counts, dict(losses=losses, resident_losses=want,
-                        max_rel_loss_diff=worst, step_ms=step_ms,
-                        resident_step_ms=lm["step_ms"],
-                        profiled_step_launches=inside,
-                        comm_fraction=None if analysis is None
-                        else analysis.comm_fraction, profile=busy, card=smi)
+        f"{inside} (a record, not a claim); the tp pair took "
+        f"{pair['wall_s']:.1f} s")
+    return ({"sharded": counts, "sharded_tp_pair": pair_counts},
+            dict(losses=losses, resident_losses=want,
+                 bitwise_equal=losses == want, max_rel_loss_diff=worst,
+                 step_ms=step_ms, resident_step_ms=lm["step_ms"],
+                 profiled_step_launches=inside,
+                 comm_fraction=None if analysis is None
+                 else analysis.comm_fraction, profile=busy, tp_pair=pair,
+                 card=smi))
 
 
 # The spark phase (BASELINE config 4's topology, the localspark runtime):
@@ -4871,7 +5075,8 @@ def run_phases(torch) -> int:
                    **{path: c[name] for path, c in hogwild_counts.items()},
                    "serve_resnet50": r50_counts[name],
                    "serve_resnet50_stream": r50_stream_counts[name],
-                   "dp": dp_counts[name], "sharded": sharded_counts[name],
+                   "dp": dp_counts[name],
+                   **{path: c[name] for path, c in sharded_counts.items()},
                    **{path: c[name] for path, c in spark_counts.items()},
                    **{path: c[name] for path, c in moe_counts.items()},
                    **{path: c[name]

@@ -102,7 +102,7 @@ import gc
 import json
 import subprocess
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -220,6 +220,11 @@ RECORD_KEYS = {
          "restarts", "resizes", "removed", "generation", "world_size",
          "parts_by_generation", "chaos_kills", "records_exact",
          "elastic_drift", "wall_s"}, set(), set()),
+    "sharded_trace": (
+        {"config", "unit", "value", "comm_fraction", "overlap_fraction",
+         "comm_s", "compute_s", "collective_s", "collective_counts",
+         "n_collective_events", "n_steps", "n_chips", "mesh", "reconcile",
+         "top_ops", "scrape_parity", "comm_drift", "phase_s"}, set(), set()),
     "rpc_trace": (
         {"config", "unit", "value", "overhead_pct", "fast_path_us",
          "sampled_chain_us", "traced_cost_per_op_us", "wire_op_p50_ms",
@@ -4235,6 +4240,224 @@ def bench_goodput(device=None, n_parts: int = 10, part_sleep_s: float = 0.25,
     }
 
 
+def _mesh_label(shape: Dict[str, int]) -> str:
+    """The JAX package's ``parallel.tune.mesh_label``: ``dp4xtp2``, axes
+    of size 1 left out, the trivial mesh ``dp1``."""
+    from sparktorch_tpu_torch.parallel.mesh import ALL_AXES
+
+    parts = [f"{a}{shape[a]}" for a in ALL_AXES if shape.get(a, 1) > 1]
+    return "x".join(parts) if parts else "dp1"
+
+
+@contextlib.contextmanager
+def _process_group(dev: torch.device):
+    """The default process group, or a world of one made for the block
+    (NCCL on the card, gloo on the CPU) and ended after it."""
+    import socket
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        yield
+        return
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def bench_sharded_trace(device=None) -> dict:
+    """The JAX bench's trace-attribution gate (``make bench-trace``):
+    capture a ``torch.profiler`` trace of the sharded trainer, read it
+    offline (:mod:`~sparktorch_tpu_torch.obs.xprof`), and raise unless
+
+    - the analysis finds at least one collective event when the world
+      has more than one process (the tp all-reduces inside the step,
+      beside the batch group's gradient all-reduce);
+    - the step slices' wall reconciles with the bus's
+      ``train_sharded/step`` span wall (the step ranges sit inside those
+      spans);
+    - a real ``/metrics`` scrape equals the JSONL telemetry dump for
+      every published ``xprof.*`` metric.
+
+    ``SequenceClassifier(tiny_transformer())`` under Adam at 1e-3, a
+    batch of 4 rows a process, 6 steps. The mesh is ``MeshConfig(tp=2)``
+    on an even world and ``MeshConfig()`` otherwise, over the default
+    process group (a world of one when there is none), and the record
+    names the mesh built. ``SPARKTORCH_TPU_TRACE_MESH=auto`` (the mesh
+    tuner) raises: ROADMAP, Queue 1, step 7."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sparktorch_tpu_torch.models import SequenceClassifier, tiny_transformer
+    from sparktorch_tpu_torch.native.gang import GangMetricsExporter
+    from sparktorch_tpu_torch.obs import (
+        Telemetry,
+        parse_prometheus,
+        read_jsonl,
+        scrape_text,
+    )
+    from sparktorch_tpu_torch.obs.prom import sanitize_name
+    from sparktorch_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from sparktorch_tpu_torch.train.sharded import (
+        create_sharded_state,
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from sparktorch_tpu_torch.utils.data import DataBatch
+
+    dev = _resolve_device(device)
+    mesh_knob = os.environ.get("SPARKTORCH_TPU_TRACE_MESH", "tp2")
+    if mesh_knob not in ("tp2", "auto"):
+        raise AssertionError(f"SPARKTORCH_TPU_TRACE_MESH={mesh_knob!r}: "
+                             "use 'tp2' or 'auto'")
+    if mesh_knob == "auto":
+        raise NotImplementedError(
+            "SPARKTORCH_TPU_TRACE_MESH=auto (the mesh tuner, "
+            "parallel/tune.py) is not ported yet (ROADMAP, Queue 1, step 7)")
+    tele = Telemetry(run_id="bench_sharded_trace")
+    steps = 6
+    with _process_group(dev):
+        n_dev = dist.get_world_size()
+        with tele.span("bench/data") as sp_data:
+            rng = np.random.default_rng(0)
+            bsz = 4 * n_dev
+            batch = DataBatch(
+                x=torch.from_numpy(rng.integers(0, 256, (bsz, 16)).astype(
+                    np.int32)),
+                y=torch.from_numpy(rng.integers(0, 2, (bsz,)).astype(
+                    np.int32)),
+                w=torch.ones(bsz, dtype=torch.float32))
+        with tele.span("bench/init") as sp_init:
+            torch.manual_seed(0)
+            spec = _spec(SequenceClassifier(tiny_transformer()),
+                         optimizer="adam", optimizer_params={"lr": 1e-3})
+            mesh = build_mesh(MeshConfig(tp=2) if n_dev % 2 == 0
+                              else MeshConfig())
+            # Recorded from the mesh built, never the knob: on an odd
+            # world the mesh is pure dp.
+            mesh_ran = _mesh_label(mesh.shape)
+            state, shardings = create_sharded_state(spec, mesh, rng=0,
+                                                    device=dev)
+        with tempfile.TemporaryDirectory() as profile_dir:
+            step = make_sharded_train_step(spec.loss_fn(), mesh, shardings,
+                                           profile_dir=profile_dir,
+                                           telemetry=tele)
+            sharded = shard_batch(batch, mesh).to(dev)
+            with tele.span("bench/compile_warmup") as sp_warm:
+                # The first step outside the capture (the bare step: no
+                # span, range or profiler), so the trace holds steady
+                # steps.
+                state, m = step.jitted(state, sharded)
+                float(m.loss)
+            with tele.span("bench/measure") as sp_measure:
+                for _ in range(steps):
+                    state, m = step(state, sharded)
+                    # Each step's device work drains inside its slice.
+                    float(m.loss)
+                sp_measure.synced = True
+            analysis = step.finish()
+
+    # -- gates --------------------------------------------------------------
+    if analysis is None or analysis.n_device_events == 0:
+        raise AssertionError("trace analysis found no device events: the "
+                             "capture holds nothing usable")
+    if n_dev > 1 and analysis.n_collective_events < 1:
+        raise AssertionError(
+            f"no collectives found in a {n_dev}-process sharded step "
+            f"(families seen: {analysis.family_counts()})")
+    span = tele.span_rollup("bench/measure/train_sharded/step")
+    step_wall = analysis.wall_s
+    span_wall = span["sum"]
+    # The ranges sit inside the spans: their wall never exceeds the
+    # span wall (beyond clock jitter) and accounts for most of it.
+    tol = max(0.5 * span_wall, 0.02)
+    if not (0 < step_wall <= span_wall + 0.005) or \
+            abs(span_wall - step_wall) > tol:
+        raise AssertionError(
+            f"step-slice wall {step_wall:.4f}s does not reconcile with "
+            f"bus span wall {span_wall:.4f}s (tol {tol:.4f}s)")
+    if len(analysis.steps) != steps or span["count"] != steps:
+        raise AssertionError(
+            f"expected {steps} steps: trace has {len(analysis.steps)}, "
+            f"bus has {span['count']}")
+
+    # -- /metrics scrape == JSONL dump --------------------------------------
+    with GangMetricsExporter(telemetry=tele) as exporter:
+        scraped = parse_prometheus(scrape_text(exporter.url + "/metrics"))
+    with tempfile.TemporaryDirectory() as d:
+        dump_path = os.path.join(d, "telemetry.jsonl")
+        snap = tele.dump(dump_path)
+        (snap_read,) = read_jsonl(dump_path)
+
+    def prom_key(flat: str) -> Tuple[str, str]:
+        name, _, labels = flat.partition("{")
+        lbl = ""
+        if labels:
+            k, _, v = labels[:-1].partition("=")
+            lbl = f'{{{k}="{v}"}}'
+        return "sparktorch_" + sanitize_name(name), lbl
+
+    mismatches = []
+    for flat, val in snap["counters"].items():
+        if not flat.startswith("xprof."):
+            continue
+        key, lbl = prom_key(flat)
+        got = scraped.get(key + lbl)
+        if got != val or snap_read["counters"].get(flat) != val:
+            mismatches.append((flat, val, got,
+                               snap_read["counters"].get(flat)))
+    n_hists = 0
+    for flat, roll in snap["histograms"].items():
+        if not flat.startswith("xprof."):
+            continue
+        n_hists += 1
+        key, lbl = prom_key(flat)
+        if scraped.get(f"{key}_count{lbl}") != float(roll["count"]) or \
+                snap_read["histograms"][flat]["count"] != roll["count"]:
+            mismatches.append((flat, roll["count"]))
+    if mismatches or n_hists == 0:
+        raise AssertionError(
+            f"xprof /metrics scrape vs JSONL dump mismatch (histograms "
+            f"seen: {n_hists}): {mismatches}")
+
+    return {
+        "config": "sharded_trace", "unit": "comm_fraction",
+        "value": round(analysis.comm_fraction, 4),
+        "comm_fraction": round(analysis.comm_fraction, 4),
+        "overlap_fraction": round(analysis.overlap_fraction, 4),
+        "comm_s": round(analysis.comm_s, 6),
+        "compute_s": round(analysis.compute_s, 6),
+        "collective_s": {k: round(v, 6)
+                         for k, v in analysis.family_s().items()},
+        "collective_counts": analysis.family_counts(),
+        "n_collective_events": analysis.n_collective_events,
+        "n_steps": len(analysis.steps),
+        "n_chips": n_dev,
+        "mesh": mesh_ran,
+        "reconcile": {"steps_wall_s": round(step_wall, 6),
+                      "span_wall_s": round(span_wall, 6)},
+        "top_ops": analysis.top_ops[:5],
+        "scrape_parity": "ok",
+        "comm_drift": _no_prior_drift(0.25, mesh=mesh_ran),
+        "phase_s": {
+            "data": round(sp_data.duration_s, 3),
+            "init": round(sp_init.duration_s, 3),
+            "compile_warmup": round(sp_warm.duration_s, 3),
+            "measure": round(sp_measure.duration_s, 3),
+            "comm_s": round(analysis.comm_s, 6),
+        },
+    }
+
+
 CONFIGS: Dict[str, Callable[[], dict]] = {
     "mnist_mlp_sync": bench_mnist_mlp_sync,
     "mnist_cnn_sync": bench_mnist_cnn_sync,
@@ -4257,6 +4480,7 @@ CONFIGS: Dict[str, Callable[[], dict]] = {
     "skew": bench_skew,
     "profile": bench_profile,
     "obs_history": bench_obs_history,
+    "sharded_trace": bench_sharded_trace,
 }
 
 

@@ -117,14 +117,23 @@ def state_dict_from_flax(variables: Mapping, target: Union[
 def load_full_state_dict(module: nn.Module,
                          state_dict: Mapping[str, torch.Tensor]) -> None:
     """Load a full ``state_dict`` (every rank holds all of it, as
-    :func:`state_dict_from_flax` gives it) into ``module``, laid out by
-    ``fully_shard`` or not: each DTensor entry takes its own shard of
-    the full tensor, with no communication."""
+    :func:`state_dict_from_flax` gives it) into ``module``, laid out over
+    tp (:mod:`~sparktorch_tpu_torch.parallel.tp`), by ``fully_shard``,
+    both or neither: each tp-split entry takes this rank's tp shard of
+    the full tensor, each DTensor entry its own shard of that, with no
+    communication."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
+    from sparktorch_tpu_torch.parallel import tp
+
+    split = tp.tp_leaves(module)
     with torch.no_grad():
         for key, t in module.state_dict().items():
             src = state_dict[key]
+            if key in split:
+                owner = module.get_submodule(key.rpartition(".")[0])
+                src = tp.shard_tensor(src, *split[key], owner.tp_rank,
+                                      owner.tp_size)
             if isinstance(t, DTensor):
                 src = distribute_tensor(src.to(t.device, t.dtype),
                                         t.device_mesh, t.placements,
@@ -135,8 +144,19 @@ def load_full_state_dict(module: nn.Module,
 
 def full_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
     """The full ``state_dict`` of ``module`` on the CPU, DTensor entries
-    gathered (a collective: every rank of the mesh calls it)."""
+    gathered over fsdp and tp-split ones over tp (a collective: every
+    rank of the mesh calls it)."""
     from torch.distributed.tensor import DTensor
 
-    return {k: (v.full_tensor() if isinstance(v, DTensor) else v)
-            .detach().cpu() for k, v in module.state_dict().items()}
+    from sparktorch_tpu_torch.parallel import tp
+
+    split = tp.tp_leaves(module)
+    out = {}
+    for k, v in module.state_dict().items():
+        v = (v.full_tensor() if isinstance(v, DTensor) else v).detach()
+        if k in split:
+            owner = module.get_submodule(k.rpartition(".")[0])
+            v = tp.gather_tensor(v, *split[k], owner.tp_group,
+                                 owner.tp_rank, owner.tp_size)
+        out[k] = v.cpu()
+    return out

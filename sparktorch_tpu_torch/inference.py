@@ -135,7 +135,8 @@ class BatchPredictor:
         """This rank's share of a chunk, on the device."""
         if self._shards > 1:
             per = part.shape[0] // self._shards
-            part = part[self.mesh.rank * per:(self.mesh.rank + 1) * per]
+            i = self.mesh.batch_index  # tp peers take the same rows
+            part = part[i * per:(i + 1) * per]
         if isinstance(part, torch.Tensor):
             if part.device.type != "cpu":
                 return part.to(self.device)  # on the card already

@@ -302,7 +302,8 @@ class SparkTorch(Estimator):
         ``MeshConfig``, e.g. ``MeshConfig(fsdp=2)``): every rank of the
         process group fits with the same frame and trains its shard of
         it, the batch split over dp × fsdp with the parameters
-        replicated, as the JAX package's ``train_distributed`` does."""
+        replicated (tp peers train the same shard), as the JAX
+        package's ``train_distributed`` does."""
         self._mesh = mesh
         return self
 
@@ -314,7 +315,7 @@ class SparkTorch(Estimator):
         if isinstance(self._mesh, MeshConfig):
             return build_mesh(self._mesh)
         raise _not_ported(f"mesh {self._mesh!r} (the port takes the dp x "
-                          "fsdp mesh of parallel.mesh.build_mesh)",
+                          "fsdp x tp mesh of parallel.mesh.build_mesh)",
                           "the rest of multi-GPU training, items 7 and 8")
 
     def getTorchObj(self):

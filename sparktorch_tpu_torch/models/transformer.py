@@ -151,6 +151,10 @@ class Embed(nn.Embedding):
         return rows.masked_fill(bad[..., None], float("nan")).to(
             self.compute_dtype)
 
+    def attend(self, x):
+        """f32 logits against the table, ``x @ Eᵀ`` (weight tying)."""
+        return x.float() @ self.weight.float().T
+
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, config: TransformerConfig):
@@ -174,14 +178,17 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x):
         cfg = self.config
         b, s, _ = x.shape
-        qkv = self.qkv(x).view(b, s, 3, cfg.n_heads, cfg.head_dim)
+        # The heads this module holds: all of them, or this rank's
+        # h/tp when the qkv weight is split by heads (parallel/tp.py).
+        h = self.qkv.weight.shape[0] // (3 * cfg.head_dim)
+        qkv = self.qkv(x).view(b, s, 3, h, cfg.head_dim)
         # Strided (b, s, h, hd) views; their backward stacks dq, dk, dv.
         q, k, v = qkv.unbind(2)
         if cfg.attn_impl == "flash":
             out = flash_attention(q, k, v, cfg.causal)
         else:
             out = dense_attention(q, k, v, causal=cfg.causal)
-        return self.proj(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+        return self.proj(out.reshape(b, s, h * cfg.head_dim))
 
 
 def moe_group_partition(cfg: TransformerConfig, n: int) -> Tuple[int, int]:
@@ -512,7 +519,7 @@ class CausalLM(nn.Module):
         if self.config.tie_embeddings:
             x = self.backbone(ids, example_w, embed=self.tok_embed)
             # f32 logits like the untied head: h @ Eᵀ.
-            return x.float() @ self.tok_embed.weight.float().T
+            return self.tok_embed.attend(x)
         return self.lm_head(self.backbone(ids, example_w))
 
 

@@ -136,7 +136,7 @@ class RpcSpan:
     treats that as 'don't record')."""
 
     __slots__ = ("name", "kind", "ctx", "parent_id", "ann", "ts", "t0",
-                 "dur_s", "status", "error", "forced")
+                 "t_end", "dur_s", "status", "error", "forced")
 
     def __init__(self, name: str, kind: str, ctx: Optional[SpanContext],
                  parent_id: Optional[str], ann: Dict[str, Any]):
@@ -147,6 +147,7 @@ class RpcSpan:
         self.ann = ann
         self.ts = time.time()          # wall clock: cross-process joinable
         self.t0 = time.perf_counter()  # monotonic: the honest duration
+        self.t_end: Optional[float] = None
         self.dur_s: Optional[float] = None
         self.status = "ok"
         self.error: Optional[str] = None
@@ -154,6 +155,11 @@ class RpcSpan:
 
     def annotate(self, **kv: Any) -> None:
         self.ann.update(kv)
+
+    def end_at(self, t: Optional[float]) -> None:
+        """End the span at ``t`` (a ``time.perf_counter()`` reading)
+        rather than at its block's exit; None keeps the exit."""
+        self.t_end = t
 
     def set_error(self, exc: BaseException) -> None:
         self.status = "error"
@@ -186,6 +192,9 @@ class _DisabledSpan:
     dur_s = None
 
     def annotate(self, **kv: Any) -> None:
+        pass
+
+    def end_at(self, t: Optional[float]) -> None:
         pass
 
     def set_error(self, exc: BaseException) -> None:
@@ -343,7 +352,8 @@ class RpcTracer:
             span.set_error(e)
             raise
         finally:
-            span.dur_s = time.perf_counter() - span.t0
+            end = span.t_end if span.t_end is not None else time.perf_counter()
+            span.dur_s = end - span.t0
             self._commit(span)
 
     def record(self, name: str, parent: Optional[SpanContext],

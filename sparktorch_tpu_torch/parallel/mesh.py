@@ -1,16 +1,22 @@
-"""The dp × fsdp mesh over a ``torch.distributed`` world — the port of ``sparktorch_tpu/parallel/mesh.py:46-156``.
+"""The (dp, fsdp, tp) mesh over a ``torch.distributed`` world — the port of ``sparktorch_tpu/parallel/mesh.py:46-156``.
 
 The JAX package carves its devices into six named axes. The port runs
-one process per GPU and two of them: ``dp`` (data parallel, parameters
-replicated) and ``fsdp`` (data parallel with parameters sharded, FSDP2
-over the ``fsdp`` sub-mesh). :class:`MeshConfig` refuses ``tp``, ``sp``,
-``ep`` and ``pp`` above 1. The batch is split over both axes
-(``BATCH_AXES``), dp outermost: the rank's batch shard is its global
-rank, its rows the contiguous block the JAX mesh's
+one process per GPU and three of them: ``dp`` (data parallel, parameters
+replicated), ``fsdp`` (data parallel with parameters sharded, FSDP2
+over the ``fsdp`` sub-mesh) and ``tp`` (tensor parallel: the
+transformer's heads, MLP columns and vocabulary split over the ``tp``
+sub-mesh, :mod:`~sparktorch_tpu_torch.parallel.tp`). :class:`MeshConfig`
+refuses ``sp``, ``ep`` and ``pp`` above 1. Ranks fill the (dp, fsdp, tp)
+grid row-major, as the JAX mesh's devices fill ``ALL_AXES``: tp peers
+are adjacent ranks. The batch is split over dp × fsdp (``BATCH_AXES``)
+and replicated over tp, dp outermost: a rank's batch shard is its place
+on the (dp, fsdp) grid, :attr:`Mesh.batch_index` (the rank itself when
+tp = 1), its rows the contiguous block the JAX mesh's
 ``P(("dp", "fsdp"))`` gives that device
 (:func:`sparktorch_tpu_torch.utils.data.shard_batch`). So every trainer
-reads :attr:`Mesh.batch_shards` and :attr:`Mesh.batch_group`, never the
-dp axis alone.
+reads :attr:`Mesh.batch_index`, :attr:`Mesh.batch_shards` and
+:attr:`Mesh.batch_group` (the ranks of the other batch shards that
+share this rank's tp coordinate), never the rank or the dp axis alone.
 
 Shardings are placement descriptors: a tuple with one entry per
 dimension of the leaf, each ``None`` (not split), an axis name or a
@@ -42,8 +48,10 @@ ALL_AXES = (AXIS_DP, AXIS_FSDP, AXIS_TP, AXIS_SP, AXIS_EP, AXIS_PP)
 BATCH_AXES = (AXIS_DP, AXIS_FSDP)
 COORDINATOR_ENV = "SPARKTORCH_TPU_COORDINATOR"
 
+# The axes a process's mesh spans, outermost first.
+MESH_AXES = (AXIS_DP, AXIS_FSDP, AXIS_TP)
 # Where each refused axis is queued (ROADMAP, Queue 1).
-_LATER = {AXIS_TP: "step 6 part 2", AXIS_SP: "step 6 part 3 (ring attention)",
+_LATER = {AXIS_SP: "step 6 part 3 (ring attention)",
           AXIS_EP: "step 6 part 4 (expert all-to-all)",
           AXIS_PP: "step 7 (train/pipeline.py)"}
 
@@ -52,8 +60,8 @@ Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's axes. ``dp=None`` takes what ``fsdp`` leaves
-    of the world; ``tp``, ``sp``, ``ep`` and ``pp`` must stay 1."""
+    """The JAX package's axes. ``dp=None`` takes what ``fsdp`` and
+    ``tp`` leave of the world; ``sp``, ``ep`` and ``pp`` must stay 1."""
 
     dp: Optional[int] = None
     fsdp: int = 1
@@ -68,28 +76,31 @@ class MeshConfig:
             raise NotImplementedError(
                 f"mesh axes {wide} are not ported yet (ROADMAP, Queue 1, "
                 f"{'; '.join(_LATER[a] for a in wide)}; items 7 and 8); the "
-                "port's mesh is dp x fsdp")
+                "port's mesh is dp x fsdp x tp")
 
     def resolve(self, world_size: int) -> dict:
-        if self.fsdp < 1 or world_size % self.fsdp:
+        fixed = self.fsdp * self.tp
+        if self.fsdp < 1 or self.tp < 1 or world_size % fixed:
             raise ValueError(f"world size {world_size} not divisible by "
-                             f"fsdp={self.fsdp}")
-        dp = self.dp if self.dp is not None else world_size // self.fsdp
-        if dp * self.fsdp != world_size:
-            raise ValueError(f"mesh dp={dp} x fsdp={self.fsdp} != world size "
-                             f"{world_size}: the port runs one process per "
-                             "device")
-        return {AXIS_DP: dp, AXIS_FSDP: self.fsdp,
-                **{a: 1 for a in ALL_AXES[2:]}}
+                             f"fsdp*tp={self.fsdp}*{self.tp}")
+        dp = self.dp if self.dp is not None else world_size // fixed
+        if dp * fixed != world_size:
+            raise ValueError(f"mesh dp={dp} x fsdp={self.fsdp} x tp={self.tp}"
+                             f" != world size {world_size}: the port runs one "
+                             "process per device")
+        return {AXIS_DP: dp, AXIS_FSDP: self.fsdp, AXIS_TP: self.tp,
+                **{a: 1 for a in ALL_AXES[3:]}}
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The dp × fsdp world this process belongs to. ``batch_group`` is
-    the group the batch is split over and the gradients are summed
-    over (the whole world), None when no process group is initialized
-    (a world of one that makes no collective call); ``device_mesh`` is
-    the torch ``DeviceMesh`` of shape (dp, fsdp), when there is one."""
+    """The (dp, fsdp, tp) world this process belongs to.
+    ``batch_group`` is the group the batch is split over and the
+    gradients are summed over: the dp × fsdp ranks that share this
+    rank's tp coordinate (the whole world when tp = 1), None when no
+    process group is initialized (a world of one that makes no
+    collective call); ``device_mesh`` is the torch ``DeviceMesh`` of
+    shape (dp, fsdp, tp), when there is one."""
 
     shape: dict
     rank: int = 0
@@ -105,9 +116,29 @@ class Mesh:
         return self.shape[AXIS_FSDP]
 
     @property
+    def tp(self) -> int:
+        return self.shape[AXIS_TP]
+
+    @property
+    def world(self) -> int:
+        """Processes in the mesh: dp × fsdp × tp."""
+        return self.batch_shards * self.tp
+
+    @property
     def batch_shards(self) -> int:
         """How many shards the batch is split into: dp × fsdp."""
         return self.dp * self.fsdp
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's batch shard: its place on the (dp, fsdp) grid.
+        tp peers share it, and with it their rows and their draws."""
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's coordinate on the tp axis."""
+        return self.rank % self.tp
 
     @property
     def fsdp_group(self):
@@ -115,10 +146,32 @@ class Mesh:
         return (None if self.device_mesh is None
                 else self.device_mesh.get_group(AXIS_FSDP))
 
+    @property
+    def tp_group(self):
+        """The tp peers of this rank (one batch shard's ranks)."""
+        return (None if self.device_mesh is None
+                else self.device_mesh.get_group(AXIS_TP))
+
+    @property
+    def batch_mesh(self):
+        """The (dp, fsdp) sub-mesh of this rank's tp coordinate, over
+        which ``fully_shard`` lays the fsdp shards out."""
+        return (None if self.device_mesh is None
+                else self.device_mesh[BATCH_AXES])
+
+
+def _batch_group(shape: dict, device_mesh):
+    """The group of the (dp, fsdp) sub-mesh of this rank's tp
+    coordinate: the whole world when tp = 1."""
+    if shape[AXIS_TP] == 1:
+        return dist.group.WORLD
+    return device_mesh[BATCH_AXES]._flatten().get_group()
+
 
 def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     """The mesh over the default process group, or a world of one when
-    none is initialized. Ranks fill the (dp, fsdp) grid row-major."""
+    none is initialized. Ranks fill the (dp, fsdp, tp) grid
+    row-major."""
     config = config or MeshConfig()
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(config.resolve(1))
@@ -126,10 +179,11 @@ def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     from torch.distributed.device_mesh import init_device_mesh
 
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    device_mesh = init_device_mesh(device_type, (shape[AXIS_DP],
-                                                 shape[AXIS_FSDP]),
-                                   mesh_dim_names=BATCH_AXES)
-    return Mesh(shape, rank=dist.get_rank(), batch_group=dist.group.WORLD,
+    device_mesh = init_device_mesh(device_type,
+                                   tuple(shape[a] for a in MESH_AXES),
+                                   mesh_dim_names=MESH_AXES)
+    return Mesh(shape, rank=dist.get_rank(),
+                batch_group=_batch_group(shape, device_mesh),
                 device_mesh=device_mesh)
 
 
@@ -137,13 +191,14 @@ def local_mesh(n: Optional[int] = None, **axes) -> Mesh:
     """:func:`build_mesh` of ``MeshConfig(**axes)``; ``n``, when given,
     must be the world size (a process is one device)."""
     mesh = build_mesh(MeshConfig(**axes))
-    if n is not None and n != mesh.batch_shards:
-        raise ValueError(f"local_mesh({n}) in a world of {mesh.batch_shards}")
+    if n is not None and n != mesh.world:
+        raise ValueError(f"local_mesh({n}) in a world of {mesh.world}")
     return mesh
 
 
 def batch_sharding(mesh: Mesh) -> Spec:
-    """Sharding for (batch, ...) arrays: batch split over dp+fsdp."""
+    """Sharding for (batch, ...) arrays: batch split over dp+fsdp,
+    replicated over tp."""
     return (BATCH_AXES,)
 
 

@@ -54,6 +54,7 @@ also the rank's ``compute`` in an installed goodput ledger.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import queue
@@ -464,10 +465,14 @@ class ParamServerHttp:
                     self.send_header(k, v)
                 self.send_header("Content-Length",
                                  str(binwire.frame_nbytes(chunks)))
+                chunks = [c for c in chunks if len(c)]
+                if not chunks:
+                    self.reply_t = time.perf_counter()  # lint-obs: ok (the serve span's end, a trace timestamp, not a ledger region)
                 self.end_headers()
-                for chunk in chunks:
-                    if len(chunk):
-                        self.wfile.write(chunk)
+                for i, chunk in enumerate(chunks):
+                    if i == len(chunks) - 1:
+                        self.reply_t = time.perf_counter()  # lint-obs: ok (the serve span's end, a trace timestamp, not a ledger region)
+                    self.wfile.write(chunk)
 
             def _trace_ctx(self, raw: Optional[bytes] = None):
                 """The request's span context: a pushed frame's trace
@@ -484,11 +489,21 @@ class ParamServerHttp:
                 return _rpctrace.SpanContext.from_header(
                     self.headers.get(_rpctrace.TRACE_HEADER))
 
+            @contextlib.contextmanager
             def _serve_span(self, route: str, ctx):
+                """The request's ``serve`` span. It ends on the
+                handler's clock just before the reply's last write:
+                the client cannot have read the reply before then, so
+                the span lies inside the client's wall; the
+                bookkeeping after the write falls outside it."""
                 ann = {"route": route}
                 if shard_label is not None:
                     ann["shard"] = shard_label
-                return tracer.child_span("serve", ctx, kind="server", **ann)
+                self.reply_t = None
+                with tracer.child_span("serve", ctx, kind="server",
+                                       **ann) as span:
+                    yield span
+                    span.end_at(self.reply_t)
 
             def do_GET(self):
                 route = self.path.split("?", 1)[0]

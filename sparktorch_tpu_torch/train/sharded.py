@@ -1,42 +1,55 @@
-"""The sharded trainer over a dp × fsdp mesh — the port of ``sparktorch_tpu/train/sharded.py``.
+"""The sharded trainer over a (dp, fsdp, tp) mesh — the port of ``sparktorch_tpu/train/sharded.py``.
 
 The JAX package lays its parameters out by sharding rules, splits the
-batch over ``BATCH_AXES`` (dp × fsdp) and lets GSPMD insert every
-collective into one jitted step. The port does the same with FSDP2:
-:func:`create_sharded_state` builds the module, asks
+batch over ``BATCH_AXES`` (dp × fsdp, replicated over tp) and lets GSPMD
+insert every collective into one jitted step. The port does the same in
+two layers: :func:`create_sharded_state` builds the module, asks
 :func:`~sparktorch_tpu_torch.parallel.sharding_rules.shard_params` for
-each leaf's placement, and calls ``fully_shard`` on every transformer
-block and on the root over the (dp, fsdp) ``DeviceMesh`` (a 2-D mesh is
-HSDP: replicated over dp, sharded over fsdp). A leaf whose rule names
-``fsdp`` on dimension d becomes a DTensor ``Shard(d)``; a leaf the rules
-replicate (the qkv, proj, MLP, LM-head and expert weights while tp = ep
-= 1) is left to the step, in ``ignored_params``.
+each leaf's placement, lays the tp-split leaves out on this rank's
+shards (:func:`~sparktorch_tpu_torch.parallel.tp.parallelize`: heads,
+MLP columns and vocabulary, with the f/g collectives inside the forward
+and backward), then calls FSDP2's ``fully_shard`` on every transformer
+block and on the root over the (dp, fsdp) sub-mesh of the rank's tp
+coordinate (a 2-D mesh is HSDP: replicated over dp, sharded over fsdp).
+A leaf whose rule names ``fsdp`` on dimension d becomes a DTensor
+``Shard(d)`` of its (tp-local) tensor; every other leaf (tp-split or
+replicated) is a plain tensor, left to the step in ``ignored_params``.
+FSDP2 runs at one batch shard too (a one-rank fsdp axis), except where
+the mesh is gloo's (device type "cpu") and the parameters are on CUDA:
+FSDP2 would move them to the mesh's device type, so there every leaf
+stays a plain tensor, and an fsdp axis above 1 raises.
 
 The step (:func:`make_sharded_train_step`'s ``run``):
 
-    den = Σ_batch w (one all-reduce before the forward),
+    den = Σ_batch w (one all-reduce over the batch group before the
+          forward),
     objective = Σ_shard(per·w) / max(den, 1) + aux / batch_shards,
 
 so the backward's sums over the batch group are the global gradients:
 FSDP2 reduce-scatters the sharded leaves' gradients over fsdp and
 all-reduces them over dp with a SUM (its divide-by-world default would
 be wrong whenever shards carry different weight sums, e.g. weight-0
-padding rows), and the replicated leaves' gradients go through the
-step's one coalesced all-reduce over the batch group, with the loss
-sums and the MoE drop counts. The MoE aux loss is each shard's mean over
-its routing groups, averaged over the shards: the global mean over
-groups, as GSPMD computes it. The loss is Σ(per·w) / max(Σw, 1) plus
-that aux. ``grad_norm``, the health vector's per-leaf norms and
-``update_ratio`` are global: squared local norms of the sharded leaves
-are summed over fsdp only (the dp replicas hold equal shards), the
-replicated leaves count once.
+padding rows), and the plain leaves' gradients go through the step's
+one coalesced all-reduce over the batch group (the dp × fsdp ranks of
+this tp coordinate, which hold the same tp shards), with the loss sums
+and the MoE drop counts; at one batch shard neither batch-group
+collective is made. tp peers see the same rows, and the f/g pair
+gives every replicated leaf its whole gradient on each of them. The MoE
+aux loss is each shard's mean over its routing groups, averaged over the
+shards: the global mean over groups, as GSPMD computes it. The loss is
+Σ(per·w) / max(Σw, 1) plus that aux. ``grad_norm``, the health vector's
+per-leaf norms and ``update_ratio`` are global: each leaf's squared
+local norm is summed over the axes it is split on (fsdp, tp, both or
+none; the dp replicas hold equal shards), in one all-reduce an axis.
 
 Optimizers: the elementwise ones (sgd, adam, adamw, rmsprop, adagrad,
-lion) run on the DTensor shards unchanged; Lamb's per-tensor trust
-ratio takes the DTensor norms, which are global. The optimizer gets two
-parameter groups, the sharded leaves and the replicated ones, so no
-fused update mixes DTensors and plain tensors. Adafactor's factored
-moments are not ported to shards: it raises (ROADMAP, Queue 1, step 6).
+lion) run on the DTensor and tp shards unchanged; Lamb's per-tensor
+trust ratio takes global norms (the DTensor norms are global over fsdp,
+and the tp-split leaves' are summed over tp). The optimizer gets two
+parameter groups, the DTensor leaves and the plain ones, so no fused
+update mixes DTensors and plain tensors. Adafactor's factored moments
+are not ported to shards: it raises on fsdp- or tp-split leaves
+(ROADMAP, Queue 1, step 6).
 
 What differs from the JAX package: the state is a
 :class:`ShardedState` (module, optimizer, step) that ``run`` updates in
@@ -67,7 +80,13 @@ from sparktorch_tpu_torch.obs import goodput as _goodput
 from sparktorch_tpu_torch.obs import health as _health
 from sparktorch_tpu_torch.obs import profile as _stackprof
 from sparktorch_tpu_torch.ops import _build as _kernels
-from sparktorch_tpu_torch.parallel.mesh import AXIS_FSDP, BATCH_AXES, Mesh
+from sparktorch_tpu_torch.parallel import tp as _tp
+from sparktorch_tpu_torch.parallel.mesh import (
+    AXIS_FSDP,
+    AXIS_TP,
+    BATCH_AXES,
+    Mesh,
+)
 from sparktorch_tpu_torch.parallel.sharding_rules import (
     shard_params,
     transformer_rules,
@@ -105,9 +124,14 @@ class ShardedState:
     module: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
-    # Which trainable leaves are fsdp shards, on the device (made once).
-    sharded_mask: Optional[torch.Tensor] = dataclasses.field(default=None,
-                                                             repr=False)
+    # The mesh axes (of size > 1) each trainable leaf is split on, in
+    # parameter order.
+    split_axes: List[Tuple[str, ...]] = dataclasses.field(
+        default_factory=list, repr=False)
+    # Per axis: which trainable leaves it splits, on the device (made
+    # at the first step).
+    split_masks: Optional[Dict[str, torch.Tensor]] = dataclasses.field(
+        default=None, repr=False)
 
 
 def _is_dtensor(t) -> bool:
@@ -129,12 +153,23 @@ def _blocks(module: nn.Module) -> List[nn.Module]:
 def _fully_shard(module: nn.Module, mesh: Mesh,
                  placements: Dict[str, tuple]) -> None:
     """``fully_shard`` every block, then the root, over the (dp, fsdp)
-    mesh: each leaf whose placement names fsdp is a ``Shard`` of that
-    dimension, every other leaf is ignored (replicated). Gradients are
-    reduced as sums."""
+    sub-mesh: each leaf whose placement names fsdp is a ``Shard`` of
+    that dimension, every other leaf is ignored (replicated over dp ×
+    fsdp). Gradients are reduced as sums. A gloo mesh over CUDA
+    parameters (two processes on one card) is left alone: FSDP2 would
+    move them to the mesh's device type, "cpu"."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
+    on, kind = (next(module.parameters()).device.type,
+                mesh.batch_mesh.device_type)
+    if kind != on:
+        if mesh.fsdp > 1:
+            raise ValueError(f"fsdp={mesh.fsdp} over a {kind!r} mesh with "
+                             f"{on!r} parameters: "
+                             "FSDP2 needs the mesh on the parameters' "
+                             "device (NCCL for CUDA)")
+        return
     dims, ignored = {}, set()
     for name, p in module.named_parameters():
         spec = placements[name]
@@ -144,7 +179,7 @@ def _fully_shard(module: nn.Module, mesh: Mesh,
             ignored.add(p)
     if not dims:
         return
-    kw = dict(mesh=mesh.device_mesh, shard_placement_fn=dims.get)
+    kw = dict(mesh=mesh.batch_mesh, shard_placement_fn=dims.get)
     for block in _blocks(module):
         own = set(block.parameters())
         fully_shard(block, ignored_params=own & ignored, **kw)
@@ -155,6 +190,38 @@ def _fully_shard(module: nn.Module, mesh: Mesh,
             # Without it a factor of 1 is a PREMUL_SUM, which gloo lacks.
             if hasattr(m, "set_force_sum_reduction_for_comms"):
                 m.set_force_sum_reduction_for_comms(True)
+
+
+def _split_axes(spec: tuple, mesh: Mesh) -> Tuple[str, ...]:
+    named = {a for entry in spec if entry is not None
+             for a in (entry if isinstance(entry, tuple) else (entry,))}
+    return tuple(a for a in (AXIS_FSDP, AXIS_TP)
+                 if a in named and mesh.shape[a] > 1)
+
+
+def _tp_norms(split: set, group) -> Callable:
+    """The optimizer's ``global_norms`` hook: the norms of the tp-split
+    leaves (global over fsdp already, as DTensor norms are) summed over
+    tp, in one all-reduce."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def global_norms(params, norms):
+        idx = [i for i, p in enumerate(params) if p in split]
+        if not idx:
+            return norms
+        sq = torch.stack([(norms[i].full_tensor() if _is_dtensor(norms[i])
+                           else norms[i]) for i in idx]).square()
+        dist.all_reduce(sq, group=group)
+        out = list(norms)
+        for j, i in enumerate(idx):
+            v = sq[j].sqrt()
+            if _is_dtensor(norms[i]):
+                m = norms[i].device_mesh
+                v = DTensor.from_local(v, m, [Replicate()] * m.ndim)
+            out[i] = v
+        return out
+
+    return global_norms
 
 
 def _param_groups(module: nn.Module) -> List[dict]:
@@ -184,26 +251,33 @@ def create_sharded_state(spec, mesh: Mesh, rng: int = 0, device=None
         module = copy.deepcopy(module)  # leave the caller's module as it is
     module = module.to(dev).train()
     shardings = shard_params(module, mesh, transformer_rules(mesh))
+    tp_split = _tp.parallelize(module, mesh, shardings)
     _fully_shard(module, mesh, shardings)
     optimizer = spec.make_optimizer(_param_groups(module),
                                     _optim.flax_shapes(module))
-    if (isinstance(optimizer, _optim.Adafactor) and mesh.fsdp > 1
-            and any(_is_dtensor(p) for p in module.parameters())):
-        raise _later("adafactor on fsdp-sharded leaves (its factored "
-                     "moments over DTensor shards)",
+    split_axes = [_split_axes(shardings[k], mesh)
+                  for k, p in module.named_parameters() if p.requires_grad]
+    if isinstance(optimizer, _optim.Adafactor) and any(split_axes):
+        raise _later("adafactor on fsdp- or tp-split leaves (its factored "
+                     "moments over shards)",
                      "step 6: the sharded trainer's optimizers")
-    return ShardedState(module, optimizer), shardings
+    if tp_split:
+        named = dict(module.named_parameters())
+        optimizer.global_norms = _tp_norms(
+            {named[k] for k in tp_split}, mesh.tp_group)
+    return ShardedState(module, optimizer, split_axes=split_axes), shardings
 
 
 def shard_batch(batch: DataBatch, mesh: Mesh,
                 seq_sharded: bool = False) -> DataBatch:
     """This rank's rows of ``batch``: the batch padded to a multiple of
-    the batch shards with weight-0 rows, then the rank's contiguous
-    block, dp outer and fsdp inner, as ``P(BATCH_AXES)`` lays it out."""
+    the batch shards with weight-0 rows, then the contiguous block of
+    the rank's batch shard, dp outer and fsdp inner, as
+    ``P(BATCH_AXES)`` lays it out (tp peers get the same rows)."""
     from sparktorch_tpu_torch.utils.data import shard_batch as _rows
 
     batch_specs(seq_sharded)
-    return _rows(batch, mesh.rank, mesh.batch_shards)
+    return _rows(batch, mesh.batch_index, mesh.batch_shards)
 
 
 def _sharded_step(state: ShardedState, batch: DataBatch, loss_fn: Callable,
@@ -212,6 +286,9 @@ def _sharded_step(state: ShardedState, batch: DataBatch, loss_fn: Callable,
     group = mesh.batch_group
     optimizer.zero_grad(set_to_none=True)
     den = batch.w.sum().float()
+    # One batch shard: nothing to sum over the batch group.
+    if mesh.batch_shards == 1:
+        group = None
     if group is not None:
         den = den.clone()
         dist.all_reduce(den, op=dist.ReduceOp.SUM, group=group)
@@ -264,17 +341,21 @@ def _sharded_step(state: ShardedState, batch: DataBatch, loss_fn: Callable,
             upd_sq = torch.stack(torch._foreach_norm(old)).float().square()
             new_sq = torch.stack(torch._foreach_norm(
                 local_params)).float().square()
-    # Global squares: the sharded leaves' local squares summed over fsdp
-    # (the dp replicas hold equal shards), the replicated ones as they
-    # are, all in one all-reduce.
+    # Global squares: each leaf's local square summed over the axes it
+    # is split on (the dp replicas hold equal shards), a replicated
+    # leaf's as it is; one all-reduce an axis.
     parts = [grad_sq] + ([upd_sq, new_sq] if health else [])
-    if mesh.fsdp > 1:
-        if state.sharded_mask is None:
-            state.sharded_mask = torch.tensor(
-                [_is_dtensor(p) for p in params], device=grad_sq.device)
-        mask, n = state.sharded_mask, len(params)
+    if state.split_masks is None:
+        state.split_masks = {
+            axis: torch.tensor([axis in a for a in state.split_axes],
+                               device=grad_sq.device)
+            for axis in (AXIS_FSDP, AXIS_TP)
+            if any(axis in a for a in state.split_axes)}
+    n = len(params)
+    for axis, mask in state.split_masks.items():
+        group = mesh.fsdp_group if axis == AXIS_FSDP else mesh.tp_group
         flat = torch.cat([torch.where(mask, t, 0.0) for t in parts])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.fsdp_group)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         parts = [torch.where(mask, flat[i * n:(i + 1) * n], t)
                  for i, t in enumerate(parts)]
     leaf_norms = parts[0].sqrt()
@@ -301,8 +382,9 @@ def make_sharded_train_step(loss_fn: Callable, mesh, state_shardings=None,
     gradients over the mesh (module docstring). Returns ``run(state,
     batch) -> (state, StepMetrics)``, ``batch`` being this rank's
     :func:`shard_batch`, with ``run.mesh``, ``run.shardings``,
-    ``run.state`` (None), ``run.tune_result`` (None) and
-    ``run.finish()``.
+    ``run.jitted`` (the bare step: no span, trace range, capture or
+    health note, as the JAX run's jitted function), ``run.state``
+    (None), ``run.tune_result`` (None) and ``run.finish()``.
 
     Every call is a ``train_sharded/step`` span on the bus and a
     ``train_step`` trace range; with ``profile_dir`` the first call
@@ -380,8 +462,13 @@ def make_sharded_train_step(loss_fn: Callable, mesh, state_shardings=None,
             ledger.apply_analysis(analysis)
         return analysis
 
+    def jitted(state: ShardedState, batch: DataBatch):
+        return state, _sharded_step(state, batch, loss_fn, mesh,
+                                    _health.active() is not None)
+
     run.mesh = mesh
     run.shardings = state_shardings
+    run.jitted = jitted
     run.state = None
     run.tune_result = None
     run.finish = finish

@@ -13,15 +13,18 @@ calls :func:`train_distributed` with the same data and trains its
 contiguous shard of it, padded to a multiple of the batch shards (dp ×
 fsdp: the parameters stay replicated here, as in the JAX trainer; the
 sharded trainer is :mod:`~sparktorch_tpu_torch.train.sharded`) with
-weight-0 rows; the step makes one all-reduce of the weighted sums. The validation
+weight-0 rows; the step makes one all-reduce of the weighted sums over
+the batch group. tp peers are replicas of one batch shard, as in the
+JAX package's shard_map trainers: they train the same rows, draw the
+same minibatches and stay equal. The validation
 split and the round shuffles (a host permutation of the whole batch,
 from ``seed + 1``) are drawn alike on every rank, so the shards agree;
-minibatch offsets come from ``seed + rank``. The reported losses are
-global. Rank 0 writes the checkpoints, behind a barrier, and every rank
-restores from the shared directory. Between chunks :func:`check_gang`
-raises ``GangFailure`` when a peer host has died.
-:func:`train_distributed_multihost` takes each rank's own partition
-instead.
+minibatch offsets come from ``seed + batch_index``. The reported losses
+are global. Rank 0 writes the checkpoints, behind a barrier of the whole
+world, and every rank restores from the shared directory. Between
+chunks :func:`check_gang` raises ``GangFailure`` when a peer host has
+died. :func:`train_distributed_multihost` takes each rank's own
+partition instead (tp peers must be given the same one).
 
 :func:`train_distributed_streaming` keeps the data in host memory and
 walks it in fixed-size chunks, one chunk ahead on the card: chunk i+1
@@ -90,6 +93,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
+import zlib
 from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
@@ -204,8 +208,9 @@ def _save_if_due(ckpt, module, optimizer, step: int, last_ckpt_step: int,
 
 
 def _barrier(mesh: Optional[Mesh]) -> None:
+    """Every rank of the world (tp peers too) waits here."""
     if mesh is not None and mesh.batch_group is not None:
-        dist.barrier(group=mesh.batch_group)
+        dist.barrier(group=dist.group.WORLD)
 
 
 def _finalize_checkpoint(ckpt, module, optimizer, step: int,
@@ -263,7 +268,8 @@ class _Shards:
             self.batch = batch.to(dev)
             self.gen = torch.Generator(device=dev).manual_seed(seed + 1)
             return
-        self.rank, self.world = (0, 1) if local else (mesh.rank, mesh.batch_shards)
+        self.rank, self.world = ((0, 1) if local
+                                 else (mesh.batch_index, mesh.batch_shards))
         self.host = pad_to_multiple(batch, self.world)
         self.gen = torch.Generator().manual_seed(seed + 1)
         self.batch = shard_batch(self.host, self.rank, self.world).to(dev)
@@ -278,14 +284,14 @@ class _Shards:
 
 
 def _broadcast_module(module: torch.nn.Module, mesh: Mesh) -> None:
-    """Rank 0's weights and buffers on every rank (a lazily packaged
-    model initialises on each rank from its own generator)."""
+    """Rank 0's weights and buffers on every rank of the world, tp peers
+    too (a lazily packaged model initialises on each rank from its own
+    generator)."""
     if mesh.batch_group is None:
         return
-    src = dist.get_global_rank(mesh.batch_group, 0)
     with torch.no_grad():
         for t in module.state_dict().values():
-            dist.broadcast(t, src=src, group=mesh.batch_group)
+            dist.broadcast(t, src=0, group=dist.group.WORLD)
 
 
 def _dp_trainer(torch_obj, spec: ModelSpec, mesh: Mesh, dev: torch.device,
@@ -445,7 +451,7 @@ def train_distributed(
             shards = _Shards(train_batch, mesh, dev, seed)
             if val_batch is not None:
                 val_batch = (val_batch if group is None else
-                             shard_batch(val_batch, mesh.rank,
+                             shard_batch(val_batch, mesh.batch_index,
                                          mesh.batch_shards)
                              ).to(dev)
 
@@ -465,7 +471,8 @@ def train_distributed(
         steps_per_call, min(iters, 32), iters, checkpoint_every,
         ckpt is not None)
     mini_batch = mini_batch if mini_batch is not None and mini_batch > 0 else None
-    sample_gen = torch.Generator().manual_seed(seed + mesh.rank)
+    # tp peers draw the same minibatches: seeded by the batch shard.
+    sample_gen = torch.Generator().manual_seed(seed + mesh.batch_index)
 
     recorder = MetricsRecorder(n_chips=mesh.batch_shards, telemetry=tele)
     # Exited in the finally: a failed run still writes its trace.
@@ -608,6 +615,31 @@ def _gather_shape_vectors(vec: np.ndarray, mesh: Mesh) -> np.ndarray:
     return torch.stack(out).cpu().numpy()  # lint-obs: ok (one set-up gather of the batch shapes, before any step)
 
 
+def _check_tp_peers(vec: np.ndarray, x: np.ndarray, y: Optional[np.ndarray],
+                    mesh: Mesh) -> None:
+    """tp peers are replicas of one batch shard, so each must bring the
+    same partition: raise unless their shape vectors and the CRC-32 of
+    their rows agree (one all-gather over the tp group)."""
+    if mesh.tp == 1 or mesh.tp_group is None:
+        return
+    crcs = [-1 if a is None else zlib.crc32(np.ascontiguousarray(a).data)
+            for a in (x, y)]
+    digest = np.concatenate([vec, np.asarray(crcs, np.int64)])
+    on = "cuda" if dist.get_backend(mesh.tp_group) == "nccl" else "cpu"
+    mine = torch.from_numpy(digest).to(on)
+    out = [torch.empty_like(mine) for _ in range(mesh.tp)]
+    dist.all_gather(out, mine, group=mesh.tp_group)
+    peers = torch.stack(out).cpu().numpy()  # lint-obs: ok (one set-up gather of the partitions' digests, before any step)
+    if not (peers == peers[0]).all():
+        raise ValueError(
+            f"train_distributed_multihost: the tp peers of batch shard "
+            f"{mesh.batch_index} brought different partitions (rows "
+            f"{[int(v) for v in peers[:, 0]]}, CRC-32 of x "
+            f"{[int(v) for v in peers[:, -2]]}); "
+            "tp peers are replicas of one batch shard and must be given "
+            "the same rows")
+
+
 def train_distributed_multihost(
     torch_obj: Union[str, ModelSpec],
     local_x: np.ndarray,
@@ -623,7 +655,8 @@ def train_distributed_multihost(
     and dtypes from a rank that has rows — so skewed and empty
     partitions are absorbed exactly into the global weighted mean.
     ``kwargs`` go to :func:`train_distributed` (no validation split:
-    as in the reference, the multihost path trains on every row)."""
+    as in the reference, the multihost path trains on every row). tp
+    peers must bring the same partition, or every rank raises."""
     mesh = mesh or build_mesh()
     local_x = np.asarray(local_x)
     if not np.issubdtype(local_x.dtype, np.integer):
@@ -633,7 +666,9 @@ def train_distributed_multihost(
                    else local_x[:, None])
     local_y = np.asarray(local_y) if local_y is not None else None
 
-    gathered = _gather_shape_vectors(_shape_vector(local_x, local_y), mesh)
+    vec = _shape_vector(local_x, local_y)
+    _check_tp_peers(vec, local_x, local_y, mesh)
+    gathered = _gather_shape_vectors(vec, mesh)
     if local_x.shape[0] == 0:
         donors = gathered[gathered[:, 0] > 0]
         if len(donors):
@@ -759,7 +794,7 @@ def train_distributed_streaming(
     all-reduce over the batch group, and only rank 0 writes
     ``checkpoint_dir`` (every rank restores from it)."""
     mesh = mesh or build_mesh()
-    world, rank = mesh.batch_shards, mesh.rank
+    world, rank, shard_i = mesh.batch_shards, mesh.rank, mesh.batch_index
     dev = _resolve_device(device)
     tele = telemetry or get_telemetry()
     spec = deserialize_model(torch_obj)
@@ -787,13 +822,13 @@ def train_distributed_streaming(
     # Fold the restored step into the shuffle seed: a resumed run draws
     # fresh permutations instead of replaying the epochs already run.
     shuffle_rng = np.random.default_rng(seed + 1 + global_step)
-    sample_gen = torch.Generator().manual_seed(seed + rank)
+    sample_gen = torch.Generator().manual_seed(seed + shard_i)
     feeder = _ChunkFeeder(arrays, per_shard, dev)
 
     def shard(lo: int, order: np.ndarray) -> np.ndarray:
-        """The rows of this rank's shard of the chunk at ``lo``."""
+        """The rows of this rank's batch shard of the chunk at ``lo``."""
         chunk = order[lo:lo + chunk_rows]
-        return chunk[rank * per_shard:(rank + 1) * per_shard]
+        return chunk[shard_i * per_shard:(shard_i + 1) * per_shard]
 
     recorder = MetricsRecorder(n_chips=world, telemetry=tele,
                                prefix="train_streaming")

@@ -10,7 +10,12 @@ int64.
 ``cross_entropy`` (and ``CrossEntropyLoss``) is :func:`cross_entropy_auto`:
 LM-shaped integer-label logits (batch, seq, vocab) go to the fused
 cross-entropy kernels (:mod:`sparktorch_tpu_torch.ops.fused_ce`),
-everything else to the dense path.
+everything else to the dense path. Under tensor parallelism the LM
+head's vocab-split logits are gathered over tp at the head's exit
+(:class:`~sparktorch_tpu_torch.parallel.tp.VocabParallelHead`), so the
+loss, and the kernel, always see full rows, as the JAX kernel does
+under GSPMD; a vocab-parallel cross entropy that skips the gather is a
+speed lead (ROADMAP).
 """
 
 from __future__ import annotations

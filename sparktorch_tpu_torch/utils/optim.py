@@ -37,6 +37,18 @@ import torch
 
 
 class _OptaxRule(torch.optim.Optimizer):
+    # Set by a trainer whose leaves are split over ranks (tp): (params,
+    # their local per-tensor norms) → the global norms.
+    global_norms = None
+
+    def _norms(self, params, tensors):
+        """The per-tensor norms of ``tensors`` (one for each of
+        ``params``), global over any split."""
+        norms = torch._foreach_norm(tensors)
+        if self.global_norms is None:
+            return norms
+        return self.global_norms(params, norms)
+
     def _group_tensors(self, group, *names):
         """Params with a gradient, their gradients and their state
         tensors ``names`` (created by ``_init_state`` at first use)."""
@@ -360,8 +372,8 @@ class Lamb(_OptaxRule):
             if group["weight_decay"]:
                 torch._foreach_add_(updates, params,
                                     alpha=group["weight_decay"])
-            p_norms = torch._foreach_norm(params)
-            u_norms = torch._foreach_norm(updates)
+            p_norms = self._norms(params, params)
+            u_norms = self._norms(params, updates)
             for p, u, pn, un in zip(params, updates, p_norms, u_norms):
                 ratio = torch.where((pn == 0) | (un == 0), 1.0, pn / un)
                 p.sub_(u * (ratio * group["lr"]))

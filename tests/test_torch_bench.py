@@ -166,7 +166,7 @@ def test_config_choices_and_unported_options():
         "resnet50_inference", "long_context_lm", "moe_lm", "serve_online",
         "hogwild_ps_fleet", "hogwild_chaos", "hogwild_chaos_soak",
         "gang_obs", "elastic_ctl", "rpc_trace", "health", "goodput", "skew",
-        "profile", "obs_history"}
+        "profile", "obs_history", "sharded_trace"}
     with pytest.raises(SystemExit):
         bench.main(["--config", "moe_a2a"])  # needs an ep mesh axis
     # --telemetry-dump is ported: without a card the run raises first.
@@ -288,7 +288,17 @@ OBS_CONFIGS = {
 
 @pytest.mark.parametrize("config", sorted(OBS_CONFIGS))
 def test_obs_configs_hold_their_gates_on_the_cpu(config):
-    rec = bench.CONFIGS[config](device="cpu", **OBS_CONFIGS[config])
+    threads = torch.get_num_threads()
+    if config == "profile":
+        # The A/A's 768² CPU matmul on every core of a loaded host times
+        # the cores' contention (its off/off floor read up to 10% under
+        # six concurrent runs), not the sampler: one intra-op thread, as
+        # serve_online's test pins (its floor then within 0.4%).
+        torch.set_num_threads(1)
+    try:
+        rec = bench.CONFIGS[config](device="cpu", **OBS_CONFIGS[config])
+    finally:
+        torch.set_num_threads(threads)
     jax_keys, omitted, added = bench.RECORD_KEYS[config]
     assert set(rec) == (jax_keys - omitted) | added
     assert rec["config"] == config

@@ -420,8 +420,9 @@ def test_estimator_mesh_settings():
     # fsdp is ported: a world of one has no room for two shards.
     with pytest.raises(ValueError, match="world size"):
         port.SparkTorch(mesh=MeshConfig(fsdp=2), **kw).fit(frame)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*items 7 and 8"):
-        port.SparkTorch(**kw).setMesh(MeshConfig(tp=2))
+    # tp is ported too: a world of one has no room for two tp peers.
+    with pytest.raises(ValueError, match="world size"):
+        port.SparkTorch(**kw).setMesh(MeshConfig(tp=2)).fit(frame)
     with pytest.raises(ValueError, match="world size"):
         build_mesh(MeshConfig(dp=2))
 

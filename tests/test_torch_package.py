@@ -76,6 +76,7 @@ def test_import_pulls_in_no_jax():
     "sparktorch_tpu_torch.parallel.mesh,"
     "sparktorch_tpu_torch.parallel.sharding_rules,"
     "sparktorch_tpu_torch.train.sharded",
+    "sparktorch_tpu_torch.parallel.tp",
 ])
 def test_obs_and_tracing_modules_import_no_jax(module):
     # The copies of the JAX package's obs/log.py and obs/prom.py, the
@@ -84,7 +85,7 @@ def test_obs_and_tracing_modules_import_no_jax(module):
     # import, each group on its own; the health lane, its replay, the
     # trace analyzer, the package as a whole, the request tracer, the
     # renderer, the port's sparklint and the wire benchmark; the dp × fsdp
-    # mesh, its sharding rules and the sharded trainer.
+    # mesh, its sharding rules and the sharded trainer; the tp layout.
     code = ("import sys, importlib\n"
             f"for name in {module.split(',')!r}:\n"
             "    importlib.import_module(name)\n"

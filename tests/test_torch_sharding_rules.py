@@ -157,8 +157,7 @@ def test_mesh_config_resolves_dp_times_fsdp():
 
 
 @pytest.mark.parametrize("axis,where", [
-    ("tp", "step 6 part 2"), ("sp", "step 6 part 3"),
-    ("ep", "step 6 part 4"), ("pp", "step 7")])
+    ("sp", "step 6 part 3"), ("ep", "step 6 part 4"), ("pp", "step 7")])
 def test_axes_not_ported_raise_naming_the_roadmap(axis, where):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{where}"):
         MeshConfig(**{axis: 2})
